@@ -1,23 +1,33 @@
-// Pooled cost volumes at every sub-block size, in one pass.
+// Pooled cost volumes at the sub-block sizes, in one pass.
 //
 // Replaces blockbasedmotionestimation_tpu/kernels/cv_diff.py delta_pooled_cvs
-// (kernel B) and its "planes"/"reshape" variants: one kernel, generic over bs.
-// For parent block P of frame 1 and every delta (dy, dx) in [-r, r]^2 it
+// (kernel B: its static diff + deeper-size calls and its "planes"/"reshape"
+// variant) and deep_pooled_cvs (kernel C): one kernel, generic over bs.  For
+// parent block P of frame 1 and every delta (dy, dx) in [-r, r]^2 it
 // computes |P - W[r+dy.., r+dx..]| (or the square) against the parent's
 // frame-2 window W, sums it over 2x2 cells (cur = 2), and pools 2x2 cells up
 // to cur = bs.  Output for size cur is the reference's _compute_cv layout with
 // a leading batch dim: cv[b, dy*side + dx, py*f + sy, px*f + sx], f = bs/cur.
 // Sizes whose worst-case cost fits stay 16-bit (is16_mask), the rest int32.
 //
+// What is written is narrowed two ways, with the same diffs and pooling:
+//   - emit_mask: bit i set writes size 2 << i; the others are pooled in
+//     shared memory only (kernel C writes cur > fuse_max and cur = bs);
+//   - store_r >= 0: the cur=2 volume keeps only dx in [-store_r, store_r]
+//     with every dy row, index dy*side_st + (dx - r + store_r) (the stored
+//     band the cur=2 colour step reads; the rest it recomputes).
+//
 // One thread block per (parent, dy): the parent block and the bs window rows
 // that row of deltas reads sit in shared memory; the cur=2 sums of all dx go
 // to shared memory, and each coarser size is pooled from the previous one in
 // shared memory (ping-pong buffers), so every diff is computed once.
 //
-// Bound: device-memory writes.  At the 1080p level-0 main window the volumes
-// are ~1.9 GB per frame (cur=2 alone 1089 deltas x 640 x 1024 cells x 2 B);
-// the diffs are ~1.1 G integer ops per frame.  Each warp writes its cells in
-// runs of consecutive sx, so the cur=2 stores are 32-byte runs.
+// Bound: device-memory writes.  At the 1080p level-0 main window the dense
+// volumes are ~1.9 GB per frame (cur=2 alone 1089 deltas x 640 x 1024 cells x
+// 2 B; the band at store_r = 4 keeps 297 of the 1089); the diffs are ~1.1 G
+// integer ops per frame.  Each warp writes its cells in runs of consecutive
+// sx, so the cur=2 stores are 32-byte runs.  Offsets are 64-bit: the B=8
+// dense cur=2 volume has 5.7 G entries.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -40,8 +50,9 @@ __device__ __forceinline__ void store_cost(void* base, bool is16, size_t o,
 
 __global__ void pooled_cvs_kernel(const uint8_t* __restrict__ im1,
                                   const uint8_t* __restrict__ windows,
-                                  CvOuts outs, int ncur, int is16_mask, int h,
-                                  int w, int bs, int side, int ssd,
+                                  CvOuts outs, int ncur, int is16_mask,
+                                  int emit_mask, int h, int w, int bs,
+                                  int side, int store_r, int ssd,
                                   int buf1_len) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int npx = w / bs;
@@ -76,8 +87,13 @@ __global__ void pooled_cvs_kernel(const uint8_t* __restrict__ im1,
 
   const size_t ndelta = static_cast<size_t>(side) * side;
   int f = f2;
-  // cur = 2: cell sums straight from the pixels
+  // cur = 2: cell sums straight from the pixels; the band keeps dx columns
+  // [lo, lo + side_st) of the side
   {
+    const bool emit = emit_mask & 1;
+    const int side_st = store_r < 0 ? side : 2 * store_r + 1;
+    const int lo = store_r < 0 ? 0 : (side - 1) / 2 - store_r;
+    const size_t nd2 = static_cast<size_t>(side) * side_st;
     const size_t ncol = static_cast<size_t>(npx) * f;
     const size_t plane = static_cast<size_t>(npy) * f * ncol;
     for (int it = threadIdx.x; it < side * f * f; it += blockDim.x) {
@@ -98,9 +114,12 @@ __global__ void pooled_cvs_kernel(const uint8_t* __restrict__ im1,
         }
       }
       buf0[it] = s;
-      const size_t o = (b * ndelta + static_cast<size_t>(dyi) * side + dxi) * plane +
-                       static_cast<size_t>(py * f + sy) * ncol + px * f + sx;
-      store_cost(outs.p[0], is16_mask & 1, o, s);
+      if (emit && dxi >= lo && dxi < lo + side_st) {
+        const size_t o =
+            (b * nd2 + static_cast<size_t>(dyi) * side_st + (dxi - lo)) * plane +
+            static_cast<size_t>(py * f + sy) * ncol + px * f + sx;
+        store_cost(outs.p[0], is16_mask & 1, o, s);
+      }
     }
   }
   // cur = 4 .. bs: 2x2 pooling of the previous size, in shared memory
@@ -108,6 +127,7 @@ __global__ void pooled_cvs_kernel(const uint8_t* __restrict__ im1,
   int* dst = buf1;
   for (int lvl = 1; lvl < ncur; ++lvl) {
     __syncthreads();
+    const bool emit = (emit_mask >> lvl) & 1;
     const int fp = f;
     f >>= 1;
     const size_t ncol = static_cast<size_t>(npx) * f;
@@ -120,9 +140,12 @@ __global__ void pooled_cvs_kernel(const uint8_t* __restrict__ im1,
       const int* q = src + dxi * fp * fp + (2 * sy) * fp + 2 * sx;
       const int s = q[0] + q[1] + q[fp] + q[fp + 1];
       dst[it] = s;
-      const size_t o = (b * ndelta + static_cast<size_t>(dyi) * side + dxi) * plane +
-                       static_cast<size_t>(py * f + sy) * ncol + px * f + sx;
-      store_cost(outs.p[lvl], (is16_mask >> lvl) & 1, o, s);
+      if (emit) {
+        const size_t o =
+            (b * ndelta + static_cast<size_t>(dyi) * side + dxi) * plane +
+            static_cast<size_t>(py * f + sy) * ncol + px * f + sx;
+        store_cost(outs.p[lvl], (is16_mask >> lvl) & 1, o, s);
+      }
     }
     int* tmp = src;
     src = dst;
@@ -135,12 +158,15 @@ __global__ void pooled_cvs_kernel(const uint8_t* __restrict__ im1,
 // im1: (B, h, w) u8 frame-1 level image (parents are its bs x bs blocks);
 // windows: (B * nP, bs + 2r, bs + 2r) u8; side = 2r + 1.
 // outs[i]: volume of cur = 2 << i, (B, side^2, npy * f, npx * f), 16-bit
-// where bit i of is16_mask is set, else int32.
+// where bit i of is16_mask is set, else int32; written where bit i of
+// emit_mask is set (else unused, may be null).  store_r >= 0 narrows outs[0]
+// to (B, side * (2 store_r + 1), h / 2, w / 2); -1 keeps it dense.
 extern "C" int bbme_pooled_cvs(const void* im1, const void* windows,
                                void* const* outs, int ncur, int is16_mask,
-                               int batch, int h, int w, int bs, int side,
-                               int ssd, void* stream) {
+                               int emit_mask, int batch, int h, int w, int bs,
+                               int side, int store_r, int ssd, void* stream) {
   if (ncur < 1 || ncur > kMaxCurs) return static_cast<int>(cudaErrorInvalidValue);
+  if (store_r > (side - 1) / 2) return static_cast<int>(cudaErrorInvalidValue);
   CvOuts o{};
   for (int i = 0; i < ncur; ++i) o.p[i] = outs[i];
   const int f2 = bs / 2;
@@ -158,6 +184,6 @@ extern "C" int bbme_pooled_cvs(const void* im1, const void* windows,
   if (grid.x == 0) return 0;
   pooled_cvs_kernel<<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(im1), static_cast<const uint8_t*>(windows), o,
-      ncur, is16_mask, h, w, bs, side, ssd, buf1_len);
+      ncur, is16_mask, emit_mask, h, w, bs, side, store_r, ssd, buf1_len);
   return static_cast<int>(cudaGetLastError());
 }

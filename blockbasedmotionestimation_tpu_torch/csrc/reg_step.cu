@@ -2,9 +2,12 @@
 //
 // Replaces blockbasedmotionestimation_tpu/kernels/reg_step.py
 // windowed_color_step_rival (kernel D, rounds at cur = bs) and
-// windowed_color_step_pm_rival (kernel D', rounds at cur < bs), and their
-// non-rival forms: one kernel for every round, since the cell layout here is
-// the plain grid and the parent of cell (i, j) is (i / f, j / f).
+// windowed_color_step_pm_rival (kernel D', rounds at cur < bs of the
+// dense-rival form), and their non-rival forms windowed_color_step and
+// windowed_color_step_pm: one kernel for every round on stored volumes,
+// since the cell layout here is the plain grid and the parent of cell
+// (i, j) is (i / f, j / f).  Steps 1, 2 and 4-6 are step_common.cuh's,
+// shared with the hybrid steps (fused_step.cu).
 //
 // One thread per cell (i, j) of colour (ci, cj), i = ci + 2*ii, j = cj + 2*jj:
 //   1. reads its 9 candidate MVs (own + 8 neighbours, the reference's slot
@@ -27,34 +30,14 @@
 // (~0.65 M cells per 1080p frame at cur = 2).  Neighbouring threads are
 // neighbouring cells, so on smooth motion their cost reads are neighbouring
 // addresses of one delta plane.
-#include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "step_common.cuh"
+
 namespace {
 
-__constant__ int kSlotDy[9] = {0, 0, 0, 1, -1, -1, -1, 1, 1};
-__constant__ int kSlotDx[9] = {0, -1, 1, 1, -1, 1, 0, 0, -1};
-constexpr int kBigRank = 127;
-
-__device__ __forceinline__ int border_case(int i, int j, int nby, int nbx) {
-  const bool rows_in = i > 0 && i < nby - 1;
-  const bool cols_in = j > 0 && j < nbx - 1;
-  if (rows_in && cols_in) return 0;     // interior
-  if (i == 0 && cols_in) return 1;      // top row
-  if (i == nby - 1 && cols_in) return 2;  // bottom row
-  if (j == 0 && rows_in) return 3;      // left col
-  if (j == nbx - 1 && rows_in) return 4;  // right col
-  if (i == 0 && j == 0) return 5;       // top-left
-  if (i == 0) return 6;                 // top-right
-  if (j == 0) return 7;                 // bottom-left
-  return 8;                             // bottom-right
-}
-
-__device__ __forceinline__ int load_cost(const void* base, bool is16, size_t o) {
-  return is16 ? static_cast<int>(static_cast<const uint16_t*>(base)[o])
-              : static_cast<const int*>(base)[o];
-}
+using namespace bbme_step;
 
 __global__ void color_step_kernel(int* __restrict__ grid,
                                   const void* __restrict__ cv, int cv16,
@@ -67,39 +50,15 @@ __global__ void color_step_kernel(int* __restrict__ grid,
                                   int ci, int cj, float lam) {
   const long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (idx >= total) return;
-  const int mc = (nby - ci + 1) / 2;
-  const int nc = (nbx - cj + 1) / 2;
-  const int jj = static_cast<int>(idx % nc);
-  const long long t = idx / nc;
-  const int ii = static_cast<int>(t % mc);
-  const long long b = t / mc;
-  const int i = ci + 2 * ii;
-  const int j = cj + 2 * jj;
-  const int nby_t = h / cur;
-  const int nbx_t = w / cur;
-  const int cs = border_case(i, j, nby_t, nbx_t);
-
+  const Cell c = cell_of(idx, nby, nbx, ci, cj);
   int cx[9], cy[9], rank[9];
   bool present[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int gi = i + kSlotDy[k];
-    const int gj = j + kSlotDx[k];
-    const bool in_grid = gi >= 0 && gi < nby && gj >= 0 && gj < nbx;
-    cx[k] = 0;
-    cy[k] = 0;
-    if (in_grid) {
-      const size_t o = ((b * nby + gi) * nbx + gj) * 2;
-      cx[k] = grid[o];
-      cy[k] = grid[o + 1];
-    }
-    rank[k] = rank_table[cs * 9 + k];
-    present[k] = rank[k] < kBigRank && gi >= 0 && gi < nby_t && gj >= 0 && gj < nbx_t;
-  }
+  load_candidates(grid, rank_table, c, nby, nbx, h / cur, w / cur, cx, cy,
+                  rank, present);
 
   const int npy = nby / f;
   const int npx = nbx / f;
-  const size_t po = ((b * npy + i / f) * npx + j / f) * 2;
+  const size_t po = ((c.b * npy + c.i / f) * npx + c.j / f) * 2;
   const int pmx = pm[po];
   const int pmy = pm[po + 1];
   const int rpmx = rpm ? rpm[po] : 0;
@@ -107,51 +66,32 @@ __global__ void color_step_kernel(int* __restrict__ grid,
   const int side = 2 * r + 1;
   const int side2 = 2 * r2 + 1;
   const size_t plane = static_cast<size_t>(nby) * nbx;
-  const size_t cell = static_cast<size_t>(i) * nbx + j;
+  const size_t cell = static_cast<size_t>(c.i) * nbx + c.j;
 
-  float best_e = 0.0f;
-  int best_r = 0;
-  int best = 0;
+  int cost[9];
+  bool usable[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const int ddx = cx[k] - pmx;
     const int ddy = cy[k] - pmy;
     const bool in_window = ddx >= -r && ddx <= r && ddy >= -r && ddy <= r;
     bool evaluable = in_window;
-    int cost = 0;
+    cost[k] = 0;
     if (in_window) {
       const size_t key = static_cast<size_t>(ddy + r) * side + (ddx + r);
-      cost = load_cost(cv, cv16, (b * side * side + key) * plane + cell);
+      cost[k] = load_cost(cv, cv16, (c.b * side * side + key) * plane + cell);
     } else if (rcv) {
       const int rdx = cx[k] - rpmx;
       const int rdy = cy[k] - rpmy;
       if (rdx >= -r2 && rdx <= r2 && rdy >= -r2 && rdy <= r2) {
         const size_t key = static_cast<size_t>(rdy + r2) * side2 + (rdx + r2);
-        cost = load_cost(rcv, rcv16, (b * side2 * side2 + key) * plane + cell);
+        cost[k] = load_cost(rcv, rcv16, (c.b * side2 * side2 + key) * plane + cell);
         evaluable = true;
       }
     }
-    const int tx = j * cur + cx[k];
-    const int ty = i * cur + cy[k];
-    const bool in_img = tx >= 0 && tx <= w - cur && ty >= 0 && ty <= h - cur;
-    int smooth = 0;
-#pragma unroll
-    for (int q = 0; q < 9; ++q) {
-      if (present[q]) smooth += abs(cx[k] - cx[q]) + abs(cy[k] - cy[q]);
-    }
-    const float e = (present[k] && in_img && evaluable)
-                        ? __fadd_rn(__int2float_rn(cost),
-                                    __fmul_rn(lam, __int2float_rn(smooth)))
-                        : FLT_MAX;
-    if (k == 0 || e < best_e || (e == best_e && rank[k] < best_r)) {
-      best_e = e;
-      best_r = rank[k];
-      best = k;
-    }
+    usable[k] = present[k] && evaluable && in_image(c, cur, h, w, cx[k], cy[k]);
   }
-  const size_t o = ((b * nby + i) * nbx + j) * 2;
-  grid[o] = cx[best];
-  grid[o + 1] = cy[best];
+  finish_step(grid, c, nby, nbx, lam, cx, cy, rank, present, cost, usable);
 }
 
 }  // namespace

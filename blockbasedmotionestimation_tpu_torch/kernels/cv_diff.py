@@ -1,4 +1,5 @@
-"""Pooled cost volumes at every sub-block size (replaces ``delta_pooled_cvs``).
+"""Pooled cost volumes at the sub-block sizes (replaces ``delta_pooled_cvs``,
+kernel B, and ``deep_pooled_cvs``, kernel C).
 
 ``pooled_cvs`` returns ``{cur: volume}`` for cur = 2, 4, ..., bs.  Each
 volume is the reference's ``ops/windowed.py:_compute_cv`` layout with a
@@ -8,14 +9,24 @@ sub-block (sy, sx) of parent (py, px) against the frame-2 window shifted by
 (dy, dx).  Volumes are stored in the reference's ``_cv_dtype`` widths:
 uint16 while the worst-case cost fits (sad at cur <= 16), int32 otherwise.
 
-For CPU tensors the wrapper runs ``pooled_cvs_plain`` (the ``_compute_cv``
-code in torch); for CUDA tensors it launches ``csrc/cv_diff.cu``.
+Two options narrow what is written:
+  * ``store_r``: the cur=2 volume keeps only dx in [-store_r, store_r], with
+    every dy row: (B, side * side_st, h/2, w/2), side_st = 2*store_r + 1,
+    index ``(dy+r)*side_st + (dx+store_r)`` (the reference's
+    ``delta_pooled_cvs(store_r2=...)`` band);
+  * ``emit``: the sizes to write; the others are pooled but never stored.
+``deep_pooled_cvs`` (kernel C) is the call that writes only cur > fuse_max
+and cur = bs, with its own launch count.
+
+For CPU tensors the wrappers run ``pooled_cvs_plain`` (the ``_compute_cv``
+code in torch); for CUDA tensors they launch ``csrc/cv_diff.cu``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Iterable
 
 import torch
 
@@ -32,11 +43,35 @@ def _curs(bs: int) -> list[int]:
     return [1 << k for k in range(1, bs.bit_length())]
 
 
+def deep_curs(bs: int, fuse_max: int) -> list[int]:
+    """The sizes kernel C writes: those above fuse_max, and bs."""
+    return [c for c in _curs(bs) if c > fuse_max or c == bs]
+
+
 def _check_cost(cost: str) -> None:
     if cost not in ("sad", "ssd"):
         raise NotImplementedError(
             f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 9)"
         )
+
+
+def _check_options(bs: int, r: int, store_r: int | None, emit) -> list[int]:
+    """The emitted sizes, ascending; raises on a bad store_r or emit set."""
+    curs = _curs(bs)
+    emit = curs if emit is None else sorted(set(emit))
+    if not emit or any(c not in curs for c in emit):
+        raise ValueError(f"emit must be a non-empty subset of {curs}, got {emit}")
+    if store_r is not None:
+        if not 0 <= store_r <= r:
+            raise ValueError(f"need 0 <= store_r <= r = {r}, got {store_r}")
+        if 2 not in emit:
+            raise ValueError("store_r narrows the cur=2 volume, which emit leaves out")
+    return emit
+
+
+def _shape(b: int, side: int, h: int, w: int, cur: int, store_r: int | None):
+    nd = side * (2 * store_r + 1) if cur == 2 and store_r is not None else side * side
+    return (b, nd, h // cur, w // cur)
 
 
 def pooled_cvs_plain(
@@ -45,10 +80,14 @@ def pooled_cvs_plain(
     bs: int,
     r: int,
     cost: str,
+    *,
+    store_r: int | None = None,
+    emit: Iterable[int] | None = None,
 ) -> dict[int, torch.Tensor]:
-    """All sizes' volumes with torch ops: one delta row per step, the row's
-    deltas unfolded, pooled 2x2 from each size to the next."""
+    """The volumes with torch ops: one delta row per step, the row's deltas
+    unfolded, pooled 2x2 from each size to the next."""
     _check_cost(cost)
+    emit = _check_options(bs, r, store_r, emit)
     b, h, w = im1.shape
     npy, npx = h // bs, w // bs
     side = 2 * r + 1
@@ -58,39 +97,50 @@ def pooled_cvs_plain(
         .reshape(b, npy * npx, 1, bs, bs).to(torch.int32)
     )
     out = {
-        c: torch.empty(
-            (b, side * side, npy * (bs // c), npx * (bs // c)),
-            dtype=cv_dtype(c, cost), device=dev,
-        )
-        for c in _curs(bs)
+        c: torch.empty(_shape(b, side, h, w, c, store_r), dtype=cv_dtype(c, cost), device=dev)
+        for c in emit
     }
     for dyi in range(side):
         rows = windows[:, :, dyi : dyi + bs]
         # (B, nP, bs, side, bs) -> (B, nP, side, bs, bs): window of delta dx
         shifted = rows.unfold(-1, bs, 1).permute(0, 1, 3, 2, 4).to(torch.int32)
         d = patches - shifted
-        dmap = d.abs() if cost == "sad" else d * d
-        cvr = dmap
+        cvr = d.abs() if cost == "sad" else d * d
         cur = 1
         while cur < bs:
             n = bs // cur
             cvr = cvr.reshape(b, npy * npx, side, n // 2, 2, n // 2, 2).sum(dim=(4, 6))
             cur *= 2
+            if cur not in out:
+                continue
             f = bs // cur
             vol = (
                 cvr.reshape(b, npy, npx, side, f, f)
                 .permute(0, 3, 1, 4, 2, 5)
                 .reshape(b, side, npy * f, npx * f)
             )
-            out[cur][:, dyi * side : (dyi + 1) * side] = vol.to(out[cur].dtype)
+            if cur == 2 and store_r is not None:
+                st = 2 * store_r + 1
+                vol = vol[:, r - store_r : r + store_r + 1]
+            else:
+                st = side
+            out[cur][:, dyi * st : (dyi + 1) * st] = vol.to(out[cur].dtype)
     return out
 
 
-# bbme_pooled_cvs(im1, windows, outs, ncur, is16_mask, batch, h, w, bs, side,
-#                 ssd, stream)
+def deep_pooled_cvs_plain(
+    im1: torch.Tensor, windows: torch.Tensor, bs: int, r: int, cost: str, fuse_max: int
+) -> dict[int, torch.Tensor]:
+    """Kernel C's volumes with torch ops: ``pooled_cvs_plain`` at
+    ``emit=deep_curs(bs, fuse_max)``."""
+    return pooled_cvs_plain(im1, windows, bs, r, cost, emit=deep_curs(bs, fuse_max))
+
+
+# bbme_pooled_cvs(im1, windows, outs, ncur, is16_mask, emit_mask, batch, h, w,
+#                 bs, side, store_r, ssd, stream)
 ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
-    + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 )
 
 
@@ -99,19 +149,11 @@ def _kernel():
     return _build.entry("bbme_pooled_cvs", ARGTYPES)
 
 
-def pooled_cvs(
-    im1: torch.Tensor,
-    windows: torch.Tensor,
-    bs: int,
-    r: int,
-    cost: str,
-) -> dict[int, torch.Tensor]:
-    """Volumes of every sub-block size; see ``pooled_cvs_plain`` for shapes.
-
-    ``windows`` has edge ``bs + 2*r``; deltas span [-r, r] around the
-    window centre.
-    """
+def _launch(wrapper, im1, windows, bs, r, cost, store_r, emit) -> dict[int, torch.Tensor]:
+    """Check the inputs; run the plain version on the CPU, else launch the
+    kernel, count the launch on ``wrapper`` and return the volumes."""
     _check_cost(cost)
+    emit = _check_options(bs, r, store_r, emit)
     if im1.dtype != torch.uint8 or im1.dim() != 3:
         raise ValueError(f"im1 must be (B, H, W) uint8, got {im1.dtype} {tuple(im1.shape)}")
     b, h, w = im1.shape
@@ -129,7 +171,7 @@ def pooled_cvs(
     if windows.device != im1.device:
         raise ValueError(f"windows on {windows.device}, im1 on {im1.device}")
     if im1.device.type == "cpu":
-        return pooled_cvs_plain(im1, windows, bs, r, cost)
+        return pooled_cvs_plain(im1, windows, bs, r, cost, store_r=store_r, emit=emit)
     if im1.device.type != "cuda":
         raise ValueError(f"unsupported device {im1.device}")
     if not (im1.is_contiguous() and windows.is_contiguous()):
@@ -137,23 +179,48 @@ def pooled_cvs(
     side = 2 * r + 1
     curs = _curs(bs)
     out = {
-        c: torch.empty(
-            (b, side * side, h // c, w // c), dtype=cv_dtype(c, cost),
-            device=im1.device,
-        )
-        for c in curs
+        c: torch.empty(_shape(b, side, h, w, c, store_r), dtype=cv_dtype(c, cost),
+                       device=im1.device)
+        for c in emit
     }
-    ptrs = (ctypes.c_void_p * len(curs))(*(out[c].data_ptr() for c in curs))
-    is16 = sum(1 << i for i, c in enumerate(curs) if out[c].dtype == torch.uint16)
+    ptrs = (ctypes.c_void_p * len(curs))(*(out[c].data_ptr() if c in out else None for c in curs))
+    is16 = sum(1 << i for i, c in enumerate(curs) if cv_dtype(c, cost) == torch.uint16)
+    emit_mask = sum(1 << i for i, c in enumerate(curs) if c in out)
     with torch.cuda.device(im1.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _kernel()(
-            im1.data_ptr(), windows.data_ptr(), ptrs, len(curs), is16,
-            b, h, w, bs, side, int(cost == "ssd"), stream,
+            im1.data_ptr(), windows.data_ptr(), ptrs, len(curs), is16, emit_mask,
+            b, h, w, bs, side, -1 if store_r is None else store_r,
+            int(cost == "ssd"), stream,
         )
-    _build.check(code, "pooled_cvs")
-    pooled_cvs.launches += 1
+    _build.check(code, wrapper.__name__)
+    wrapper.launches += 1
     return out
 
 
+def pooled_cvs(
+    im1: torch.Tensor,
+    windows: torch.Tensor,
+    bs: int,
+    r: int,
+    cost: str,
+    *,
+    store_r: int | None = None,
+    emit: Iterable[int] | None = None,
+) -> dict[int, torch.Tensor]:
+    """Kernel B: the volumes of ``emit`` (every size by default); see
+    ``pooled_cvs_plain`` for shapes.  ``windows`` has edge ``bs + 2*r``;
+    deltas span [-r, r] around the window centre."""
+    return _launch(pooled_cvs, im1, windows, bs, r, cost, store_r, emit)
+
+
+def deep_pooled_cvs(
+    im1: torch.Tensor, windows: torch.Tensor, bs: int, r: int, cost: str, fuse_max: int
+) -> dict[int, torch.Tensor]:
+    """Kernel C: only the volumes the dense rounds read, cur > fuse_max and
+    cur = bs (the hybrid form's rival window)."""
+    return _launch(deep_pooled_cvs, im1, windows, bs, r, cost, None, deep_curs(bs, fuse_max))
+
+
 pooled_cvs.launches = 0
+deep_pooled_cvs.launches = 0

@@ -1,0 +1,260 @@
+"""The hybrid colour steps of the sub-block rounds (kernels E and F).
+
+Replace the TPU kernels ``windowed_color_step_pm_hybrid`` (E) and
+``windowed_color_step_pm_hybrid_tail`` (F).  Each is one colour step, in
+place on the MV grid like ``kernels.reg_step.color_step``, whose candidate
+costs come from where the hybrid form keeps them:
+
+  * E (rounds cur <= fuse_max): main-window candidates from the dense main
+    volume at cur; rival candidates (in the rival window, not in the main
+    one) recomputed against the rival window's pixels;
+  * F (the cur = 2 round with the stored band): main-window candidates with
+    |dx - pm_x| <= store_r from the band (``cv_diff.pooled_cvs(store_r=)``),
+    the other main-window candidates recomputed against the main window's
+    pixels, rival candidates against the rival window's.
+
+A recomputed cost is the cur x cur SAD/SSD of the cell's frame-1 sub-block
+against the window the volumes were built from (kernel A's output, with its
+zero padding), so it equals the stored value bit for bit.
+
+Layouts (batch written out), beside ``reg_step``'s grid / pm / rpm:
+  im1:  (B, h, w) u8 frame-1 level image;
+  win:  (B, nP, bs + 2r, bs + 2r) u8 main windows (F);
+  rwin: (B, nP, bs + 2r2, bs + 2r2) u8 rival windows;
+  cv:   (B, side^2, nby, nbx) main volume at cur (E);
+  band: (B, side * (2 store_r + 1), nby, nbx) stored cur=2 band (F).
+
+For CPU tensors the wrappers run ``color_step_hybrid_plain`` /
+``color_step_hybrid_tail_plain``; for CUDA tensors they launch
+``csrc/fused_step.cu``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from blockbasedmotionestimation_tpu_torch.kernels import _build
+from blockbasedmotionestimation_tpu_torch.kernels import reg_step as rs
+
+
+def recompute_costs(
+    im1: torch.Tensor,   # (B, h, w) u8
+    win: torch.Tensor,   # (B, nP, bs + 2R, bs + 2R) u8
+    ddy: torch.Tensor,   # (B, m, n, 9) deltas from the window centres
+    ddx: torch.Tensor,
+    radius: int,
+    cur: int,
+    ci: int,
+    cj: int,
+    cost: str,
+) -> torch.Tensor:
+    """(B, m, n, 9) int32 costs of colour (ci, cj)'s cells recomputed from
+    window pixels at the (clipped) candidate deltas, with the torch ops of
+    ``cv_diff.pooled_cvs_plain``."""
+    b, h, w = im1.shape
+    m, n = ddy.shape[1:3]
+    ws = win.shape[-1]
+    f = (ws - 2 * radius) // cur
+    npx = w // (f * cur)
+    dev = im1.device
+    i = ci + 2 * torch.arange(m, device=dev)
+    j = cj + 2 * torch.arange(n, device=dev)
+    # the cell's parent, and its sub-block's top-left inside the window
+    p = ((i // f)[:, None] * npx + (j // f)[None, :])[None, :, :, None]
+    oy = ((i % f) * cur)[None, :, None, None]
+    ox = ((j % f) * cur)[None, None, :, None]
+    top = p * ws * ws + (oy + radius + ddy.clamp(-radius, radius)) * ws \
+        + (ox + radius + ddx.clamp(-radius, radius))  # (B, m, n, 9)
+    ar = torch.arange(cur, device=dev)
+    idx = top[..., None, None] + ar[:, None] * ws + ar[None, :]  # (B, m, n, 9, cur, cur)
+    vals = torch.gather(win.reshape(b, -1), 1, idx.reshape(b, -1).long()).reshape(idx.shape)
+    blocks = (
+        im1.reshape(b, h // cur, cur, w // cur, cur).permute(0, 1, 3, 2, 4)
+        [:, ci::2, cj::2][:, :m, :n]
+    )  # (B, m, n, cur, cur)
+    d = blocks[:, :, :, None].to(torch.int32) - vals.to(torch.int32)
+    dmap = d.abs() if cost == "sad" else d * d
+    return dmap.sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def _hybrid_plain(
+    grid, vol, pm, *, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, cj, lam_mult, cost
+) -> None:
+    """E (win None: vol is the dense main volume) or F (vol is the band)."""
+    f = grid.shape[1] // pm.shape[1]
+    cands, rank, present, in_img = rs.step_candidates(grid, cur, h, w, ci, cj)
+    ddy, ddx, in_window = rs.window_deltas(cands, pm, f, ci, cj, r)
+    rdy, rdx, in_rival = rs.window_deltas(cands, rpm, f, ci, cj, r2)
+    costs = recompute_costs(im1, rwin, rdy, rdx, r2, cur, ci, cj, cost)
+    if win is None:
+        costs = torch.where(in_window, rs.select_costs(vol[:, :, ci::2, cj::2], ddy, ddx, r), costs)
+    else:
+        tail = recompute_costs(im1, win, ddy, ddx, r, cur, ci, cj, cost)
+        band = rs.select_costs(vol[:, :, ci::2, cj::2], ddy, ddx, r, store_r)
+        in_band = ddx.abs() <= store_r
+        costs = torch.where(in_window, torch.where(in_band, band, tail), costs)
+    rs.step_commit(grid, ci, cj, cands, costs, in_window | in_rival, present, in_img,
+                   rank, lam_mult)
+
+
+def color_step_hybrid_plain(
+    grid, cv, pm, *, im1, rwin, rpm, cur, h, w, r, r2, ci, cj, lam_mult, cost
+) -> None:
+    """Kernel E with torch ops: update colour (ci, cj) of ``grid`` in place."""
+    _hybrid_plain(grid, cv, pm, im1=im1, win=None, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w,
+                  r=r, store_r=r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+
+
+def color_step_hybrid_tail_plain(
+    grid, band, pm, *, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, cj, lam_mult,
+    cost,
+) -> None:
+    """Kernel F with torch ops: update colour (ci, cj) of ``grid`` in place."""
+    _hybrid_plain(grid, band, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w,
+                  r=r, store_r=store_r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+
+
+# bbme_color_step_hybrid(grid, cv, cv16, im1, rwin, pm, rpm, rank_table, batch,
+#                        nby, nbx, f, cur, h, w, r, r2, ssd, ci, cj, lam, stream)
+ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+    + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+)
+# bbme_color_step_hybrid_tail(grid, band, band16, im1, win, rwin, pm, rpm,
+#                             rank_table, batch, nby, nbx, f, cur, h, w, r,
+#                             store_r, r2, ssd, ci, cj, lam, stream)
+TAIL_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(tail: bool):
+    if tail:
+        return _build.entry("bbme_color_step_hybrid_tail", TAIL_ARGTYPES)
+    return _build.entry("bbme_color_step_hybrid", ARGTYPES)
+
+
+def _check_windows(name, t, b, n_p, edge, dev):
+    if t.dtype != torch.uint8 or tuple(t.shape) != (b, n_p, edge, edge):
+        raise ValueError(f"{name} must be ({b}, {n_p}, {edge}, {edge}) uint8, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, grid on {dev}")
+
+
+def _checked(grid, vol, pm, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, cj, cost):
+    """Validate one hybrid step's inputs; returns f (cells per parent edge)."""
+    rs._check_grid(grid, cur, h, w, ci, cj)
+    if cost not in ("sad", "ssd"):
+        raise NotImplementedError(f"cost={cost!r}: only sad and ssd are ported")
+    if not 0 <= store_r <= r:
+        raise ValueError(f"need 0 <= store_r <= r = {r}, got {store_r}")
+    b, nby, nbx, _ = grid.shape
+    dev = grid.device
+    rs._check_volume("volume", vol, b, (2 * r + 1) * (2 * store_r + 1), nby, nbx, dev)
+    rs._check_centres("pm", pm, b, nby, nbx, dev)
+    rs._check_centres("rpm", rpm, b, nby, nbx, dev)
+    if rpm.shape != pm.shape:
+        raise ValueError("rpm and pm must have the same shape")
+    if im1.dtype != torch.uint8 or tuple(im1.shape) != (b, h, w) or im1.device != dev:
+        raise ValueError(f"im1 must be ({b}, {h}, {w}) uint8 on {dev}, got "
+                         f"{im1.dtype} {tuple(im1.shape)} on {im1.device}")
+    f = nby // pm.shape[1]
+    n_p = pm.shape[1] * pm.shape[2]
+    if win is not None:
+        _check_windows("win", win, b, n_p, f * cur + 2 * r, dev)
+    _check_windows("rwin", rwin, b, n_p, f * cur + 2 * r2, dev)
+    tensors = [grid, vol, pm, im1, rwin, rpm] + ([win] if win is not None else [])
+    if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the hybrid colour steps need contiguous tensors")
+    return f
+
+
+def color_step_hybrid(
+    grid: torch.Tensor,
+    cv: torch.Tensor,
+    pm: torch.Tensor,
+    *,
+    im1: torch.Tensor,
+    rwin: torch.Tensor,
+    rpm: torch.Tensor,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    r2: int,
+    ci: int,
+    cj: int,
+    lam_mult: float,
+    cost: str,
+) -> None:
+    """Kernel E: one colour step, in place; see the module docstring."""
+    f = _checked(grid, cv, pm, im1, None, rwin, rpm, cur, h, w, r, r, r2, ci, cj, cost)
+    if grid.device.type == "cpu":
+        color_step_hybrid_plain(grid, cv, pm, im1=im1, rwin=rwin, rpm=rpm, cur=cur, h=h,
+                                w=w, r=r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+        return
+    b, nby, nbx, _ = grid.shape
+    with torch.cuda.device(grid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _kernel(False)(
+            grid.data_ptr(), cv.data_ptr(), int(cv.dtype == torch.uint16), im1.data_ptr(),
+            rwin.data_ptr(), pm.data_ptr(), rpm.data_ptr(),
+            rs._rank_table_on(grid.device).data_ptr(),
+            b, nby, nbx, f, cur, h, w, r, r2, int(cost == "ssd"), ci, cj,
+            float(lam_mult), stream,
+        )
+    _build.check(code, "color_step_hybrid")
+    color_step_hybrid.launches += 1
+
+
+def color_step_hybrid_tail(
+    grid: torch.Tensor,
+    band: torch.Tensor,
+    pm: torch.Tensor,
+    *,
+    im1: torch.Tensor,
+    win: torch.Tensor,
+    rwin: torch.Tensor,
+    rpm: torch.Tensor,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    store_r: int,
+    r2: int,
+    ci: int,
+    cj: int,
+    lam_mult: float,
+    cost: str,
+) -> None:
+    """Kernel F: one colour step on the stored band, in place; see the
+    module docstring."""
+    f = _checked(grid, band, pm, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, cj, cost)
+    if grid.device.type == "cpu":
+        color_step_hybrid_tail_plain(
+            grid, band, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w, r=r,
+            store_r=store_r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost,
+        )
+        return
+    b, nby, nbx, _ = grid.shape
+    with torch.cuda.device(grid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _kernel(True)(
+            grid.data_ptr(), band.data_ptr(), int(band.dtype == torch.uint16),
+            im1.data_ptr(), win.data_ptr(), rwin.data_ptr(), pm.data_ptr(), rpm.data_ptr(),
+            rs._rank_table_on(grid.device).data_ptr(),
+            b, nby, nbx, f, cur, h, w, r, store_r, r2, int(cost == "ssd"), ci, cj,
+            float(lam_mult), stream,
+        )
+    _build.check(code, "color_step_hybrid_tail")
+    color_step_hybrid_tail.launches += 1
+
+
+color_step_hybrid.launches = 0
+color_step_hybrid_tail.launches = 0

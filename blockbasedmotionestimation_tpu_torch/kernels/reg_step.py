@@ -1,8 +1,12 @@
 """One colour step of the windowed regularizer, in place on the MV grid.
 
 Replaces the TPU kernels ``windowed_color_step_rival`` (rounds at cur = bs)
-and ``windowed_color_step_pm_rival`` (rounds at cur < bs) with one step that
-serves every round, with or without rival windows.
+and ``windowed_color_step_pm_rival`` (rounds at cur < bs of the dense-rival
+form), and without rival windows ``windowed_color_step`` and
+``windowed_color_step_pm``, with one step that serves every round on stored
+volumes.  ``step_candidates``, ``window_deltas``, ``select_costs`` and
+``step_commit`` are the plain pieces the hybrid steps (``kernels.fused_step``)
+share.
 
 Layouts (batch written out):
   grid: (B, nby, nbx, 2) int32 MVs (x, y) at sub-block size cur, updated in
@@ -32,16 +36,18 @@ _F32_MAX = float(np.finfo(np.float32).max)
 
 
 def select_costs(
-    cv_slab: torch.Tensor,  # (B, side^2, m, n) volume at one colour's cells
+    cv_slab: torch.Tensor,  # (B, (2r+1)(2r_x+1), m, n) volume at one colour's cells
     ddy: torch.Tensor,      # (B, m, n, 9) candidate delta rows
     ddx: torch.Tensor,      # (B, m, n, 9) candidate delta cols
     r: int,
+    r_x: int | None = None,
 ) -> torch.Tensor:
-    """(B, m, n, 9) f32 costs at the (clipped) candidate deltas."""
-    side = 2 * r + 1
-    key = (ddy + r).clamp(0, side - 1) * side + (ddx + r).clamp(0, side - 1)
+    """(B, m, n, 9) int32 costs at the (clipped) candidate deltas of a
+    volume of dy in [-r, r] and dx in [-r_x, r_x] (r_x = r: square)."""
+    r_x = r if r_x is None else r_x
+    key = (ddy + r).clamp(0, 2 * r) * (2 * r_x + 1) + (ddx + r_x).clamp(0, 2 * r_x)
     vals = torch.gather(cv_slab.to(torch.int32), 1, key.permute(0, 3, 1, 2).long())
-    return vals.permute(0, 2, 3, 1).to(torch.float32)
+    return vals.permute(0, 2, 3, 1)
 
 
 def _parent_slab(mv: torch.Tensor, f: int, ci: int, cj: int, m: int, n: int):
@@ -51,25 +57,14 @@ def _parent_slab(mv: torch.Tensor, f: int, ci: int, cj: int, m: int, n: int):
     return mv[:, rows][:, :, cols]
 
 
-def color_step_plain(
-    grid: torch.Tensor,
-    cv: torch.Tensor,
-    pm: torch.Tensor,
-    *,
-    cur: int,
-    h: int,
-    w: int,
-    r: int,
-    ci: int,
-    cj: int,
-    lam_mult: float,
-    rcv: torch.Tensor | None = None,
-    rpm: torch.Tensor | None = None,
-    r2: int = 0,
-) -> None:
-    """Update the cells of colour (ci, cj) of ``grid`` in place."""
-    b, nby, nbx, _ = grid.shape
-    f = nby // pm.shape[1]
+def step_candidates(grid: torch.Tensor, cur: int, h: int, w: int, ci: int, cj: int):
+    """The 9 candidates of the cells of colour (ci, cj) and their masks.
+
+    Returns cands (B, m, n, 9, 2) int32 (the reference's slot order, 0 off
+    the grid), rank (m, n, 9) tie-break ranks, present (m, n, 9) and in_img
+    (B, m, n, 9): the candidate's target block lies in the h x w frame.
+    """
+    _, nby, nbx, _ = grid.shape
     dev = grid.device
     m, n = (nby - ci + 1) // 2, (nbx - cj + 1) // 2
     nby_t, nbx_t = h // cur, w // cur
@@ -95,40 +90,81 @@ def color_step_plain(
         (rank < reg._BIG_RANK)
         & (ty_ >= 0) & (ty_ < nby_t) & (tx_ >= 0) & (tx_ < nbx_t)
     )
-
-    cx, cy = cands[..., 0], cands[..., 1]  # (B, m, n, 9)
-    pms = _parent_slab(pm, f, ci, cj, m, n)
-    ddx = cx - pms[..., None, 0]
-    ddy = cy - pms[..., None, 1]
-    in_window = (ddx.abs() <= r) & (ddy.abs() <= r)
-    t_x = (gj * cur)[..., None] + cx
-    t_y = (gi * cur)[..., None] + cy
+    t_x = (gj * cur)[..., None] + cands[..., 0]
+    t_y = (gi * cur)[..., None] + cands[..., 1]
     in_img = (t_x >= 0) & (t_x <= w - cur) & (t_y >= 0) & (t_y <= h - cur)
+    return cands, rank, present, in_img
 
-    costs = select_costs(cv[:, :, ci::2, cj::2], ddy, ddx, r)
-    if rcv is not None:
-        # own window first; the rival cost only for own-excluded candidates
-        rps = _parent_slab(rpm, f, ci, cj, m, n)
-        rdx = cx - rps[..., None, 0]
-        rdy = cy - rps[..., None, 1]
-        in_rival = (rdx.abs() <= r2) & (rdy.abs() <= r2)
-        rcosts = select_costs(rcv[:, :, ci::2, cj::2], rdy, rdx, r2)
-        costs = torch.where(in_window, costs, rcosts)
-        in_window = in_window | in_rival
 
+def window_deltas(cands: torch.Tensor, centres: torch.Tensor, f: int, ci: int, cj: int, r: int):
+    """(ddy, ddx, inside), each (B, m, n, 9): the candidates' deltas from
+    their parents' window centres (centres: (B, npy, npx, 2) parent MVs, f
+    cells per parent edge) and whether they lie in the window of radius r."""
+    m, n = cands.shape[1:3]
+    c = _parent_slab(centres, f, ci, cj, m, n)
+    ddx = cands[..., 0] - c[..., None, 0]
+    ddy = cands[..., 1] - c[..., None, 1]
+    return ddy, ddx, (ddx.abs() <= r) & (ddy.abs() <= r)
+
+
+def step_commit(
+    grid: torch.Tensor,
+    ci: int,
+    cj: int,
+    cands: torch.Tensor,
+    costs: torch.Tensor,
+    evaluable: torch.Tensor,
+    present: torch.Tensor,
+    in_img: torch.Tensor,
+    rank: torch.Tensor,
+    lam_mult: float,
+) -> None:
+    """Energy cost + lam * smoothness in f32, the lexicographic (energy, rank)
+    winner of each cell, written in place (reference ``_finish_step``)."""
+    b, m, n = cands.shape[:3]
     cf = cands.to(torch.float32)
     du = (cf[..., :, None, 0] - cf[..., None, :, 0]).abs()
     dv = (cf[..., :, None, 1] - cf[..., None, :, 1]).abs()
     smooth = ((du + dv) * present.to(torch.float32)[..., None, :]).sum(dim=-1)
-    lam = torch.tensor(lam_mult, dtype=torch.float32, device=dev)
+    lam = torch.tensor(lam_mult, dtype=torch.float32, device=grid.device)
     energy = torch.where(
-        present & in_img & in_window, costs + lam * smooth, _F32_MAX
+        present & in_img & evaluable, costs.to(torch.float32) + lam * smooth, _F32_MAX
     )
     winner = reg.select_lexicographic(energy, rank.expand_as(energy))
     new_mv = torch.gather(
         cands, 3, winner[..., None, None].expand(b, m, n, 1, 2)
     )[:, :, :, 0]
     grid[:, ci::2, cj::2] = new_mv
+
+
+def color_step_plain(
+    grid: torch.Tensor,
+    cv: torch.Tensor,
+    pm: torch.Tensor,
+    *,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    ci: int,
+    cj: int,
+    lam_mult: float,
+    rcv: torch.Tensor | None = None,
+    rpm: torch.Tensor | None = None,
+    r2: int = 0,
+) -> None:
+    """Update the cells of colour (ci, cj) of ``grid`` in place."""
+    f = grid.shape[1] // pm.shape[1]
+    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj)
+    ddy, ddx, in_window = window_deltas(cands, pm, f, ci, cj, r)
+    costs = select_costs(cv[:, :, ci::2, cj::2], ddy, ddx, r)
+    if rcv is not None:
+        # own window first; the rival cost only for own-excluded candidates
+        rdy, rdx, in_rival = window_deltas(cands, rpm, f, ci, cj, r2)
+        rcosts = select_costs(rcv[:, :, ci::2, cj::2], rdy, rdx, r2)
+        costs = torch.where(in_window, costs, rcosts)
+        in_window = in_window | in_rival
+    step_commit(grid, ci, cj, cands, costs, in_window, present, in_img, rank, lam_mult)
 
 
 # bbme_color_step(grid, cv, cv16, rcv, rcv16, pm, rpm, rank_table, batch, nby,
@@ -150,8 +186,19 @@ def _rank_table_on(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(reg._RANK_TABLE, device=device).contiguous()
 
 
-def _check_volume(name, vol, b, side, nby, nbx, dev):
-    want = (b, side * side, nby, nbx)
+def _check_grid(grid, cur, h, w, ci, cj):
+    if grid.dtype != torch.int32 or grid.dim() != 4 or grid.shape[3] != 2:
+        raise ValueError(f"grid must be (B, nby, nbx, 2) int32, got {grid.dtype} {tuple(grid.shape)}")
+    if tuple(grid.shape[1:3]) != (h // cur, w // cur):
+        raise ValueError(f"grid {tuple(grid.shape[1:3])} does not tile a {h}x{w} frame at cur={cur}")
+    if ci not in (0, 1) or cj not in (0, 1):
+        raise ValueError(f"colour must be (0|1, 0|1), got ({ci}, {cj})")
+    if grid.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {grid.device}")
+
+
+def _check_volume(name, vol, b, nd, nby, nbx, dev):
+    want = (b, nd, nby, nbx)
     if tuple(vol.shape) != want or vol.dtype not in (torch.uint16, torch.int32):
         raise ValueError(
             f"{name} must be {want} uint16/int32, got {vol.dtype} {tuple(vol.shape)}"
@@ -189,20 +236,15 @@ def color_step(
     r2: int = 0,
 ) -> None:
     """One colour step, in place; see the module docstring for layouts."""
-    if grid.dtype != torch.int32 or grid.dim() != 4 or grid.shape[3] != 2:
-        raise ValueError(f"grid must be (B, nby, nbx, 2) int32, got {grid.dtype} {tuple(grid.shape)}")
+    _check_grid(grid, cur, h, w, ci, cj)
     b, nby, nbx, _ = grid.shape
     dev = grid.device
-    if (nby, nbx) != (h // cur, w // cur):
-        raise ValueError(f"grid {nby}x{nbx} does not tile a {h}x{w} frame at cur={cur}")
-    if ci not in (0, 1) or cj not in (0, 1):
-        raise ValueError(f"colour must be (0|1, 0|1), got ({ci}, {cj})")
-    _check_volume("cv", cv, b, 2 * r + 1, nby, nbx, dev)
+    _check_volume("cv", cv, b, (2 * r + 1) ** 2, nby, nbx, dev)
     _check_centres("pm", pm, b, nby, nbx, dev)
     if (rcv is None) != (rpm is None):
         raise ValueError("rcv and rpm go together")
     if rcv is not None:
-        _check_volume("rcv", rcv, b, 2 * r2 + 1, nby, nbx, dev)
+        _check_volume("rcv", rcv, b, (2 * r2 + 1) ** 2, nby, nbx, dev)
         _check_centres("rpm", rpm, b, nby, nbx, dev)
         if rpm.shape != pm.shape:
             raise ValueError("rpm and pm must have the same shape")
@@ -211,8 +253,6 @@ def color_step(
     if dev.type == "cpu":
         color_step_plain(grid, cv, pm, **kw)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     tensors = [grid, cv, pm] + ([rcv, rpm] if rcv is not None else [])
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("color_step needs contiguous tensors")

@@ -4,8 +4,9 @@ Per pyramid level, coarsest to finest: transfer the coarser level's MVs as
 predictions (x2, one per fine block), then run the fused windowed level
 (``ops.windowed.windowed_level``).  The result at each level is the stride-1
 MV grid.  Every entry point takes uint8 frames as torch tensors (the device
-is theirs) or numpy arrays with an explicit ``device=``; the batch dim is
-written out where the reference vmapped.
+is theirs) or numpy arrays, which go to ``device=`` (CUDA when it is not
+given; ``device="cpu"`` runs the plain versions); the batch dim is written
+out where the reference vmapped.
 
 Only the default schedule is ported: ``regularizer="windowed"`` with
 prediction-centred windows, sad or ssd, with or without rival windows.
@@ -17,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from blockbasedmotionestimation_tpu.config import MotionConfig
+from blockbasedmotionestimation_tpu_torch.config import MotionConfig
 from blockbasedmotionestimation_tpu_torch.ops import pad as pad_ops
 from blockbasedmotionestimation_tpu_torch.ops import resample
 from blockbasedmotionestimation_tpu_torch.ops.windowed import subdivide, windowed_level
@@ -37,9 +38,7 @@ __all__ = [
 def check_config(cfg: MotionConfig) -> None:
     """Raise NotImplementedError for configurations outside the ported slice.
 
-    ``cv_store_radius`` is accepted and has no effect (the dense volumes are
-    bit-identical to the reference's slab recompute); ``search_impl`` is
-    ignored (the device decides).
+    ``search_impl`` is ignored (the device decides).
     """
     if cfg.regularizer != "windowed":
         raise NotImplementedError(
@@ -68,9 +67,9 @@ def _as_frames(x, device, ndim: int) -> torch.Tensor:
             raise ValueError(f"frames are on {x.device}, device={device} was asked")
         t = x
     else:
-        if device is None:
-            raise ValueError("numpy frames need an explicit device=")
-        t = torch.as_tensor(np.asarray(x), device=device)
+        # numpy frames run on the card unless the caller asks for another
+        # device; without CUDA this raises, as device="cuda" does
+        t = torch.as_tensor(np.asarray(x), device="cuda" if device is None else device)
     if t.dtype != torch.uint8 or t.dim() != ndim:
         raise ValueError(f"expected {ndim}-d uint8 frames, got {t.dtype} {tuple(t.shape)}")
     return t
@@ -108,6 +107,7 @@ def estimate_flow_padded(im1p: torch.Tensor, im2p: torch.Tensor, cfg: MotionConf
             im1, im2, pred, bs, ss, float(bs) * cfg.lambda_scale,
             cfg.sweeps_per_round, cost=cfg.cost, rival=cfg.rival_window,
             rival_radius=cfg.rival_radius_at(level),
+            store_radius=cfg.cv_store_radius,
         )
         dense = grid.to(torch.float32)
     return dense

@@ -12,7 +12,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from blockbasedmotionestimation_tpu.config import MotionConfig
+from blockbasedmotionestimation_tpu_torch.config import MotionConfig
 
 
 @dataclasses.dataclass(frozen=True)

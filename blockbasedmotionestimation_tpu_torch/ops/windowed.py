@@ -5,20 +5,27 @@ its untiled path, with the batch dim written out.  Per level:
 
   1. one frame-2 window per parent, centred on the truncated prediction
      (kernel A, ``kernels.gather``);
-  2. the pooled cost volumes at every sub-block size (kernel B,
-     ``kernels.cv_diff``);
+  2. the pooled cost volumes of the main window (kernel B,
+     ``kernels.cv_diff.pooled_cvs``);
   3. the spiral argmin over the cur = bs volume: min cost, then min spiral
      visit rank, out-of-image deltas masked (plain torch; XLA code in the
      reference too);
-  4. with rival windows: each parent's rival centre (``pick_rival``), its
-     window (kernel A) and volumes (kernel B);
+  4. with rival windows: each parent's rival centre (``pick_rival``) and its
+     window (kernel A);
   5. the rounds, cur = bs, bs/2, ..., 2: ``sweeps_per_round`` sweeps of the
-     four colour steps (kernel D, ``kernels.reg_step``), then subdivide.
+     four colour steps, then subdivide.
 
-The reference's TPU default recomputes the rival (and far main) candidates of
-the sub-block rounds from window slabs instead of storing their volumes; it
-is bit-exact against the dense volumes used here (``cv_store_radius`` and the
-hybrid rival path therefore change nothing in this port).
+The form follows the reference's accelerator path.  With rival windows and
+bs % 8 == 0 it is the **hybrid** form: the rival window stores only the
+volumes of cur > fuse_max = min(16, bs/2) and cur = bs (kernel C,
+``cv_diff.deep_pooled_cvs``); rounds cur > fuse_max run the colour step D
+(``kernels.reg_step``) on stored volumes, rounds cur <= fuse_max run E
+(``kernels.fused_step``), which recomputes rival candidates from the rival
+window's pixels.  With ``store_radius`` (0 <= store_radius < ext) the cur=2
+main volume is stored only for |dx delta| <= store_radius and the cur = 2
+round runs F, which also recomputes the main-window candidates beyond that
+band.  Otherwise (no rival windows, or bs % 8 != 0) every size of both
+windows is stored and every round runs D/D'.  All forms give the same bits.
 """
 
 from __future__ import annotations
@@ -26,10 +33,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from blockbasedmotionestimation_tpu.ops.spiral import spiral_offsets
-from blockbasedmotionestimation_tpu_torch.kernels.cv_diff import pooled_cvs
+from blockbasedmotionestimation_tpu_torch.kernels.cv_diff import deep_pooled_cvs, pooled_cvs
+from blockbasedmotionestimation_tpu_torch.kernels.fused_step import (
+    color_step_hybrid,
+    color_step_hybrid_tail,
+)
 from blockbasedmotionestimation_tpu_torch.kernels.reg_step import color_step
 from blockbasedmotionestimation_tpu_torch.ops.search import gather_windows
+from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_offsets
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 COLORS = ((0, 0), (0, 1), (1, 0), (1, 1))
@@ -99,6 +110,12 @@ def subdivide(grid: torch.Tensor) -> torch.Tensor:
     return grid.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
+def hybrid_form(bs: int, rival: bool) -> bool:
+    """Whether a level takes the hybrid rival form (reference
+    ``windowed_level``: rival windows and bs % 8 == 0)."""
+    return rival and bs % 8 == 0
+
+
 def rounds_loop(
     grid: torch.Tensor,
     cvs: dict[int, torch.Tensor],
@@ -112,25 +129,36 @@ def rounds_loop(
     rcvs: dict[int, torch.Tensor] | None = None,
     rpm: torch.Tensor | None = None,
     r2: int = 0,
+    hybrid: dict | None = None,
 ) -> torch.Tensor:
     """The subdivision rounds; consumes (pops) ``cvs``/``rcvs`` round by round.
 
     grid: (B, npy, npx, 2) int32 search winners; returns the stride-1
     (B, h, w, 2) int32 grid.  lambda is lam0 * (sweep + 1) in the first
     round and doubles every round; colours run (0,0), (0,1), (1,0), (1,1).
+    ``hybrid`` (the hybrid form's rounds cur <= fuse_max) holds fuse_max,
+    im1, the rival windows rwin, the cost and, with the stored band,
+    store_r and the main windows win; the cur = 2 round reads them last.
     """
     cur, lam = bs, lam0
     grid = grid.contiguous()
     while cur > 1:
         cv = cvs.pop(cur)
-        rcv = rcvs.pop(cur) if rcvs is not None else None
+        step, kw = color_step, dict(r=r)
+        if hybrid is not None and cur <= hybrid["fuse_max"]:
+            kw.update(im1=hybrid["im1"], rwin=hybrid["rwin"], rpm=rpm, r2=r2,
+                      cost=hybrid["cost"])
+            step = color_step_hybrid
+            if cur == 2 and "store_r" in hybrid:
+                step = color_step_hybrid_tail
+                kw.update(win=hybrid["win"], store_r=hybrid["store_r"])
+        elif rcvs is not None:
+            kw.update(rcv=rcvs.pop(cur), rpm=rpm, r2=r2)
         for sweep in range(sweeps_per_round):
             for ci, cj in COLORS:
-                color_step(
-                    grid, cv, pm, cur=cur, h=h, w=w, r=r, ci=ci, cj=cj,
-                    lam_mult=lam * (sweep + 1), rcv=rcv, rpm=rpm, r2=r2,
-                )
-        del cv, rcv  # free the round's volumes before the next round
+                step(grid, cv, pm, cur=cur, h=h, w=w, ci=ci, cj=cj,
+                     lam_mult=lam * (sweep + 1), **kw)
+        del cv, kw  # free the round's volumes before the next round
         grid = subdivide(grid).contiguous()
         cur >>= 1
         lam *= 2.0
@@ -149,6 +177,7 @@ def windowed_level(
     cost: str = "sad",
     rival: bool = False,
     rival_radius: int | None = None,
+    store_radius: int | None = None,
 ) -> torch.Tensor:
     """Fused block search + windowed regularization; (B, h, w, 2) int32 grid."""
     _, h, w = im1.shape
@@ -169,8 +198,14 @@ def windowed_level(
     windows, by, bx = gather_windows(im2, cy_safe, cx_safe, bs, ext)
     base_mv = torch.stack([bx - ox, by - oy], dim=-1).contiguous()
 
-    cvs = pooled_cvs(im1, windows, bs, ext, cost)
-    del windows
+    hybrid = None
+    if hybrid_form(bs, rival):
+        hybrid = dict(fuse_max=min(16, bs // 2), im1=im1, cost=cost)
+        if store_radius is not None and 0 <= store_radius < ext:
+            hybrid.update(store_r=store_radius, win=windows)
+    cvs = pooled_cvs(im1, windows, bs, ext, cost,
+                     store_r=None if hybrid is None else hybrid.get("store_r"))
+    del windows  # the band's tail keeps its own reference
     best_dy, best_dx = spiral_argmin(cvs[bs], cy_safe, cx_safe, shift, bs, h, w)
     u = torch.where(center_ok, cx_safe + best_dx - ox, 0)
     v = torch.where(center_ok, cy_safe + best_dy - oy, 0)
@@ -187,10 +222,14 @@ def windowed_level(
             im2, oy + rmv[..., 1], ox + rmv[..., 0], bs, r2
         )
         rbase = torch.stack([rvx - ox, rvy - oy], dim=-1).contiguous()
-        rcvs = pooled_cvs(im1, rwindows, bs, r2, cost)
+        if hybrid is None:
+            rcvs = pooled_cvs(im1, rwindows, bs, r2, cost)
+        else:
+            rcvs = deep_pooled_cvs(im1, rwindows, bs, r2, cost, hybrid["fuse_max"])
+            hybrid["rwin"] = rwindows
         del rwindows
 
     return rounds_loop(
         grid0, cvs, base_mv, bs, ext, h, w, lam0, sweeps_per_round,
-        rcvs=rcvs, rpm=rbase, r2=r2,
+        rcvs=rcvs, rpm=rbase, r2=r2, hybrid=hybrid,
     )

@@ -10,6 +10,9 @@ limit:
   - wall time per batch over 10 batches of 8 (min, median, max), fields/s
     at the median, and the peak device memory;
   - wall time per pyramid level, each level synchronised before and after;
+  - launches and device time of each kernel wrapper over one more batch
+    (CUDA events around every launch; B and C share one CUDA kernel, so
+    only the wrappers tell them apart);
   - device time by kernel over one more batch (``torch.profiler``), the
     device total, and the device's idle share of the median batch.
 
@@ -18,6 +21,7 @@ Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import sys
 import time
@@ -40,6 +44,37 @@ def _kernel_us(evt) -> float:
     if evt.device_type != torch.autograd.DeviceType.CUDA:
         return 0.0
     return float(getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0)))
+
+
+@contextlib.contextmanager
+def _timed_kernels(events: dict):
+    """Wrap each kernel wrapper of the level so that every call records
+    (start, end) CUDA events under the wrapper's name."""
+    from blockbasedmotionestimation_tpu_torch.ops import search, windowed
+
+    names = {search: ["_gather"], windowed: [
+        "pooled_cvs", "deep_pooled_cvs", "color_step", "color_step_hybrid",
+        "color_step_hybrid_tail"]}
+    saved = {(m, n): getattr(m, n) for m, ns in names.items() for n in ns}
+
+    def timed(fn):
+        def call(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            events.setdefault(fn.__name__, []).append((start, end))
+            return out
+        return call
+
+    for (m, n), fn in saved.items():
+        setattr(m, n, timed(fn))
+    try:
+        yield
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
 
 
 def main() -> int:
@@ -91,6 +126,15 @@ def main() -> int:
     levels = range(cfg.num_levels - 1, -1, -1)  # the engine runs coarsest first
     print("[profile] per level (ms, synchronised): "
           + ", ".join(f"level {lv} {ms:.3f}" for lv, ms in sorted(zip(levels, level_ms))))
+
+    events: dict = {}
+    with _timed_kernels(events):
+        engine.estimate_flow_batched(im1, im2, cfg)
+    torch.cuda.synchronize()
+    for name, evs in events.items():
+        ms = sum(s.elapsed_time(e) for s, e in evs)
+        print(f"[profile] kernel {name}: {len(evs)} launches, {ms:.3f} ms device time "
+              f"(CUDA events, one batch)")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

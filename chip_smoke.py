@@ -6,16 +6,34 @@ Phases (any failure raises and the script exits non-zero):
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
   2. build: the CUDA kernels compiled from ``csrc/`` with nvcc;
   3. each kernel against its plain PyTorch version on the same CUDA inputs,
-     at the shapes of the 1080p main path, exact equality, with times;
+     at the shapes of the 1080p level 0 at B=8, exact equality, with the
+     kernel's and the plain version's times and the kernel's bound: A (main
+     and rival windows), B (the stored band at store_r 4, then the dense
+     volumes of the dense-rival form), C, D (rival and not, cur 32 and 2),
+     E (cur 4 and 16) and F (cur 2), on random candidates within +-20 of the
+     window centres;
   4. the main path: ``estimate_flow_batched`` with ``MotionConfig(
-     interp_factor=1)`` on 8 seeded-noise 1080p pairs, counting kernel
-     launches and checking the known translation; fields/s;
+     interp_factor=1)`` on 8 seeded-noise 1080p pairs, counting every
+     kernel's launches and checking the known translation; fields/s and
+     peak memory;
+  4b. a two-motion B=8 batch at 1080p: the rival windows decide pixels, the
+     band (cv_store_radius=4) gives the flow of cv_store_radius=None and the
+     hybrid form the flow of the dense-rival form, and every frame equals
+     the plain path on the card;
   5. CUDA equals the CPU (plain) path bit for bit on a two-motion pair at
      the default configuration;
   6. ``estimate_flow_driver`` with ``interp_factor=4`` at 388x584.
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero before printing either.
+
+A kernel's ``bound_ms`` is the larger of its bytes (each input read once,
+each output written once; for the colour steps only the cost entries and
+window pixels this run's candidates need) over the H100's 3.35 TB/s and its
+integer operations over 67 T/s, the card's CUDA-core (non-tensor) peak in
+its data sheet.  ``library_ms`` is null: no single PyTorch call computes a
+window gather at clipped per-parent offsets, a pooled SAD volume or a
+colour step.
 """
 
 from __future__ import annotations
@@ -31,6 +49,12 @@ import numpy as np
 
 H, W, B = 1080, 1920, 8
 SHIFT_Y, SHIFT_X = 5, 9  # frame 2 = frame 1 moved by (-5, -9): flow (u, v) = (-9, -5)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+CORE_OPS_PER_S = 67e12     # H100 SXM CUDA-core peak, used for integer operations
+# per-batch launches of MotionConfig(interp_factor=1): 4 levels of bs 32,
+# 2 sweeps x 4 colours per round; D at cur 32, E at 16/8/4, F at 2
+WANT_LAUNCHES = {"gather_windows": 8, "pooled_cvs": 4, "deep_pooled_cvs": 4,
+                 "color_step": 32, "color_step_hybrid": 96, "color_step_hybrid_tail": 32}
 
 
 def _cmd_line(cmd: list[str], pick=None) -> str:
@@ -83,19 +107,41 @@ def _max_abs_err(torch, a, b) -> int:
 
 
 @contextlib.contextmanager
-def _plain_kernels():
-    """Route the main path through the kernels' plain versions (also on CUDA)."""
-    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, reg_step
-    from blockbasedmotionestimation_tpu_torch.ops import search, windowed
-
-    saved = (search._gather, windowed.pooled_cvs, windowed.color_step)
-    search._gather = gather.gather_windows_plain
-    windowed.pooled_cvs = cv_diff.pooled_cvs_plain
-    windowed.color_step = reg_step.color_step_plain
+def _swapped(module, **fns):
+    """Replace functions of a module for the duration of the block."""
+    saved = {name: getattr(module, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(module, name, fn)
     try:
         yield
     finally:
-        search._gather, windowed.pooled_cvs, windowed.color_step = saved
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Route the main path through the kernels' plain versions (also on CUDA)."""
+    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step
+    from blockbasedmotionestimation_tpu_torch.ops import search, windowed
+
+    with _swapped(search, _gather=gather.gather_windows_plain), _swapped(
+        windowed,
+        pooled_cvs=cv_diff.pooled_cvs_plain,
+        deep_pooled_cvs=cv_diff.deep_pooled_cvs_plain,
+        color_step=reg_step.color_step_plain,
+        color_step_hybrid=fused_step.color_step_hybrid_plain,
+        color_step_hybrid_tail=fused_step.color_step_hybrid_tail_plain,
+    ):
+        yield
+
+
+def _dense_rival_form():
+    """Run every level in the dense-rival form (every size of both windows
+    stored, D/D' in every round), as levels with bs % 8 != 0 run."""
+    from blockbasedmotionestimation_tpu_torch.ops import windowed
+
+    return _swapped(windowed, hybrid_form=lambda bs, rival: False)
 
 
 def _two_motion(h: int, w: int, b: int, rng: np.random.Generator):
@@ -129,28 +175,91 @@ def _same_as_plain(torch, engine, cfg, im1, im2, flow, tag: str) -> None:
     print(f"[{tag}] all {im1.shape[0]} frames through the plain versions on the card == kernel path")
 
 
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time (ms) the card could take, and what bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _diff_ops(b: int, n_p: int, side: int, bs: int) -> int:
+    """Integer operations of a pooled volume: a difference, an absolute value
+    (or square) and an add for each pixel of each delta."""
+    return 3 * b * n_p * side * side * bs * bs
+
+
+def _step_work(torch, g, pm, rpm, *, kind, cur, h, w, r, r2, ci, cj, store_r=None,
+               cost_bytes=(2, 4)):
+    """(bytes, ops) one colour step needs on these inputs: the grid read and
+    its colour written, the window centres, and for each cell's distinct
+    usable candidates a cost entry picked (D: main or rival volume; E: main
+    volume; F: band) or a recompute (cur^2 window bytes, once cur^2 frame-1
+    bytes per cell) with its operations, plus the smoothness terms."""
+    from blockbasedmotionestimation_tpu_torch.kernels import reg_step as rs
+
+    cands, _, present, in_img = rs.step_candidates(g, cur, h, w, ci, cj)
+    f = g.shape[1] // pm.shape[1]
+    _, ddx, in_win = rs.window_deltas(cands, pm, f, ci, cj, r)
+    in_riv = torch.zeros_like(in_win)
+    if rpm is not None:
+        in_riv = rs.window_deltas(cands, rpm, f, ci, cj, r2)[2] & ~in_win
+    usable = present & in_img & (in_win | in_riv)
+    first = usable.clone()
+    for k in range(1, 9):
+        for j in range(k):
+            same = (cands[..., j, :] == cands[..., k, :]).all(-1)
+            first[..., k] &= ~(usable[..., j] & same)
+    band = ddx.abs() <= (r if store_r is None else store_r)
+    pick_main = first & in_win & band
+    tail = first & in_win & ~band
+    riv = first & in_riv
+    if kind == "D":
+        picked = int(pick_main.sum()) * cost_bytes[0] + int(riv.sum()) * cost_bytes[1]
+        re = torch.zeros_like(first)
+    else:
+        picked = int(pick_main.sum()) * cost_bytes[0]
+        re = riv | tail
+    n_re = int(re.sum())
+    cells = usable.shape[0] * usable.shape[1] * usable.shape[2]
+    nbytes = (_nbytes(g, pm) + cells * 8 + (_nbytes(rpm) if rpm is not None else 0)
+              + picked + n_re * cur * cur + int(re.any(-1).sum()) * cur * cur)
+    ops = cells * 9 * 9 * 3 + n_re * cur * cur * 3
+    return nbytes, ops
+
+
 def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> dict:
     """Phase 3: each kernel against its plain version at the 1080p level-0
-    shapes of the main path; returns the per-kernel results (launches 0).
+    shapes, B=8; returns the per-kernel results (launches 0).  A kernel's
+    row keeps the first shape's times and bound (the main path's shape) and
+    the worst error of all its shapes.
 
-    Every kernel runs at B=8 as the main path launches it; the plain versions
-    run frame by frame on the same inputs (bounded memory) and each frame's
-    slice is compared, so offsets past 2^31 entries are checked too."""
-    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, reg_step
+    The volume and colour-step kernels run at B=8 as the main path launches
+    them; their plain versions run frame by frame on the same inputs
+    (bounded memory) and each frame's slice is compared, so offsets past
+    2^31 entries are checked too."""
+    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step
     from blockbasedmotionestimation_tpu_torch.ops import pad as pad_ops
     from blockbasedmotionestimation_tpu_torch.ops import windowed
 
     p = pad_ops.compute_padding(H, W, cfg)
     hp, wp, bs = p.padded_h, p.padded_w, cfg.block_sizes[0]
     npy, npx = hp // bs, wp // bs
+    n_p = npy * npx
     ext = (cfg.search_sizes[0] - bs) // 2
     r2 = cfg.rival_radius_at(0)
+    store_r = cfg.cv_store_radius
+    fuse_max = min(16, bs // 2)
     frames = torch.as_tensor(rng.integers(0, 256, size=(B, hp, wp), dtype=np.uint8), device=dev)
     results = {}
 
-    def record(name, source, replaces, err, ms, plain_ms, also=None):
-        """Keep the first (main-window) shape's times and the worst error."""
-        print(f"[kernel] {name}: max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+    def record(name, source, replaces, err, ms, plain_ms, work, what, also=None):
+        bound_ms, bound_by = _bound(*work)
+        print(f"[kernel] {name} {what}: max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {work[0]} B, {work[1]} ops) ({card})")
         if name in results:
             results[name]["max_abs_err"] = max(err, results[name]["max_abs_err"])
             return
@@ -159,42 +268,69 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
             "source": f"blockbasedmotionestimation_tpu_torch/csrc/{source}",
             "replaces": f"blockbasedmotionestimation_tpu/kernels/{replaces}",
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         }
         if also:
-            results[name]["also_replaces"] = f"blockbasedmotionestimation_tpu/kernels/{also}"
+            results[name]["also_replaces"] = [f"blockbasedmotionestimation_tpu/kernels/{a}" for a in also]
 
+    def per_frame(fn):
+        for bi in range(B):
+            fn(bi)
+
+    # A: the gather, main then rival windows
     offs = {}
     for tag, e in (("main", ext), ("rival", r2)):
-        by = torch.as_tensor(rng.integers(0, hp - bs + 1, size=(B, npy * npx)), dtype=torch.int32, device=dev)
-        bx = torch.as_tensor(rng.integers(0, wp - bs + 1, size=(B, npy * npx)), dtype=torch.int32, device=dev)
+        by = torch.as_tensor(rng.integers(0, hp - bs + 1, size=(B, n_p)), dtype=torch.int32, device=dev)
+        bx = torch.as_tensor(rng.integers(0, wp - bs + 1, size=(B, n_p)), dtype=torch.int32, device=dev)
         k = gather.gather_windows(frames, by, bx, bs, e)
         err = _max_abs_err(torch, k, gather.gather_windows_plain(frames, by, bx, bs, e))
         ms = _cuda_ms(torch, lambda: gather.gather_windows(frames, by, bx, bs, e), 20)
         pms = _cuda_ms(torch, lambda: gather.gather_windows_plain(frames, by, bx, bs, e), 5)
-        print(f"[kernel] gather_windows {tag}: win {bs + 2 * e}, B={B}")
-        record("gather_windows", "gather.cu", "gather.py:58", err, ms, pms)
+        record("gather_windows", "gather.cu", "gather.py:58", err, ms, pms,
+               (_nbytes(frames, by, bx, k), 0), f"{tag} (win {bs + 2 * e}, B={B})")
         offs[tag] = (k, by, bx)
+    wins, rwins = offs["main"][0], offs["rival"][0]
 
-    def plain_per_frame(fn):
-        for bi in range(B):
-            fn(bi)
-
-    vols = {}
-    for tag, e in (("main", ext), ("rival", r2)):
-        wins = offs[tag][0]
-        k = cv_diff.pooled_cvs(frames, wins, bs, e, cfg.cost)
+    # B: the main path's call (the stored band), then the dense volumes of
+    # the dense-rival form; C: the rival window's volumes
+    def volumes(name, source, replaces, fn, plain, win, e, what, also=None):
+        k = fn(frames, win, bs, e, cfg.cost)
         err = 0
         for bi in range(B):
-            ref = cv_diff.pooled_cvs_plain(frames[bi:bi + 1], wins[bi:bi + 1], bs, e, cfg.cost)
+            ref = plain(frames[bi:bi + 1], win[bi:bi + 1], bs, e, cfg.cost)
+            if sorted(ref) != sorted(k):
+                raise AssertionError(f"{name}: kernel sizes {sorted(k)}, plain {sorted(ref)}")
             err = max([err] + [_max_abs_err(torch, k[c][bi:bi + 1], ref[c]) for c in k])
             del ref
-        ms = _cuda_ms(torch, lambda: cv_diff.pooled_cvs(frames, wins, bs, e, cfg.cost), 3)
-        pms = _cuda_ms(torch, lambda: plain_per_frame(
-            lambda bi: cv_diff.pooled_cvs_plain(frames[bi:bi + 1], wins[bi:bi + 1], bs, e, cfg.cost)), 1)
-        print(f"[kernel] pooled_cvs {tag}: r={e}, B={B} (plain: {B} frames one by one), "
-              f"curs {sorted(k)}, cur=2 volume {k[2].numel()} entries")
-        record("pooled_cvs", "cv_diff.cu", "cv_diff.py:672", err, ms, pms)
-        vols[tag] = k
+        ms = _cuda_ms(torch, lambda: fn(frames, win, bs, e, cfg.cost), 3)
+        pms = _cuda_ms(torch, lambda: per_frame(
+            lambda bi: plain(frames[bi:bi + 1], win[bi:bi + 1], bs, e, cfg.cost)), 1)
+        work = (_nbytes(frames, win, *k.values()), _diff_ops(B, n_p, 2 * e + 1, bs))
+        record(name, source, replaces, err, ms, pms, work,
+               f"{what}: r={e}, B={B} (plain: {B} frames one by one), sizes "
+               f"{ {c: tuple(v.shape[1:]) for c, v in k.items()} }", also)
+        return k
+
+    def band_of(fn):
+        return lambda im1, win, bs_, e, cost: fn(im1, win, bs_, e, cost, store_r=store_r)
+
+    vols = volumes("pooled_cvs", "cv_diff.cu", "cv_diff.py:672",
+                   band_of(cv_diff.pooled_cvs), band_of(cv_diff.pooled_cvs_plain), wins, ext,
+                   f"main, stored band store_r={store_r}", also=["cv_diff.py:771", "cv_diff.py:826",
+                                                                 "cv_diff.py:885"])
+    dense = volumes("pooled_cvs", "cv_diff.cu", "cv_diff.py:672", cv_diff.pooled_cvs,
+                    cv_diff.pooled_cvs_plain, wins, ext, "main, dense")
+    rdense = volumes("pooled_cvs", "cv_diff.cu", "cv_diff.py:672", cv_diff.pooled_cvs,
+                     cv_diff.pooled_cvs_plain, rwins, r2, "rival, dense")
+
+    def deep(fn):
+        return lambda im1, win, bs_, e, cost: fn(im1, win, bs_, e, cost, fuse_max)
+
+    rdeep = volumes("deep_pooled_cvs", "cv_diff.cu", "cv_diff.py:448",
+                    deep(cv_diff.deep_pooled_cvs), deep(cv_diff.deep_pooled_cvs_plain), rwins, r2,
+                    f"rival, cur > {fuse_max} and cur = {bs}", also=["cv_diff.py:511"])
+    if not torch.equal(rdeep[bs], rdense[bs]):
+        raise AssertionError("kernel C's cur=bs volume differs from kernel B's")
 
     origin = torch.stack(
         torch.meshgrid(torch.arange(npx, device=dev) * bs, torch.arange(npy, device=dev) * bs,
@@ -204,33 +340,68 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     rbase = (base + torch.as_tensor(rng.integers(-16, 17, size=base.shape), dtype=torch.int32,
                                     device=dev)).contiguous()
     del offs
-    for cur in (2, bs):
+
+    def steps(name, source, replaces, kernel, plain, cur, vol_of, kw_of, kind, what, also=None):
+        """All four colours against the plain version; one colour timed."""
         f = bs // cur
         pmf = base.repeat_interleave(f, 1).repeat_interleave(f, 2)
         g0 = (pmf + torch.as_tensor(rng.integers(-20, 21, size=pmf.shape), dtype=torch.int32,
                                     device=dev)).contiguous()
-        cv, rcv = vols["main"][cur], vols["rival"][cur]
-        kw = dict(cur=cur, h=hp, w=wp, r=ext, lam_mult=16.0 * bs / cur, r2=r2)
+        common = dict(cur=cur, h=hp, w=wp, r=ext, lam_mult=16.0 * bs / cur)
+        vol = vol_of(cur)
         gk = g0.clone()
         for ci, cj in windowed.COLORS:
-            reg_step.color_step(gk, cv, base, ci=ci, cj=cj, rcv=rcv, rpm=rbase, **kw)
+            kernel(gk, vol, base, ci=ci, cj=cj, **common, **kw_of(slice(None)))
         err = 0
         for bi in range(B):
             gp = g0[bi:bi + 1].clone()
+            sl = slice(bi, bi + 1)
             for ci, cj in windowed.COLORS:
-                reg_step.color_step_plain(gp, cv[bi:bi + 1], base[bi:bi + 1], ci=ci, cj=cj,
-                                          rcv=rcv[bi:bi + 1], rpm=rbase[bi:bi + 1], **kw)
-            err = max(err, _max_abs_err(torch, gk[bi:bi + 1], gp))
+                plain(gp, vol[sl], base[sl], ci=ci, cj=cj, **common, **kw_of(sl))
+            err = max(err, _max_abs_err(torch, gk[sl], gp))
         if torch.equal(gk, g0):
-            raise AssertionError(f"color_step at cur={cur} changed no cell")
-        ms = _cuda_ms(torch, lambda: reg_step.color_step(
-            g0.clone(), cv, base, ci=1, cj=0, rcv=rcv, rpm=rbase, **kw), 20)
-        pms = _cuda_ms(torch, lambda: plain_per_frame(lambda bi: reg_step.color_step_plain(
-            g0[bi:bi + 1].clone(), cv[bi:bi + 1], base[bi:bi + 1], ci=1, cj=0,
-            rcv=rcv[bi:bi + 1], rpm=rbase[bi:bi + 1], **kw)), 1)
-        print(f"[kernel] color_step at cur={cur} (f={f}): four colours compared, one timed; "
-              f"B={B}, grid {tuple(g0.shape[1:3])}")
-        record("color_step", "reg_step.cu", "reg_step.py:680", err, ms, pms, also="reg_step.py:773")
+            raise AssertionError(f"{name} at cur={cur} changed no cell")
+        kw = kw_of(slice(None))
+        gt = g0.clone()  # timed in place, colour (1, 0)
+        ms = _cuda_ms(torch, lambda: kernel(gt, vol, base, ci=1, cj=0, **common, **kw), 20)
+        pms = _cuda_ms(torch, lambda: per_frame(lambda bi: plain(
+            g0[bi:bi + 1].clone(), vol[bi:bi + 1], base[bi:bi + 1], ci=1, cj=0, **common,
+            **kw_of(slice(bi, bi + 1)))), 1)
+        rpm = kw.get("rpm")
+        rcv = kw.get("rcv")
+        work = _step_work(torch, g0, base, rpm, kind=kind, cur=cur, h=hp, w=wp, r=ext, r2=r2,
+                          ci=1, cj=0, store_r=kw.get("store_r"),
+                          cost_bytes=(vol.element_size(), rcv.element_size() if rcv is not None else 0))
+        record(name, source, replaces, err, ms, pms, work,
+               f"{what} at cur={cur} (f={f}): four colours compared, (1, 0) timed; B={B}, "
+               f"grid {tuple(g0.shape[1:3])}", also)
+
+    def rival_kw(rcv):
+        if rcv is None:
+            return lambda sl: {}
+        return lambda sl: dict(rcv=rcv[sl], rpm=rbase[sl], r2=r2)
+
+    # D: the main path's f=1 round on C's volume, then the dense-rival form's
+    # cur=2 round, then both without rival windows
+    for cur, rv in ((bs, rdeep), (2, rdense), (bs, None), (2, None)):
+        steps("color_step", "reg_step.cu", "reg_step.py:773", reg_step.color_step,
+              reg_step.color_step_plain, cur, lambda c: dense[c],
+              rival_kw(None if rv is None else rv[cur]), "D",
+              "rival" if rv is not None else "no rival",
+              also=["reg_step.py:680", "reg_step.py:303", "reg_step.py:213"])
+
+    def hybrid_kw(sl):
+        return dict(im1=frames[sl], rwin=rwins[sl], rpm=rbase[sl], r2=r2, cost=cfg.cost)
+
+    # E at cur 4 and 16 on the dense main volume; F at cur 2 on the band
+    for cur in (4, 16):
+        steps("color_step_hybrid", "fused_step.cu", "fused_step.py:870", fused_step.color_step_hybrid,
+              fused_step.color_step_hybrid_plain, cur, lambda c: dense[c], hybrid_kw, "E",
+              "main volume + rival recompute", also=["fused_step.py:937"])
+    steps("color_step_hybrid_tail", "fused_step.cu", "fused_step.py:772",
+          fused_step.color_step_hybrid_tail, fused_step.color_step_hybrid_tail_plain, 2,
+          lambda c: vols[c], lambda sl: dict(hybrid_kw(sl), win=wins[sl], store_r=store_r), "F",
+          f"band store_r={store_r} + main-tail and rival recompute", also=["fused_step.py:848"])
     bad = [r["name"] for r in results.values() if r["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -244,7 +415,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from blockbasedmotionestimation_tpu_torch import MotionConfig
-    from blockbasedmotionestimation_tpu_torch.kernels import _build, cv_diff, gather, reg_step
+    from blockbasedmotionestimation_tpu_torch.kernels import _build, cv_diff, fused_step, gather, reg_step
     from blockbasedmotionestimation_tpu_torch.models import engine
 
     dev = torch.device("cuda", 0)
@@ -278,19 +449,23 @@ def main() -> int:
     im1 = torch.as_tensor(noise[:, :H, :W].copy(), device=dev)
     im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
     torch.cuda.reset_peak_memory_stats()
-    counters = {"gather_windows": gather.gather_windows, "pooled_cvs": cv_diff.pooled_cvs,
-                "color_step": reg_step.color_step}
+    counters = {f.__name__: f for f in (
+        gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs, reg_step.color_step,
+        fused_step.color_step_hybrid, fused_step.color_step_hybrid_tail)}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.time()
     flow, pad = engine.estimate_flow_batched(im1, im2, cfg)
     torch.cuda.synchronize()
     first_s = time.time() - t0
-    for name, fn in counters.items():
-        results[name]["launches"] = fn.launches
-    print(f"[main] launches: { {n: fn.launches for n, fn in counters.items()} }")
-    if any(fn.launches == 0 for fn in counters.values()):
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in launches.items():
+        results[name]["launches"] = n
+    print(f"[main] launches: {launches} (expected {WANT_LAUNCHES})")
+    if any(n == 0 for n in launches.values()):
         raise AssertionError("a kernel of the main path was never launched")
+    if launches != WANT_LAUNCHES:
+        raise AssertionError("the main path did not launch the hybrid form's kernels as expected")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if tuple(flow.shape) != (B, pad.padded_h, pad.padded_w, 2) or not torch.isfinite(flow).all():
         raise AssertionError(f"bad main-path output {tuple(flow.shape)}")
@@ -320,10 +495,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4b. two motions per frame at 1080p, B=8: the rival windows decide cells
-    #     (the rival-off run differs), and every frame equals the plain path
+    #     (the rival-off run differs), the band and the hybrid form change no
+    #     bit, and every frame equals the plain path
     tm1, tm2, tflow = _two_motion(H, W, B, np.random.default_rng(1))
     tm1, tm2 = torch.as_tensor(tm1, device=dev), torch.as_tensor(tm2, device=dev)
     flow, pad = engine.estimate_flow_batched(tm1, tm2, cfg)
+    no_band, _ = engine.estimate_flow_batched(tm1, tm2, cfg.replace(cv_store_radius=None))
+    with _dense_rival_form():
+        dense_form, _ = engine.estimate_flow_batched(tm1, tm2, cfg)
+    for other, what in ((no_band, "cv_store_radius=None"), (dense_form, "the dense-rival form")):
+        if not torch.equal(flow, other):
+            diff = int((flow != other).any(-1).sum())
+            raise AssertionError(f"two-motion batch: {what} differs from the default at {diff} pixels")
+    print(f"[two-motion] cv_store_radius=4 == cv_store_radius=None == the dense-rival form, "
+          f"all {B} frames")
+    del no_band, dense_form
     no_rival, _ = engine.estimate_flow_batched(tm1, tm2, cfg.replace(rival_window=False))
     crop = (slice(None), slice(pad.pad_y, pad.pad_y + H), slice(pad.pad_x, pad.pad_x + W))
     decided = int((flow[crop] != no_rival[crop]).any(-1).sum())
@@ -348,7 +534,9 @@ def main() -> int:
     right = tex[32 + 5:32 + 5 + h5, 32 - 12:32 - 12 + w5]  # flow (-12, 5)
     a1 = np.where(np.arange(w5)[None, :] < w5 // 2, left, right).astype(np.uint8)
     pair = (np.stack([a1, a2]), np.stack([a2, a1]))
-    on_gpu, _ = engine.estimate_flow_batched(*pair, cfg, device=dev)
+    on_gpu, _ = engine.estimate_flow_batched(*pair, cfg)  # numpy frames go to CUDA
+    if on_gpu.device.type != "cuda":
+        raise AssertionError(f"numpy frames ran on {on_gpu.device}")
     on_cpu, _ = engine.estimate_flow_batched(*pair, cfg, device="cpu")
     if not torch.equal(on_gpu.cpu(), on_cpu):
         diff = int((on_gpu.cpu() != on_cpu).any(-1).sum())

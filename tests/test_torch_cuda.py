@@ -12,7 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from blockbasedmotionestimation_tpu_torch import MotionConfig
-from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, reg_step
+from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step
 from blockbasedmotionestimation_tpu_torch.models import engine
 
 
@@ -64,6 +64,61 @@ def test_cuda_kernels_equal_plain(cuda, bs, ext, r2):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("bs,ext,r2,store_r", [(8, 8, 4, 2), (32, 16, 12, 4), (16, 6, 6, 0)])
+def test_cuda_hybrid_kernels_equal_plain(cuda, bs, ext, r2, store_r):
+    # C, the stored band of B, E and F against their plain versions
+    rng = np.random.default_rng(bs + store_r)
+    b, h, w = 2, 4 * bs, 6 * bs
+    npy, npx = h // bs, w // bs
+    im1 = torch.as_tensor(rng.integers(0, 256, size=(b, h, w), dtype=np.uint8), device=cuda)
+    im2 = torch.as_tensor(rng.integers(0, 256, size=(b, h, w), dtype=np.uint8), device=cuda)
+
+    def offs():
+        return torch.as_tensor(rng.integers(0, h - bs + 1, size=(b, npy * npx)), dtype=torch.int32,
+                               device=cuda), torch.as_tensor(
+            rng.integers(0, w - bs + 1, size=(b, npy * npx)), dtype=torch.int32, device=cuda)
+
+    win = gather.gather_windows(im2, *offs(), bs, ext)
+    rwin = gather.gather_windows(im2, *offs(), bs, r2)
+    fuse_max = min(16, bs // 2)
+    for cost in ("sad", "ssd"):
+        k = cv_diff.deep_pooled_cvs(im1, rwin, bs, r2, cost, fuse_max)
+        p = cv_diff.deep_pooled_cvs_plain(im1, rwin, bs, r2, cost, fuse_max)
+        assert sorted(k) == sorted(p) == cv_diff.deep_curs(bs, fuse_max)
+        for cur in k:
+            assert k[cur].dtype == p[cur].dtype
+            assert torch.equal(k[cur].to(torch.int32), p[cur].to(torch.int32)), (cost, cur)
+        k = cv_diff.pooled_cvs(im1, win, bs, ext, cost, store_r=store_r)
+        p = cv_diff.pooled_cvs_plain(im1, win, bs, ext, cost, store_r=store_r)
+        for cur in k:
+            assert k[cur].shape == p[cur].shape
+            assert torch.equal(k[cur].to(torch.int32), p[cur].to(torch.int32)), (cost, cur)
+        dense = cv_diff.pooled_cvs(im1, win, bs, ext, cost)
+        pm = torch.as_tensor(rng.integers(-4, 5, size=(b, npy, npx, 2)), dtype=torch.int32, device=cuda)
+        rpm = (pm + torch.as_tensor(rng.integers(-12, 13, size=pm.shape), dtype=torch.int32,
+                                    device=cuda)).contiguous()
+        for cur in [c for c in dense if c <= fuse_max]:
+            f = bs // cur
+            g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
+            g0 = (g0 + torch.as_tensor(rng.integers(-20, 21, size=g0.shape), dtype=torch.int32,
+                                       device=cuda)).contiguous()
+            kw = dict(cur=cur, h=h, w=w, r=ext, r2=r2, lam_mult=3.0 * f, im1=im1, rwin=rwin,
+                      rpm=rpm, cost=cost)
+            for ci, cj in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                gk, gp = g0.clone(), g0.clone()
+                fused_step.color_step_hybrid(gk, dense[cur], pm, ci=ci, cj=cj, **kw)
+                fused_step.color_step_hybrid_plain(gp, dense[cur], pm, ci=ci, cj=cj, **kw)
+                assert torch.equal(gk, gp), ("E", cost, cur, ci, cj)
+                if cur == 2:
+                    gk, gp = g0.clone(), g0.clone()
+                    fused_step.color_step_hybrid_tail(gk, k[2], pm, ci=ci, cj=cj, win=win,
+                                                      store_r=store_r, **kw)
+                    fused_step.color_step_hybrid_tail_plain(gp, k[2], pm, ci=ci, cj=cj, win=win,
+                                                            store_r=store_r, **kw)
+                    assert torch.equal(gk, gp), ("F", cost, ci, cj)
+
+
+@pytest.mark.requires_cuda
 def test_cuda_engine_equals_cpu(cuda):
     # odd coarse parent grid (5x7 at level 1), per-level rival radius
     rng = np.random.default_rng(7)
@@ -71,7 +126,7 @@ def test_cuda_engine_equals_cpu(cuda):
     b = np.roll(a, (3, -5), axis=(1, 2))
     cfg = MotionConfig(block_sizes=(8, 8), search_sizes=(24, 24), interp_factor=1,
                        rival_radius=(4, None))
-    for c in (cfg, cfg.replace(cost="ssd", rival_window=False)):
+    for c in (cfg, cfg.replace(cv_store_radius=None), cfg.replace(cost="ssd", rival_window=False)):
         on_gpu, _ = engine.estimate_flow_batched(a, b, c, device=cuda)
         on_cpu, _ = engine.estimate_flow_batched(a, b, c, device="cpu")
         assert torch.equal(on_gpu.cpu(), on_cpu)

@@ -1,8 +1,11 @@
 """The port's entry points against the JAX engine, end to end on the CPU.
 
 Tiny configurations (two 8px levels) on numpy pairs made from a seed;
-exact equality of the flow fields.  Also: the port never imports jax, and
-configurations outside the ported slice raise.
+exact equality of the flow fields.  The port gets its own ``MotionConfig``,
+made from the JAX config's fields.  Also: the port never imports jax or the
+JAX package, its config and spiral tables equal the JAX package's, numpy
+frames go to CUDA by default, and configurations outside the ported slice
+raise.
 """
 
 import os
@@ -15,10 +18,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses
+
+from blockbasedmotionestimation_tpu import config as jconfig
 from blockbasedmotionestimation_tpu.config import MotionConfig
 from blockbasedmotionestimation_tpu.models import engine as jeng
+from blockbasedmotionestimation_tpu.ops import spiral as jspiral
 from blockbasedmotionestimation_tpu.utils import synth
+from blockbasedmotionestimation_tpu_torch import config as tconfig
 from blockbasedmotionestimation_tpu_torch.models import engine as teng
+from blockbasedmotionestimation_tpu_torch.ops import spiral as tspiral
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,15 +52,24 @@ def _pairs(rng, b, h, w):
     return np.stack(im1s), np.stack(im2s)
 
 
+def _port(cfg: MotionConfig) -> tconfig.MotionConfig:
+    return tconfig.MotionConfig.from_fields(vars(cfg))
+
+
 @pytest.mark.parametrize(
     "cfg",
-    [TINY, TINY.replace(cost="ssd", mv_cap=16, rival_window=False)],
-    ids=["sad-rival", "ssd-mv_cap-norival"],
+    [
+        TINY,
+        TINY.replace(cost="ssd", mv_cap=16, rival_window=False),
+        # the hybrid form with the stored band: C, E and F's plain versions
+        jconfig.tiny_config(block_sizes=(8, 8), search_sizes=(24, 24), cv_store_radius=2),
+    ],
+    ids=["sad-rival", "ssd-mv_cap-norival", "hybrid-band"],
 )
 def test_estimate_flow_batched_matches_jax(rng, cfg):
     im1s, im2s = _pairs(rng, 2, H, W)
-    want, pw = jeng.estimate_flow_batched(im1s, im2s, cfg)
-    got, pg = teng.estimate_flow_batched(im1s, im2s, cfg, device="cpu")
+    want, pw = jeng.estimate_flow_batched(im1s, im2s, cfg.replace(search_impl="xla"))
+    got, pg = teng.estimate_flow_batched(im1s, im2s, _port(cfg), device="cpu")
     assert pg == teng.pad_ops.Padding(**vars(pw))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -61,12 +79,12 @@ def test_estimate_flow_driver_interp2_matches_jax(rng):
     cfg = TINY.replace(interp_factor=2)
     im1s, im2s = _pairs(rng, 1, H // 2, W // 2)
     want = np.asarray(jeng.estimate_flow_driver(im1s[0], im2s[0], cfg))
-    got = teng.estimate_flow_driver(torch.as_tensor(im1s[0]), torch.as_tensor(im2s[0]), cfg)
+    got = teng.estimate_flow_driver(torch.as_tensor(im1s[0]), torch.as_tensor(im2s[0]), _port(cfg))
     assert tuple(got.shape) == (H // 2, W // 2, 2)
     np.testing.assert_array_equal(got.numpy(), want)
     # the single-pair entry is the batched one at B = 1
-    flow, _ = teng.estimate_flow(im1s[0], im2s[0], TINY, device="cpu")
-    batched, _ = teng.estimate_flow_batched(im1s[:1], im2s[:1], TINY, device="cpu")
+    flow, _ = teng.estimate_flow(im1s[0], im2s[0], _port(TINY), device="cpu")
+    batched, _ = teng.estimate_flow_batched(im1s[:1], im2s[:1], _port(TINY), device="cpu")
     assert torch.equal(flow, batched[0])
 
 
@@ -85,13 +103,23 @@ def test_estimate_flow_driver_interp2_matches_jax(rng):
 def test_configs_outside_the_slice_raise(override):
     frames = np.zeros((1, 16, 16), np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.estimate_flow_batched(frames, frames, TINY.replace(**override), device="cpu")
+        teng.estimate_flow_batched(frames, frames, _port(TINY).replace(**override), device="cpu")
 
 
 def test_numpy_frames_need_a_device():
+    # numpy frames without device= go to CUDA: here, with no CUDA, that
+    # raises; it never runs on the CPU and returns
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
     frames = np.zeros((1, 16, 16), np.uint8)
-    with pytest.raises(ValueError, match="device"):
-        teng.estimate_flow_batched(frames, frames, TINY)
+    for entry in (teng.estimate_flow_batched, teng.estimate_flow_driver_batched):
+        with pytest.raises((RuntimeError, AssertionError)):
+            entry(frames, frames, _port(TINY))
+    with pytest.raises((RuntimeError, AssertionError)):
+        teng.estimate_flow(frames[0], frames[0], _port(TINY))
+    # a tensor keeps its own device
+    flow, _ = teng.estimate_flow_batched(torch.as_tensor(frames), torch.as_tensor(frames), _port(TINY))
+    assert flow.device.type == "cpu"
 
 
 def test_cuda_device_without_cuda_raises():
@@ -99,7 +127,61 @@ def test_cuda_device_without_cuda_raises():
         pytest.skip("a CUDA device is present")
     frames = np.zeros((1, 16, 16), np.uint8)
     with pytest.raises((RuntimeError, AssertionError)):
-        teng.estimate_flow_batched(frames, frames, TINY, device="cuda")
+        teng.estimate_flow_batched(frames, frames, _port(TINY), device="cuda")
+
+
+def test_config_matches_jax_config():
+    # the port's own copy: same fields, same defaults, same checks
+    jf = [(f.name, f.default) for f in dataclasses.fields(jconfig.MotionConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(tconfig.MotionConfig)]
+    assert tf == jf
+    for name in ("middlebury_config", "tiny_config"):
+        assert vars(getattr(tconfig, name)()) == vars(getattr(jconfig, name)())
+    cfg = jconfig.MotionConfig(block_sizes=(16, 8), search_sizes=(48, 24), rival_radius=4)
+    port = _port(cfg)
+    assert vars(port) == vars(cfg)
+    for level in range(2):
+        assert port.rival_radius_at(level) == cfg.rival_radius_at(level)
+        assert port.shift(level) == cfg.shift(level)
+    assert port.uses_fused_windowed == cfg.uses_fused_windowed
+    with pytest.raises(ValueError, match="unknown"):
+        tconfig.MotionConfig.from_fields({"block_size": 8})
+
+
+@pytest.mark.parametrize(
+    "bad",
+    [
+        dict(block_sizes=(8,), search_sizes=(16, 16)),
+        dict(block_sizes=(), search_sizes=()),
+        dict(block_sizes=(6,), search_sizes=(16,)),
+        dict(block_sizes=(16,), search_sizes=(8,)),
+        dict(interp_factor=0),
+        dict(rival_radius=()),
+        dict(rival_radius=(4, -1)),
+        dict(rival_radius=-2),
+        dict(cv_store_radius=-1),
+        dict(cv_fused=1),
+        dict(cv_fused=4, cv_compact=8),
+        dict(mv_cap=3),
+    ],
+)
+def test_config_refuses_what_jax_refuses(bad):
+    with pytest.raises(ValueError) as want:
+        jconfig.MotionConfig(**bad)
+    with pytest.raises(ValueError) as got:
+        tconfig.MotionConfig(**bad)
+    assert str(got.value) == str(want.value)
+
+
+def test_spiral_tables_match_jax():
+    for shift in range(1, 49):
+        dys, dxs, ext = tspiral.spiral_offsets(shift)
+        jdys, jdxs, jext = jspiral.spiral_offsets(shift)
+        assert ext == jext == tspiral.spiral_extent(shift)
+        np.testing.assert_array_equal(dys, jdys)
+        np.testing.assert_array_equal(dxs, jdxs)
+        np.testing.assert_array_equal(tspiral.spiral_rank(shift), jspiral.spiral_rank(shift))
+        assert tspiral.spiral_visits(shift) == jspiral.spiral_visits(shift)
 
 
 def test_port_never_imports_jax():
@@ -123,6 +205,9 @@ def test_port_never_imports_jax():
         assert flow.shape == (1, 48, 64, 2)
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
         assert not bad, bad
+        # nor any module of the JAX package, jax-free ones included
+        ref = sorted(m for m in sys.modules if m.split(".")[0] == "blockbasedmotionestimation_tpu")
+        assert not ref, ref
         print("jax-free")
         """
     )

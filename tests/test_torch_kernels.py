@@ -16,13 +16,13 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from blockbasedmotionestimation_tpu.kernels.cv_diff import delta_pooled_cvs
+from blockbasedmotionestimation_tpu.kernels.cv_diff import deep_pooled_cvs, delta_pooled_cvs
 from blockbasedmotionestimation_tpu.kernels.gather import gather_windows_dma
 from blockbasedmotionestimation_tpu.kernels.reg_step import windowed_color_step_rival
 from blockbasedmotionestimation_tpu.ops import regularize as jreg
 from blockbasedmotionestimation_tpu.ops.search import _gather_windows
 from blockbasedmotionestimation_tpu.ops.windowed import _compute_cv
-from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, reg_step
+from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step
 
 
 def _frames(rng, b, h, w):
@@ -117,33 +117,95 @@ def test_pooled_cvs_match_compute_cv(rng, cost, bs, r):
             np.testing.assert_array_equal(vol[bi].numpy(), want)
 
 
+def _from_chunk_major(a, cur, bs, n_p, npy, npx):
+    """A TPU volume in the port's (nd, npy*f, npx*f) layout.  The TPU
+    kernels write cur < bs chunk-major (cv_diff.py:687-697): (yq, yp, xb,
+    chunk, dy, dx, xq, lane); cur == bs as (dy, dx, 1, 1, nPad)."""
+    f = bs // cur
+    a = np.asarray(a)
+    if cur < bs:
+        nd = a.shape[4] * a.shape[5]
+        a = a.transpose(4, 5, 0, 1, 6, 2, 3, 7).reshape(nd, f, f, -1)
+    nd = a.shape[0] * a.shape[1] if cur == bs else a.shape[0]
+    a = a.reshape(nd, f, f, -1)[..., :n_p].reshape(nd, f, f, npy, npx)
+    return a.transpose(0, 3, 1, 4, 2).reshape(nd, npy * f, npx * f).astype(np.int64)
+
+
+def _tpu_inputs(im1, wins, bs):
+    """The TPU kernels' (bs, bs, nP) / (win, win, nP) int16 inputs."""
+    h, w = im1.shape[1:]
+    npy, npx = h // bs, w // bs
+    patches_t = im1[0].reshape(npy, bs, npx, bs).transpose(1, 3, 0, 2).reshape(bs, bs, -1)
+    return jnp.asarray(patches_t.astype(np.int16)), jnp.asarray(wins[0].transpose(1, 2, 0).astype(np.int16))
+
+
 def test_pooled_cvs_match_delta_pooled_kernel_interpret(rng):
-    # the TPU kernel's chunk-major output, re-laid out per its docstring
-    # (cv_diff.py:687-697): (yq, yp, xb, chunk, dy, dx, xq, lane) for
-    # cur < bs, (dy, dx, 1, 1, nPad) for cur == bs
     bs, r, h, w = 8, 4, 16, 24
     npy, npx = h // bs, w // bs
-    n_p = npy * npx
-    side = 2 * r + 1
     im1 = _frames(rng, 1, h, w)
     wins = _windows_for(_frames(rng, 1, h, w), bs, r, rng)
-    patches_t = (
-        im1[0].reshape(npy, bs, npx, bs).transpose(1, 3, 0, 2).reshape(bs, bs, n_p)
-    ).astype(np.int16)
-    windows_t = wins[0].transpose(1, 2, 0).astype(np.int16)
-    ref = delta_pooled_cvs(
-        jnp.asarray(patches_t), jnp.asarray(windows_t), bs, r, r, "sad",
-        interpret=True,
-    )
+    ref = delta_pooled_cvs(*_tpu_inputs(im1, wins, bs), bs, r, r, "sad", interpret=True)
     got = cv_diff.pooled_cvs(torch.as_tensor(im1), torch.as_tensor(wins), bs, r, "sad")
     for cur, vol in got.items():
-        f = bs // cur
-        a = np.asarray(ref[cur])
-        if cur < bs:
-            a = a.transpose(4, 5, 0, 1, 6, 2, 3, 7).reshape(side * side, f, f, -1)
-        a = a.reshape(side * side, f, f, -1)[..., :n_p].reshape(side * side, f, f, npy, npx)
-        a = a.transpose(0, 3, 1, 4, 2).reshape(side * side, npy * f, npx * f)
-        np.testing.assert_array_equal(vol[0].numpy().astype(np.int64), a.astype(np.int64))
+        np.testing.assert_array_equal(
+            vol[0].numpy().astype(np.int64), _from_chunk_major(ref[cur], cur, bs, npy * npx, npy, npx)
+        )
+
+
+@pytest.mark.parametrize("store_r", [0, 2])
+def test_stored_band_matches_delta_pooled_kernel_interpret(rng, store_r):
+    # the cur=2 band of the static kernel's store_r2 mode, at a 64x96 frame
+    bs, r, h, w = 8, 6, 64, 96
+    npy, npx = h // bs, w // bs
+    im1 = _frames(rng, 1, h, w)
+    wins = _windows_for(_frames(rng, 1, h, w), bs, r, rng)
+    ref = delta_pooled_cvs(
+        *_tpu_inputs(im1, wins, bs), bs, r, r, "sad", interpret=True, store_r2=store_r
+    )
+    got = cv_diff.pooled_cvs(
+        torch.as_tensor(im1), torch.as_tensor(wins), bs, r, "sad", store_r=store_r
+    )
+    side, st = 2 * r + 1, 2 * store_r + 1
+    assert tuple(got[2].shape) == (1, side * st, h // 2, w // 2)
+    np.testing.assert_array_equal(
+        got[2][0].numpy().astype(np.int64), _from_chunk_major(ref[2], 2, bs, npy * npx, npy, npx)
+    )
+    # the band is the dense volume's dx columns [r - store_r, r + store_r]
+    dense = cv_diff.pooled_cvs(torch.as_tensor(im1), torch.as_tensor(wins), bs, r, "sad")[2]
+    band = dense.reshape(1, side, side, h // 2, w // 2)[:, :, r - store_r : r + store_r + 1]
+    assert torch.equal(got[2], band.reshape(got[2].shape))
+    for cur in (4, 8):
+        assert torch.equal(got[cur], cv_diff.pooled_cvs(
+            torch.as_tensor(im1), torch.as_tensor(wins), bs, r, "sad")[cur])
+
+
+@pytest.mark.parametrize("fuse_max", [4, 2])
+def test_deep_pooled_cvs_match_kernel_interpret(rng, fuse_max):
+    # kernel C: only cur > fuse_max and cur = bs are written
+    bs, r, h, w = 8, 5, 64, 96
+    npy, npx = h // bs, w // bs
+    im1 = _frames(rng, 1, h, w)
+    wins = _windows_for(_frames(rng, 1, h, w), bs, r, rng)
+    ref = deep_pooled_cvs(*_tpu_inputs(im1, wins, bs), bs, r, r, fuse_max, "sad", interpret=True)
+    got = cv_diff.deep_pooled_cvs(torch.as_tensor(im1), torch.as_tensor(wins), bs, r, "sad", fuse_max)
+    assert sorted(got) == sorted(ref) == cv_diff.deep_curs(bs, fuse_max)
+    for cur, vol in got.items():
+        assert vol.dtype == cv_diff.cv_dtype(cur, "sad")
+        np.testing.assert_array_equal(
+            vol[0].numpy().astype(np.int64), _from_chunk_major(ref[cur], cur, bs, npy * npx, npy, npx)
+        )
+
+
+def test_pooled_cvs_options_are_checked(rng):
+    im1 = torch.as_tensor(_frames(rng, 1, 16, 16))
+    wins = torch.zeros((1, 4, 16, 16), dtype=torch.uint8)
+    for kw in (dict(store_r=5), dict(store_r=-1), dict(emit=[3]), dict(emit=[]),
+               dict(store_r=1, emit=[4, 8])):
+        with pytest.raises(ValueError):
+            cv_diff.pooled_cvs(im1, wins, 8, 4, "sad", **kw)
+    launches = cv_diff.deep_pooled_cvs.launches
+    assert sorted(cv_diff.deep_pooled_cvs(im1, wins, 8, 4, "sad", 4)) == [8]
+    assert cv_diff.deep_pooled_cvs.launches == launches  # CPU: plain, no launch
 
 
 def test_pooled_cvs_refuse_zsad(rng):
@@ -233,6 +295,71 @@ def test_color_step_rejects_mismatched_volume(rng):
         reg_step.color_step(g, cv, pm, cur=4, h=16, w=16, r=1, ci=0, cj=0, lam_mult=1.0)
 
 
+# ----------------------------------------------- hybrid colour steps (E, F)
+
+@pytest.mark.parametrize("cost", ["sad", "ssd"])
+@pytest.mark.parametrize("bs,cur", [(8, 2), (8, 4), (16, 8)])
+def test_hybrid_steps_equal_dense_color_step(rng, cost, bs, cur):
+    # E (dense main volume + rival recompute) and F (band + main-tail and
+    # rival recompute) against D' on the dense volumes of the same windows,
+    # candidates within +-20 of the centres: in band, in the tail, rival
+    # only, unevaluable and off the frame's edge
+    b, h, w, r, r2, store_r = 2, 4 * bs, 6 * bs, 7, 5, 2
+    f = bs // cur
+    npy, npx = h // bs, w // bs
+    im1 = torch.as_tensor(_frames(rng, b, h, w))
+    win = torch.as_tensor(_windows_for(_frames(rng, b, h, w), bs, r, rng))
+    rwin = torch.as_tensor(_windows_for(_frames(rng, b, h, w), bs, r2, rng))
+    dense = cv_diff.pooled_cvs(im1, win, bs, r, cost)
+    rdense = cv_diff.pooled_cvs(im1, rwin, bs, r2, cost)
+    band = cv_diff.pooled_cvs(im1, win, bs, r, cost, store_r=store_r, emit=[2])[2]
+    pm = torch.as_tensor(rng.integers(-6, 7, size=(b, npy, npx, 2)), dtype=torch.int32)
+    rpm = pm + torch.as_tensor(rng.integers(-12, 13, size=pm.shape), dtype=torch.int32)
+    g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
+    g0 = g0 + torch.as_tensor(rng.integers(-20, 21, size=g0.shape), dtype=torch.int32)
+    kw = dict(cur=cur, h=h, w=w, r=r, lam_mult=2.0 * f, r2=r2)
+    for ci, cj in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        want = g0.clone()
+        reg_step.color_step(want, dense[cur], pm, ci=ci, cj=cj, rcv=rdense[cur], rpm=rpm, **kw)
+        assert not torch.equal(want, g0)
+        got = g0.clone()
+        fused_step.color_step_hybrid(got, dense[cur], pm, ci=ci, cj=cj, im1=im1, rwin=rwin,
+                                     rpm=rpm, cost=cost, **kw)
+        assert torch.equal(got, want), (ci, cj)
+        if cur == 2:
+            got = g0.clone()
+            fused_step.color_step_hybrid_tail(
+                got, band, pm, ci=ci, cj=cj, im1=im1, win=win, rwin=rwin, rpm=rpm,
+                store_r=store_r, cost=cost, **kw,
+            )
+            assert torch.equal(got, want), (ci, cj)
+
+
+def test_hybrid_steps_reject_bad_inputs(rng):
+    launches = (fused_step.color_step_hybrid.launches, fused_step.color_step_hybrid_tail.launches)
+    g = torch.zeros((1, 4, 4, 2), dtype=torch.int32)
+    pm = torch.zeros((1, 1, 1, 2), dtype=torch.int32)
+    im1 = torch.zeros((1, 8, 8), dtype=torch.uint8)
+    rwin = torch.zeros((1, 1, 12, 12), dtype=torch.uint8)
+    win = torch.zeros((1, 1, 14, 14), dtype=torch.uint8)
+    kw = dict(cur=2, h=8, w=8, r=3, r2=2, ci=0, cj=0, lam_mult=1.0, cost="sad")
+    good = torch.zeros((1, 49, 4, 4), dtype=torch.uint16)
+    fused_step.color_step_hybrid(g, good, pm, im1=im1, rwin=rwin, rpm=pm, **kw)
+    with pytest.raises(ValueError):  # volume of the wrong radius
+        fused_step.color_step_hybrid(g, good[:, :25], pm, im1=im1, rwin=rwin, rpm=pm, **kw)
+    with pytest.raises(ValueError):  # rival windows of the wrong edge
+        fused_step.color_step_hybrid(g, good, pm, im1=im1, rwin=win, rpm=pm, **kw)
+    band = torch.zeros((1, 7 * 3, 4, 4), dtype=torch.uint16)
+    fused_step.color_step_hybrid_tail(g, band, pm, im1=im1, win=win, rwin=rwin, rpm=pm,
+                                      store_r=1, **kw)
+    with pytest.raises(ValueError):  # band of another store_r
+        fused_step.color_step_hybrid_tail(g, band, pm, im1=im1, win=win, rwin=rwin, rpm=pm,
+                                          store_r=2, **kw)
+    # CPU tensors: the plain versions ran, no kernel was launched
+    assert (fused_step.color_step_hybrid.launches,
+            fused_step.color_step_hybrid_tail.launches) == launches
+
+
 # ------------------------------------------------- C entry points (ctypes)
 
 def _c_params(src: str, name: str) -> list[str]:
@@ -247,7 +374,9 @@ def _c_params(src: str, name: str) -> list[str]:
     "module,name,source",
     [(gather, "bbme_gather_windows", "gather.cu"),
      (cv_diff, "bbme_pooled_cvs", "cv_diff.cu"),
-     (reg_step, "bbme_color_step", "reg_step.cu")],
+     (reg_step, "bbme_color_step", "reg_step.cu"),
+     (fused_step, "bbme_color_step_hybrid", "fused_step.cu"),
+     (fused_step, "bbme_color_step_hybrid_tail", "fused_step.cu")],
 )
 def test_ctypes_argtypes_match_c_signature(module, name, source):
     # the library is built only on a CUDA machine; the declared argument
@@ -257,8 +386,9 @@ def test_ctypes_argtypes_match_c_signature(module, name, source):
 
     src = (Path(module.__file__).resolve().parent.parent / "csrc" / source).read_text()
     params = _c_params(src, name)
-    assert len(params) == len(module.ARGTYPES), (params, module.ARGTYPES)
-    for p, t in zip(params, module.ARGTYPES):
+    argtypes = module.TAIL_ARGTYPES if name.endswith("_tail") else module.ARGTYPES
+    assert len(params) == len(argtypes), (params, argtypes)
+    for p, t in zip(params, argtypes):
         if "*" in p:
             assert t is ctypes.c_void_p or issubclass(t, ctypes._Pointer), (p, t)
         elif p.startswith("int "):

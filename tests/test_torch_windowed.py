@@ -74,6 +74,30 @@ def test_windowed_level_matches_jax(rng, rival, radius, cost):
         assert (strip[..., 0] == DX).all() and (strip[..., 1] == 0).all()
 
 
+@pytest.mark.parametrize("store_radius", [None, 0, 2])
+@pytest.mark.parametrize("radius", [None, 4])
+@pytest.mark.parametrize("cost", ["sad", "ssd"])
+def test_hybrid_level_matches_jax_xla(rng, monkeypatch, cost, radius, store_radius):
+    # the hybrid form (bs % 8 == 0 with rival windows: C, E and F's plain
+    # versions; F only with a band) against JAX's dense XLA level, and the
+    # dense-rival form against both
+    im1, im2, pred = _batch(rng)
+    fn = jax.jit(
+        lambda a, b, p: jax_windowed_level(
+            a, b, p, BS, SS, 4.0, 2, cost=cost, impl="xla", rival=True,
+            rival_radius=radius,
+        )
+    )
+    args = (torch.as_tensor(im1), torch.as_tensor(im2), torch.as_tensor(pred), BS, SS, 4.0, 2)
+    kw = dict(cost=cost, rival=True, rival_radius=radius)
+    got = tw.windowed_level(*args, store_radius=store_radius, **kw)
+    for b in range(2):
+        want = np.asarray(fn(jnp.asarray(im1[b]), jnp.asarray(im2[b]), jnp.asarray(pred[b])))
+        np.testing.assert_array_equal(got[b].numpy(), want)
+    monkeypatch.setattr(tw, "hybrid_form", lambda bs, rival: False)
+    assert torch.equal(got, tw.windowed_level(*args, store_radius=store_radius, **kw))
+
+
 def test_pick_rival_matches_jax(rng):
     # few distinct values -> many coverage ties (first neighbour in raster
     # order wins) and parents with nothing excluded (keep base)
