@@ -23,9 +23,9 @@ class MotionConfig:
 
     Defaults replicate the reference program's shipped Middlebury
     configuration: 4 pyramid levels, 32x32 blocks, 64 px search windows, 4x
-    pre-interpolation for quarter-pel output.  The port runs
-    ``regularizer="windowed"`` with prediction-centred windows
-    (``models.engine.check_config`` names what else raises).
+    pre-interpolation for quarter-pel output.  The port runs every
+    regularizer, window centre and search order with ``sad`` or ``ssd``
+    (``models.engine.check_config`` names what raises).
 
     Attributes:
       block_sizes: per-level block edge (level 0 = finest). Powers of two >= 2.

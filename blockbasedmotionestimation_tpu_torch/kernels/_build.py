@@ -3,7 +3,8 @@
 One shared library with a plain C interface holds every kernel.  It is built
 at first use into ``build/kernels/<hash>/`` beside the package (the repo's
 ``.gitignore`` lists ``build/``), keyed by a hash of the sources and flags,
-so a fresh checkout builds exactly once.  Every C entry point returns the
+so a fresh checkout builds exactly once: one nvcc per source, all started
+together, then one link.  Every C entry point returns the
 ``cudaGetLastError()`` code of its launch; ``check`` raises on a non-zero one.
 
 Nothing here runs at import time: the CPU-only test machine imports every
@@ -29,7 +30,7 @@ _LIB_NAME = "libbbme_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -67,16 +68,29 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [out.with_name(f"{s.stem}.{os.getpid()}.o") for s in srcs]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]} ({proc.returncode}):\n{text}")
+    if not failed:
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stdout}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    (out.parent / "build.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

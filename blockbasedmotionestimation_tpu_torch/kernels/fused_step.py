@@ -38,6 +38,7 @@ import torch
 
 from blockbasedmotionestimation_tpu_torch.kernels import _build
 from blockbasedmotionestimation_tpu_torch.kernels import reg_step as rs
+from blockbasedmotionestimation_tpu_torch.ops.regularize import step_candidates, step_commit
 
 
 def recompute_costs(
@@ -85,7 +86,7 @@ def _hybrid_plain(
 ) -> None:
     """E (win None: vol is the dense main volume) or F (vol is the band)."""
     f = grid.shape[1] // pm.shape[1]
-    cands, rank, present, in_img = rs.step_candidates(grid, cur, h, w, ci, cj)
+    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj)
     ddy, ddx, in_window = rs.window_deltas(cands, pm, f, ci, cj, r)
     rdy, rdx, in_rival = rs.window_deltas(cands, rpm, f, ci, cj, r2)
     costs = recompute_costs(im1, rwin, rdy, rdx, r2, cur, ci, cj, cost)
@@ -96,8 +97,8 @@ def _hybrid_plain(
         band = rs.select_costs(vol[:, :, ci::2, cj::2], ddy, ddx, r, store_r)
         in_band = ddx.abs() <= store_r
         costs = torch.where(in_window, torch.where(in_band, band, tail), costs)
-    rs.step_commit(grid, ci, cj, cands, costs, in_window | in_rival, present, in_img,
-                   rank, lam_mult)
+    step_commit(grid, ci, cj, cands, costs, in_window | in_rival, present, in_img, rank,
+                lam_mult)
 
 
 def color_step_hybrid_plain(

@@ -4,9 +4,9 @@ Replaces the TPU kernels ``windowed_color_step_rival`` (rounds at cur = bs)
 and ``windowed_color_step_pm_rival`` (rounds at cur < bs of the dense-rival
 form), and without rival windows ``windowed_color_step`` and
 ``windowed_color_step_pm``, with one step that serves every round on stored
-volumes.  ``step_candidates``, ``window_deltas``, ``select_costs`` and
-``step_commit`` are the plain pieces the hybrid steps (``kernels.fused_step``)
-share.
+volumes.  ``window_deltas`` and ``select_costs`` are plain pieces the hybrid
+steps (``kernels.fused_step``) share, with ``step_candidates`` and
+``step_commit`` of ``ops.regularize``.
 
 Layouts (batch written out):
   grid: (B, nby, nbx, 2) int32 MVs (x, y) at sub-block size cur, updated in
@@ -25,14 +25,11 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
 from blockbasedmotionestimation_tpu_torch.kernels import _build
 from blockbasedmotionestimation_tpu_torch.ops import regularize as reg
-
-_F32_MAX = float(np.finfo(np.float32).max)
+from blockbasedmotionestimation_tpu_torch.ops.regularize import step_candidates, step_commit
 
 
 def select_costs(
@@ -57,45 +54,6 @@ def _parent_slab(mv: torch.Tensor, f: int, ci: int, cj: int, m: int, n: int):
     return mv[:, rows][:, :, cols]
 
 
-def step_candidates(grid: torch.Tensor, cur: int, h: int, w: int, ci: int, cj: int):
-    """The 9 candidates of the cells of colour (ci, cj) and their masks.
-
-    Returns cands (B, m, n, 9, 2) int32 (the reference's slot order, 0 off
-    the grid), rank (m, n, 9) tie-break ranks, present (m, n, 9) and in_img
-    (B, m, n, 9): the candidate's target block lies in the h x w frame.
-    """
-    _, nby, nbx, _ = grid.shape
-    dev = grid.device
-    m, n = (nby - ci + 1) // 2, (nbx - cj + 1) // 2
-    nby_t, nbx_t = h // cur, w // cur
-    # zero ring = the reference's padded grid: off-grid slots read 0
-    gp = F.pad(grid, (0, 0, 1, 1, 1, 1))
-    cands = torch.stack(
-        [
-            gp[:, 1 + ci + dy : 1 + ci + dy + 2 * m - 1 : 2,
-               1 + cj + dx : 1 + cj + dx + 2 * n - 1 : 2]
-            for dy, dx in reg.SLOTS
-        ],
-        dim=3,
-    )  # (B, m, n, 9, 2) int32
-
-    gi = ci + 2 * torch.arange(m, device=dev)[:, None]
-    gj = cj + 2 * torch.arange(n, device=dev)[None, :]
-    case = reg.border_case(gi, gj, nby_t, nbx_t)
-    rank = torch.as_tensor(reg._RANK_TABLE, device=dev)[case]  # (m, n, 9)
-    slot_dy = torch.tensor([s[0] for s in reg.SLOTS], device=dev)
-    slot_dx = torch.tensor([s[1] for s in reg.SLOTS], device=dev)
-    ty_, tx_ = gi[..., None] + slot_dy, gj[..., None] + slot_dx
-    present = (
-        (rank < reg._BIG_RANK)
-        & (ty_ >= 0) & (ty_ < nby_t) & (tx_ >= 0) & (tx_ < nbx_t)
-    )
-    t_x = (gj * cur)[..., None] + cands[..., 0]
-    t_y = (gi * cur)[..., None] + cands[..., 1]
-    in_img = (t_x >= 0) & (t_x <= w - cur) & (t_y >= 0) & (t_y <= h - cur)
-    return cands, rank, present, in_img
-
-
 def window_deltas(cands: torch.Tensor, centres: torch.Tensor, f: int, ci: int, cj: int, r: int):
     """(ddy, ddx, inside), each (B, m, n, 9): the candidates' deltas from
     their parents' window centres (centres: (B, npy, npx, 2) parent MVs, f
@@ -105,36 +63,6 @@ def window_deltas(cands: torch.Tensor, centres: torch.Tensor, f: int, ci: int, c
     ddx = cands[..., 0] - c[..., None, 0]
     ddy = cands[..., 1] - c[..., None, 1]
     return ddy, ddx, (ddx.abs() <= r) & (ddy.abs() <= r)
-
-
-def step_commit(
-    grid: torch.Tensor,
-    ci: int,
-    cj: int,
-    cands: torch.Tensor,
-    costs: torch.Tensor,
-    evaluable: torch.Tensor,
-    present: torch.Tensor,
-    in_img: torch.Tensor,
-    rank: torch.Tensor,
-    lam_mult: float,
-) -> None:
-    """Energy cost + lam * smoothness in f32, the lexicographic (energy, rank)
-    winner of each cell, written in place (reference ``_finish_step``)."""
-    b, m, n = cands.shape[:3]
-    cf = cands.to(torch.float32)
-    du = (cf[..., :, None, 0] - cf[..., None, :, 0]).abs()
-    dv = (cf[..., :, None, 1] - cf[..., None, :, 1]).abs()
-    smooth = ((du + dv) * present.to(torch.float32)[..., None, :]).sum(dim=-1)
-    lam = torch.tensor(lam_mult, dtype=torch.float32, device=grid.device)
-    energy = torch.where(
-        present & in_img & evaluable, costs.to(torch.float32) + lam * smooth, _F32_MAX
-    )
-    winner = reg.select_lexicographic(energy, rank.expand_as(energy))
-    new_mv = torch.gather(
-        cands, 3, winner[..., None, None].expand(b, m, n, 1, 2)
-    )[:, :, :, 0]
-    grid[:, ci::2, cj::2] = new_mv
 
 
 def color_step_plain(

@@ -1,0 +1,157 @@
+"""The spiral block search's argmin (replaces ``sad_spiral_argmin``, kernel 7).
+
+``sad_spiral_argmin`` scores every bs x bs block of the level image ``im1``
+against its (bs + 2S)^2 frame-2 window (kernel A's output) at every offset
+of [-S, S]^2, masks offsets whose block leaves the frame, and returns the
+winning offset per block: minimum cost, ties to the earliest visit of the
+reference's spiral walk.  The batch dimension is written out.
+
+For a CPU tensor the wrapper runs ``sad_spiral_argmin_plain``, the
+reference's XLA formulation (a scan over the offsets in spiral order with a
+strict-< update); for a CUDA tensor it launches ``csrc/sad_search.cu``,
+which visits the offsets in raster order with (cost, spiral rank) compares.
+The two formulations check each other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from blockbasedmotionestimation_tpu_torch.kernels import _build
+from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_offsets, spiral_rank
+
+_I32_MAX = int(np.iinfo(np.int32).max)
+
+
+def extract_blocks(image: torch.Tensor, bs: int) -> torch.Tensor:
+    """(B, H, W) -> (B, nby*nbx, bs, bs) row-major block grid."""
+    b, h, w = image.shape
+    nby, nbx = h // bs, w // bs
+    return (
+        image.reshape(b, nby, bs, nbx, bs).permute(0, 1, 3, 2, 4).reshape(b, nby * nbx, bs, bs)
+    )
+
+
+def block_cost(a: torch.Tensor, b: torch.Tensor, dims, cost: str) -> torch.Tensor:
+    """int32 SAD (the reference's L1 norm) or SSD of a - b over ``dims``."""
+    d = a.to(torch.int32) - b.to(torch.int32)
+    if cost == "sad":
+        return d.abs().sum(dim=dims, dtype=torch.int32)
+    if cost == "ssd":
+        return (d * d).sum(dim=dims, dtype=torch.int32)
+    raise NotImplementedError(
+        f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 9)"
+    )
+
+
+def sad_spiral_argmin_plain(
+    im1: torch.Tensor,      # (B, H, W) u8 level image
+    windows: torch.Tensor,  # (B, nblk, win, win) u8, win = bs + 2S
+    cy: torch.Tensor,       # (B, nblk) i32 window centre rows
+    cx: torch.Tensor,       # (B, nblk) i32 window centre cols
+    bs: int,
+    ss: int,
+    cost: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(best_dy, best_dx), each (B, nblk) int32 in window coordinates
+    (0 .. 2S, centre S): the offsets in spiral order, strict < wins."""
+    _, h, w = im1.shape
+    dys, dxs, ext = spiral_offsets(ss - bs)
+    blocks = extract_blocks(im1, bs).to(torch.int32)
+    wins = windows.to(torch.int32)
+    best = torch.full(cy.shape, _I32_MAX, dtype=torch.int32, device=im1.device)
+    best_dy = torch.full_like(best, ext)
+    best_dx = torch.full_like(best, ext)
+    for dy, dx in zip((dys + ext).tolist(), (dxs + ext).tolist()):
+        c = block_cost(blocks, wins[:, :, dy : dy + bs, dx : dx + bs], (2, 3), cost)
+        ty = cy + (dy - ext)
+        tx = cx + (dx - ext)
+        ok = (ty >= 0) & (ty <= h - bs) & (tx >= 0) & (tx <= w - bs)
+        c = torch.where(ok, c, _I32_MAX)
+        better = c < best
+        best = torch.where(better, c, best)
+        best_dy = torch.where(better, dy, best_dy)
+        best_dx = torch.where(better, dx, best_dx)
+    return best_dy, best_dx
+
+
+# bbme_sad_spiral_argmin(im1, windows, cy, cx, rank, out_dy, out_dx, nblk,
+#                        n_per_frame, nbx, h, w, bs, ext, ssd, stream)
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+# the launch's shared memory (window + block) must fit a thread block
+_SMEM_LIMIT = 227 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    return _build.entry("bbme_sad_spiral_argmin", ARGTYPES)
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_on(shift: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(spiral_rank(shift).reshape(-1), device=device).contiguous()
+
+
+def sad_spiral_argmin(
+    im1: torch.Tensor,
+    windows: torch.Tensor,
+    cy: torch.Tensor,
+    cx: torch.Tensor,
+    bs: int,
+    ss: int,
+    cost: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 7; see ``sad_spiral_argmin_plain`` for shapes.  Window k of
+    frame b has its pixel (0, 0) at frame position (cy - S, cx - S)."""
+    if cost not in ("sad", "ssd"):
+        raise NotImplementedError(
+            f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 9)"
+        )
+    if im1.dtype != torch.uint8 or im1.dim() != 3:
+        raise ValueError(f"im1 must be (B, H, W) uint8, got {im1.dtype} {tuple(im1.shape)}")
+    b, h, w = im1.shape
+    if h % bs or w % bs:
+        raise ValueError(f"frame {h}x{w} is not a multiple of bs={bs}")
+    ext = spiral_offsets(ss - bs)[2]
+    win = bs + 2 * ext
+    nblk = (h // bs) * (w // bs)
+    if windows.dtype != torch.uint8 or tuple(windows.shape) != (b, nblk, win, win):
+        raise ValueError(
+            f"windows must be ({b}, {nblk}, {win}, {win}) uint8, got "
+            f"{windows.dtype} {tuple(windows.shape)}"
+        )
+    for name, t in (("windows", windows), ("cy", cy), ("cx", cx)):
+        if t.device != im1.device:
+            raise ValueError(f"{name} is on {t.device}, im1 on {im1.device}")
+    for name, t in (("cy", cy), ("cx", cx)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (b, nblk):
+            raise ValueError(f"{name} must be ({b}, {nblk}) int32, got {t.dtype} {tuple(t.shape)}")
+    if im1.device.type == "cpu":
+        return sad_spiral_argmin_plain(im1, windows, cy, cx, bs, ss, cost)
+    if im1.device.type != "cuda":
+        raise ValueError(f"unsupported device {im1.device}")
+    if win * win + bs * bs > _SMEM_LIMIT:
+        raise ValueError(f"window {win}^2 + block {bs}^2 bytes exceed a thread block's shared memory")
+    for t in (im1, windows, cy, cx):
+        if not t.is_contiguous():
+            raise ValueError("sad_spiral_argmin needs contiguous tensors")
+    out_dy = torch.empty((b, nblk), dtype=torch.int32, device=im1.device)
+    out_dx = torch.empty_like(out_dy)
+    with torch.cuda.device(im1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _kernel()(
+            im1.data_ptr(), windows.data_ptr(), cy.data_ptr(), cx.data_ptr(),
+            _rank_on(ss - bs, im1.device).data_ptr(), out_dy.data_ptr(), out_dx.data_ptr(),
+            b * nblk, nblk, w // bs, h, w, bs, ext, int(cost == "ssd"), stream,
+        )
+    _build.check(code, "sad_spiral_argmin")
+    sad_spiral_argmin.launches += 1
+    return out_dy, out_dx
+
+
+sad_spiral_argmin.launches = 0

@@ -1,16 +1,26 @@
 """The coarse-to-fine engine (``blockbasedmotionestimation_tpu/models/engine.py``).
 
 Per pyramid level, coarsest to finest: transfer the coarser level's MVs as
-predictions (x2, one per fine block), then run the fused windowed level
-(``ops.windowed.windowed_level``).  The result at each level is the stride-1
-MV grid.  Every entry point takes uint8 frames as torch tensors (the device
-is theirs) or numpy arrays, which go to ``device=`` (CUDA when it is not
-given; ``device="cpu"`` runs the plain versions); the batch dim is written
-out where the reference vmapped.
+predictions (x2, one per fine block), then run the level (``_run_level``,
+the reference's dispatch):
 
-Only the default schedule is ported: ``regularizer="windowed"`` with
-prediction-centred windows, sad or ssd, with or without rival windows.
-Other configurations raise ``NotImplementedError`` naming their ROADMAP item.
+  * the default, ``regularizer="windowed"`` with prediction-centred windows,
+    spiral search and no ``reg_radius``: the fused windowed level
+    (``ops.windowed.windowed_level``), one set of cost volumes for the
+    search and every round;
+  * every other configuration: the block search (``ops.search``, spiral
+    with kernel 7 or raster), then the regularization schedule:
+    ``windowed`` (``ops.windowed.windowed_schedule``, windows around the
+    search winners) or ``exact``/``fourcolor``/``jacobi``
+    (``ops.regularize.run_schedule``).
+
+The result at each level is the stride-1 MV grid.  Every entry point takes
+uint8 frames as torch tensors (the device is theirs) or numpy arrays, which
+go to ``device=`` (CUDA when it is not given; ``device="cpu"`` runs the
+plain versions); the batch dim is written out where the reference vmapped.
+
+``cost="zsad"``, ``cv_fused`` and ``cv_compact`` raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,7 +31,9 @@ import torch
 from blockbasedmotionestimation_tpu_torch.config import MotionConfig
 from blockbasedmotionestimation_tpu_torch.ops import pad as pad_ops
 from blockbasedmotionestimation_tpu_torch.ops import resample
-from blockbasedmotionestimation_tpu_torch.ops.windowed import subdivide, windowed_level
+from blockbasedmotionestimation_tpu_torch.ops.regularize import run_schedule, subdivide
+from blockbasedmotionestimation_tpu_torch.ops.search import block_search_level
+from blockbasedmotionestimation_tpu_torch.ops.windowed import windowed_level, windowed_schedule
 
 __all__ = [
     "check_config",
@@ -36,20 +48,10 @@ __all__ = [
 
 
 def check_config(cfg: MotionConfig) -> None:
-    """Raise NotImplementedError for configurations outside the ported slice.
+    """Raise NotImplementedError for configurations outside the port.
 
     ``search_impl`` is ignored (the device decides).
     """
-    if cfg.regularizer != "windowed":
-        raise NotImplementedError(
-            f"regularizer={cfg.regularizer!r} is not ported yet "
-            "(ROADMAP Queue 1 item 7: the other schedules)"
-        )
-    if not cfg.uses_fused_windowed:
-        raise NotImplementedError(
-            "window_center='search', search_order='raster' and reg_radius are "
-            "not ported yet (ROADMAP Queue 1 item 8: windowed_schedule)"
-        )
     if cfg.cost not in ("sad", "ssd"):
         raise NotImplementedError(
             f"cost={cfg.cost!r} is not ported yet (ROADMAP Queue 1 item 9)"
@@ -86,6 +88,35 @@ def transfer_mvs(dense_coarse: torch.Tensor, coarse_bs: int, fine_bs: int) -> to
     return sampled[:, iy][:, :, jx]
 
 
+def _run_level(
+    im1: torch.Tensor,
+    im2: torch.Tensor,
+    pred: torch.Tensor,
+    bs: int,
+    ss: int,
+    cfg: MotionConfig,
+    level: int,
+) -> torch.Tensor:
+    """Search and regularization of one level: the (B, h, w, 2) int32
+    stride-1 grid."""
+    lam0 = float(bs) * cfg.lambda_scale
+    rr = cfg.rival_radius_at(level)
+    if cfg.uses_fused_windowed:
+        return windowed_level(
+            im1, im2, pred, bs, ss, lam0, cfg.sweeps_per_round, cost=cfg.cost,
+            rival=cfg.rival_window, rival_radius=rr, store_radius=cfg.cv_store_radius,
+        )
+    grid = block_search_level(im1, im2, pred, bs, ss, order=cfg.search_order, cost=cfg.cost)
+    if cfg.regularizer == "windowed":
+        return windowed_schedule(
+            im1, im2, grid, bs, ss, lam0, cfg.sweeps_per_round, cost=cfg.cost,
+            reg_radius=cfg.reg_radius, rival=cfg.rival_window, rival_radius=rr,
+        )
+    return run_schedule(
+        im1, im2, grid, bs, lam0, cfg.sweeps_per_round, cfg.regularizer, cost=cfg.cost
+    )
+
+
 def estimate_flow_padded(im1p: torch.Tensor, im2p: torch.Tensor, cfg: MotionConfig) -> torch.Tensor:
     """Dense (B, H, W, 2) f32 flow of pre-padded (B, H, W) u8 frames."""
     check_config(cfg)
@@ -103,13 +134,7 @@ def estimate_flow_padded(im1p: torch.Tensor, im2p: torch.Tensor, cfg: MotionConf
             pred = transfer_mvs(dense, cfg.block_sizes[level + 1], bs)
             if cfg.mv_cap is not None:
                 pred = pred.clamp(-float(cfg.mv_cap), float(cfg.mv_cap))
-        grid = windowed_level(
-            im1, im2, pred, bs, ss, float(bs) * cfg.lambda_scale,
-            cfg.sweeps_per_round, cost=cfg.cost, rival=cfg.rival_window,
-            rival_radius=cfg.rival_radius_at(level),
-            store_radius=cfg.cv_store_radius,
-        )
-        dense = grid.to(torch.float32)
+        dense = _run_level(im1, im2, pred, bs, ss, cfg, level).to(torch.float32)
     return dense
 
 

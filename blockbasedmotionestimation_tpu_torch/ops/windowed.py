@@ -39,11 +39,11 @@ from blockbasedmotionestimation_tpu_torch.kernels.fused_step import (
     color_step_hybrid_tail,
 )
 from blockbasedmotionestimation_tpu_torch.kernels.reg_step import color_step
-from blockbasedmotionestimation_tpu_torch.ops.search import gather_windows
-from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_offsets
+from blockbasedmotionestimation_tpu_torch.ops.regularize import COLORS, subdivide
+from blockbasedmotionestimation_tpu_torch.ops.search import block_origins, gather_windows
+from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent, spiral_offsets
 
 _I32_MAX = int(np.iinfo(np.int32).max)
-COLORS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 
 def _edge_index(n: int, device) -> torch.Tensor:
@@ -103,11 +103,6 @@ def spiral_argmin(
         torch.as_tensor(dys_np, device=dev)[oi],
         torch.as_tensor(dxs_np, device=dev)[oi],
     )
-
-
-def subdivide(grid: torch.Tensor) -> torch.Tensor:
-    """Each block's MV to its 2x2 children: (B, n, m, 2) -> (B, 2n, 2m, 2)."""
-    return grid.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
 def hybrid_form(bs: int, rival: bool) -> bool:
@@ -183,10 +178,7 @@ def windowed_level(
     _, h, w = im1.shape
     shift = ss - bs
     ext = spiral_offsets(shift)[2]
-    npy, npx = pred.shape[1:3]
-    dev = im1.device
-    oy = (torch.arange(npy, device=dev, dtype=torch.int32) * bs)[None, :, None]
-    ox = (torch.arange(npx, device=dev, dtype=torch.int32) * bs)[None, None, :]
+    oy, ox = block_origins(*pred.shape[1:3], bs, im1.device)
 
     # the spiral search's centre: origin + truncated prediction, with the
     # zero-MV early-out for centres outside the image
@@ -232,4 +224,58 @@ def windowed_level(
     return rounds_loop(
         grid0, cvs, base_mv, bs, ext, h, w, lam0, sweeps_per_round,
         rcvs=rcvs, rpm=rbase, r2=r2, hybrid=hybrid,
+    )
+
+
+def windowed_schedule(
+    im1: torch.Tensor,    # (B, h, w) u8
+    im2: torch.Tensor,    # (B, h, w) u8
+    grid0: torch.Tensor,  # (B, npy, npx, 2) int32 the level's search winners
+    bs: int,
+    ss: int,
+    lam0: float,
+    sweeps_per_round: int,
+    *,
+    cost: str = "sad",
+    reg_radius: int | None = None,
+    rival: bool = False,
+    rival_radius: int | None = None,
+) -> torch.Tensor:
+    """The windowed rounds around the search winners (reference
+    ``windowed_schedule``, untiled); (B, h, w, 2) int32 grid.
+
+    One window per parent centred on origin + its search winner (kernel A),
+    its volumes at radius r = min(reg_radius, S) (kernel B), and with rival
+    windows the rival centre ``pick_rival(winners, winners, r)`` and its
+    window and volumes at r2 = min(rival_radius, r).  Every volume is
+    stored (the reference's dense form: no hybrid here), so the rounds run
+    D/D' (or 8/9 without rival).  The rounds rebase candidates on the
+    winners themselves, not on the clipped window centres (they differ only
+    where a raster search kept an out-of-frame prediction); the rival's
+    deltas rebase on its clipped centre.
+    """
+    _, h, w = im1.shape
+    ext = spiral_extent(ss - bs)
+    r = ext if reg_radius is None else min(reg_radius, ext)
+    oy, ox = block_origins(*grid0.shape[1:3], bs, im1.device)
+    parent_mv = grid0.contiguous()
+    # the reference gathers (bs + 2S)^2 windows and reads their centre
+    # (bs + 2r)^2 crop; the gather at radius r from the same clipped corner
+    # yields that crop directly
+    windows, _, _ = gather_windows(im2, oy + parent_mv[..., 1], ox + parent_mv[..., 0], bs, r)
+    cvs = pooled_cvs(im1, windows, bs, r, cost)
+    del windows
+
+    rcvs = rbase = None
+    r2 = r if rival_radius is None else min(rival_radius, r)
+    if rival:
+        rmv = pick_rival(parent_mv, parent_mv, r)
+        rwindows, rvy, rvx = gather_windows(im2, oy + rmv[..., 1], ox + rmv[..., 0], bs, r2)
+        rbase = torch.stack([rvx - ox, rvy - oy], dim=-1).contiguous()
+        rcvs = pooled_cvs(im1, rwindows, bs, r2, cost)
+        del rwindows
+
+    return rounds_loop(
+        parent_mv.clone(), cvs, parent_mv, bs, r, h, w, lam0, sweeps_per_round,
+        rcvs=rcvs, rpm=rbase, r2=r2,
     )

@@ -1,18 +1,21 @@
 """Where the time of the 1080p main path goes, on one CUDA card.
 
     python -m blockbasedmotionestimation_tpu_torch.profile_main
+    python -m blockbasedmotionestimation_tpu_torch.profile_main --regularizer fourcolor
+    python -m blockbasedmotionestimation_tpu_torch.profile_main --window-center search
 
-Runs ``estimate_flow_batched`` with ``MotionConfig(interp_factor=1)`` on
-seeded-noise 1080p pairs (frame 2 = frame 1 moved by (-5, -9), made as
-``chip_smoke.py`` makes them) and prints, beside the card's name and power
-limit:
+Runs ``estimate_flow_batched`` with ``MotionConfig(interp_factor=1)`` (or
+the regularizer / window centre given) on seeded-noise 1080p pairs (frame 2
+= frame 1 moved by (-5, -9), made as ``chip_smoke.py`` makes them) and
+prints, beside the card's name and power limit:
 
   - wall time per batch over 10 batches of 8 (min, median, max), fields/s
     at the median, and the peak device memory;
   - wall time per pyramid level, each level synchronised before and after;
-  - launches and device time of each kernel wrapper over one more batch
-    (CUDA events around every launch; B and C share one CUDA kernel, so
-    only the wrappers tell them apart);
+  - launches and device time of each kernel wrapper and of each stage of a
+    level (the block search, the schedule) over one more batch (CUDA events
+    around every call; B and C share one CUDA kernel, so only the wrappers
+    tell them apart);
   - device time by kernel over one more batch (``torch.profiler``), the
     device total, and the device's idle share of the median batch.
 
@@ -21,6 +24,7 @@ Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import subprocess
 import sys
@@ -48,13 +52,14 @@ def _kernel_us(evt) -> float:
 
 @contextlib.contextmanager
 def _timed_kernels(events: dict):
-    """Wrap each kernel wrapper of the level so that every call records
-    (start, end) CUDA events under the wrapper's name."""
+    """Wrap each kernel wrapper and each stage of a level so that every call
+    records (start, end) CUDA events under the function's name."""
     from blockbasedmotionestimation_tpu_torch.ops import search, windowed
 
-    names = {search: ["_gather"], windowed: [
+    names = {search: ["_gather", "_sad_argmin"], windowed: [
         "pooled_cvs", "deep_pooled_cvs", "color_step", "color_step_hybrid",
-        "color_step_hybrid_tail"]}
+        "color_step_hybrid_tail"], engine: [
+        "block_search_level", "run_schedule", "windowed_schedule", "windowed_level"]}
     saved = {(m, n): getattr(m, n) for m, ns in names.items() for n in ns}
 
     def timed(fn):
@@ -77,7 +82,13 @@ def _timed_kernels(events: dict):
             setattr(m, n, fn)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    # exact is sequential over the blocks: for small frames, not for 1080p
+    ap.add_argument("--regularizer", default="windowed",
+                    choices=["windowed", "fourcolor", "jacobi"])
+    ap.add_argument("--window-center", default="pred", choices=["pred", "search"])
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main: no CUDA device", file=sys.stderr)
         return 1
@@ -86,11 +97,13 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    cfg = MotionConfig(interp_factor=1)
+    cfg = MotionConfig(interp_factor=1, regularizer=args.regularizer,
+                       window_center=args.window_center)
     noise = np.random.default_rng(0).integers(0, 256, size=(B, H + 16, W + 16), dtype=np.uint8)
     im1 = torch.as_tensor(noise[:, :H, :W].copy(), device=dev)
     im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
-    print(f"[profile] card: {card}; 1080p, B={B}, MotionConfig(interp_factor=1)")
+    print(f"[profile] card: {card}; 1080p, B={B}, MotionConfig(interp_factor=1, "
+          f"regularizer={cfg.regularizer!r}, window_center={cfg.window_center!r})")
 
     engine.estimate_flow_batched(im1, im2, cfg)  # warm: builds and loads the kernels
     torch.cuda.synchronize()
@@ -108,7 +121,7 @@ def main() -> int:
           f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
 
     level_ms = []
-    level_fn = engine.windowed_level
+    level_fn = engine._run_level
 
     def timed_level(*a, **k):
         torch.cuda.synchronize()
@@ -118,11 +131,11 @@ def main() -> int:
         level_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    engine.windowed_level = timed_level
+    engine._run_level = timed_level
     try:
         engine.estimate_flow_batched(im1, im2, cfg)
     finally:
-        engine.windowed_level = level_fn
+        engine._run_level = level_fn
     levels = range(cfg.num_levels - 1, -1, -1)  # the engine runs coarsest first
     print("[profile] per level (ms, synchronised): "
           + ", ".join(f"level {lv} {ms:.3f}" for lv, ms in sorted(zip(levels, level_ms))))
@@ -133,8 +146,7 @@ def main() -> int:
     torch.cuda.synchronize()
     for name, evs in events.items():
         ms = sum(s.elapsed_time(e) for s, e in evs)
-        print(f"[profile] kernel {name}: {len(evs)} launches, {ms:.3f} ms device time "
-              f"(CUDA events, one batch)")
+        print(f"[profile] {name}: {len(evs)} calls, {ms:.3f} ms (CUDA events, one batch)")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

@@ -4,24 +4,35 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
-  2. build: the CUDA kernels compiled from ``csrc/`` with nvcc;
+  2. build: the CUDA kernels compiled from ``csrc/`` with nvcc, one process
+     per source, all at once;
   3. each kernel against its plain PyTorch version on the same CUDA inputs,
      at the shapes of the 1080p level 0 at B=8, exact equality, with the
      kernel's and the plain version's times and the kernel's bound: A (main
      and rival windows), B (the stored band at store_r 4, then the dense
      volumes of the dense-rival form), C, D (rival and not, cur 32 and 2),
      E (cur 4 and 16) and F (cur 2), on random candidates within +-20 of the
-     window centres;
+     window centres; kernel 7 (the spiral search's argmin, sad and ssd)
+     around predictions within +-48 px;
   4. the main path: ``estimate_flow_batched`` with ``MotionConfig(
      interp_factor=1)`` on 8 seeded-noise 1080p pairs, counting every
-     kernel's launches and checking the known translation; fields/s and
-     peak memory;
+     kernel's launches (kernel 7: none) and checking the known translation;
+     fields/s and peak memory; every frame also through the plain versions;
   4b. a two-motion B=8 batch at 1080p: the rival windows decide pixels, the
      band (cv_store_radius=4) gives the flow of cv_store_radius=None and the
      hybrid form the flow of the dense-rival form, and every frame equals
      the plain path on the card;
+  4c. the same pairs as 4 through ``regularizer="fourcolor"``: the spiral
+     search (A, kernel 7), then the plain colour steps; level 3 is a 5x8
+     grid, so the odd-grid schedule runs at full width;
+  4d. the same pairs through ``window_center="search"``: the search, then
+     windows around its winners (A), their dense volumes (B) and the rounds
+     on them (D, rival on);
   5. CUDA equals the CPU (plain) path bit for bit on a two-motion pair at
-     the default configuration;
+     the default configuration and at the search-then-regularize ones
+     (fourcolor, jacobi, fourcolor with ssd, search-centred windows with
+     reg_radius 8, raster search under fourcolor and under windowed; exact
+     on a 64x96 pair);
   6. ``estimate_flow_driver`` with ``interp_factor=4`` at 388x584.
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -54,7 +65,16 @@ CORE_OPS_PER_S = 67e12     # H100 SXM CUDA-core peak, used for integer operation
 # per-batch launches of MotionConfig(interp_factor=1): 4 levels of bs 32,
 # 2 sweeps x 4 colours per round; D at cur 32, E at 16/8/4, F at 2
 WANT_LAUNCHES = {"gather_windows": 8, "pooled_cvs": 4, "deep_pooled_cvs": 4,
-                 "color_step": 32, "color_step_hybrid": 96, "color_step_hybrid_tail": 32}
+                 "color_step": 32, "color_step_hybrid": 96, "color_step_hybrid_tail": 32,
+                 "sad_spiral_argmin": 0}
+# regularizer="fourcolor": per level one search gather (A) and kernel 7; the
+# colour steps are plain torch
+WANT_FOURCOLOR = dict.fromkeys(WANT_LAUNCHES, 0) | {"gather_windows": 4, "sad_spiral_argmin": 4}
+# window_center="search" (rival on): per level the search (A, 7), the main
+# and rival windows (A twice) and their dense volumes (B twice), and 5
+# rounds x 2 sweeps x 4 colours of D
+WANT_SEARCH = dict.fromkeys(WANT_LAUNCHES, 0) | {
+    "gather_windows": 12, "sad_spiral_argmin": 4, "pooled_cvs": 8, "color_step": 160}
 
 
 def _cmd_line(cmd: list[str], pick=None) -> str:
@@ -122,10 +142,17 @@ def _swapped(module, **fns):
 @contextlib.contextmanager
 def _plain_kernels():
     """Route the main path through the kernels' plain versions (also on CUDA)."""
-    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step
+    from blockbasedmotionestimation_tpu_torch.kernels import (
+        cv_diff,
+        fused_step,
+        gather,
+        reg_step,
+        sad_search,
+    )
     from blockbasedmotionestimation_tpu_torch.ops import search, windowed
 
-    with _swapped(search, _gather=gather.gather_windows_plain), _swapped(
+    with _swapped(search, _gather=gather.gather_windows_plain,
+                  _sad_argmin=sad_search.sad_spiral_argmin_plain), _swapped(
         windowed,
         pooled_cvs=cv_diff.pooled_cvs_plain,
         deep_pooled_cvs=cv_diff.deep_pooled_cvs_plain,
@@ -200,8 +227,9 @@ def _step_work(torch, g, pm, rpm, *, kind, cur, h, w, r, r2, ci, cj, store_r=Non
     volume; F: band) or a recompute (cur^2 window bytes, once cur^2 frame-1
     bytes per cell) with its operations, plus the smoothness terms."""
     from blockbasedmotionestimation_tpu_torch.kernels import reg_step as rs
+    from blockbasedmotionestimation_tpu_torch.ops import regularize
 
-    cands, _, present, in_img = rs.step_candidates(g, cur, h, w, ci, cj)
+    cands, _, present, in_img = regularize.step_candidates(g, cur, h, w, ci, cj)
     f = g.shape[1] // pm.shape[1]
     _, ddx, in_win = rs.window_deltas(cands, pm, f, ci, cj, r)
     in_riv = torch.zeros_like(in_win)
@@ -241,9 +269,16 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     them; their plain versions run frame by frame on the same inputs
     (bounded memory) and each frame's slice is compared, so offsets past
     2^31 entries are checked too."""
-    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step
+    from blockbasedmotionestimation_tpu_torch.kernels import (
+        cv_diff,
+        fused_step,
+        gather,
+        reg_step,
+        sad_search,
+    )
     from blockbasedmotionestimation_tpu_torch.ops import pad as pad_ops
-    from blockbasedmotionestimation_tpu_torch.ops import windowed
+    from blockbasedmotionestimation_tpu_torch.ops import search, windowed
+    from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
 
     p = pad_ops.compute_padding(H, W, cfg)
     hp, wp, bs = p.padded_h, p.padded_w, cfg.block_sizes[0]
@@ -402,10 +437,98 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
           fused_step.color_step_hybrid_tail, fused_step.color_step_hybrid_tail_plain, 2,
           lambda c: vols[c], lambda sl: dict(hybrid_kw(sl), win=wins[sl], store_r=store_r), "F",
           f"band store_r={store_r} + main-tail and rival recompute", also=["fused_step.py:848"])
+    del vols, dense, rdense, rdeep
+
+    # 7: the spiral search's argmin around the centres block_search_level
+    # passes (origin + a prediction within +-48 px; the origin where that
+    # block leaves the frame), on windows gathered by A.  Frame 2 is frame 1
+    # moved by (-5, -9), and a constant 256 px corner makes every offset of
+    # its blocks cost the same, so the spiral rank decides there.
+    ss = cfg.search_sizes[0]
+    s7 = spiral_extent(ss - bs)
+    im1_7 = frames.clone()
+    im1_7[:, :256, :256] = 9
+    im2_7 = torch.roll(im1_7, shifts=(-SHIFT_Y, -SHIFT_X), dims=(1, 2))
+    pred = torch.as_tensor(rng.integers(-48, 49, size=(B, npy, npx, 2)), dtype=torch.float32,
+                           device=dev)
+    oy, ox = search.block_origins(npy, npx, bs, dev)
+    cy, cx = oy + pred[..., 1].to(torch.int32), ox + pred[..., 0].to(torch.int32)
+    ok = (cy >= 0) & (cy <= hp - bs) & (cx >= 0) & (cx <= wp - bs)
+    cy, cx = torch.where(ok, cy, oy), torch.where(ok, cx, ox)
+    wins7 = search.gather_windows(im2_7, cy, cx, bs, s7)[0]
+    cy, cx = cy.reshape(B, -1).contiguous(), cx.reshape(B, -1).contiguous()
+    # the operations this run needs: the kernel sums only in-frame offsets
+    rows = (cy + s7).clamp(max=hp - bs) - (cy - s7).clamp(min=0) + 1
+    cols = (cx + s7).clamp(max=wp - bs) - (cx - s7).clamp(min=0) + 1
+    pairs = int((rows.to(torch.int64) * cols).sum())
+    rank = sad_search._rank_on(ss - bs, dev)
+    args = (im1_7, wins7, cy, cx, bs, ss)
+    for cost in ("sad", "ssd"):
+        got = sad_search.sad_spiral_argmin(*args, cost)
+        want = sad_search.sad_spiral_argmin_plain(*args, cost)
+        err = max(_max_abs_err(torch, got[0], want[0]), _max_abs_err(torch, got[1], want[1]))
+        ms = _cuda_ms(torch, lambda: sad_search.sad_spiral_argmin(*args, cost), 5)
+        pms = _cuda_ms(torch, lambda: sad_search.sad_spiral_argmin_plain(*args, cost), 1)
+        work = (_nbytes(im1_7, wins7, cy, cx, rank, *got), 3 * pairs * bs * bs)
+        record("sad_spiral_argmin", "sad_search.cu", "sad_search.py:105", err, ms, pms, work,
+               f"{cost}: S={s7}, {B * npy * npx} blocks, win {bs + 2 * s7}, centres within "
+               f"+-48 px ({int((~ok).sum())} left the frame: origin), {pairs} in-frame "
+               f"(block, offset) pairs of {B * npy * npx * (2 * s7 + 1) ** 2}",
+               also=["sad_search.py:149"])
     bad = [r["name"] for r in results.values() if r["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return results
+
+
+def _drive(torch, engine, cfg, im1, im2, counters: dict, want: dict, tag: str, card: str,
+           reps: int = 10) -> dict:
+    """Drive one path through ``estimate_flow_batched`` on the B=8 batch of
+    known translation: every count is set to 0 just before the run and read
+    just after, and must equal ``want`` (each kernel the path needs launched
+    at least once); the interior must hold the known flow and every frame
+    must equal the plain path on the card.  Prints the launches, the median
+    of ``reps`` batches in fields/s and the peak memory; returns the
+    launches."""
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    flow, pad = engine.estimate_flow_batched(im1, im2, cfg)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"[{tag}] launches: {launches} (expected {want})")
+    if any(launches[name] == 0 for name, n in want.items() if n):
+        raise AssertionError(f"[{tag}] a kernel of the path was never launched")
+    if launches != want:
+        raise AssertionError(f"[{tag}] the path did not launch its kernels as expected")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if tuple(flow.shape) != (B, pad.padded_h, pad.padded_w, 2) or not torch.isfinite(flow).all():
+        raise AssertionError(f"[{tag}] bad output {tuple(flow.shape)}")
+    m = 64
+    inner = flow[:, pad.pad_y + m : pad.pad_y + H - m, pad.pad_x + m : pad.pad_x + W - m]
+    known = torch.tensor([-SHIFT_X, -SHIFT_Y], dtype=torch.float32, device=flow.device)
+    wrong = ~(inner == known).all(-1)
+    print(f"[{tag}] interior pixels off the known flow {(-SHIFT_X, -SHIFT_Y)}: "
+          f"{int(wrong.sum())} of {wrong.numel()}, per frame {wrong.sum(dim=(1, 2)).tolist()}")
+    for bi, y, x in wrong.nonzero()[:8].tolist():
+        print(f"[{tag}]   frame {bi} at ({y + m}, {x + m}): {inner[bi, y, x].tolist()}")
+    batch_s = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        engine.estimate_flow_batched(im1, im2, cfg)
+        torch.cuda.synchronize()
+        batch_s.append(time.time() - t0)
+    med = float(np.median(batch_s))
+    print(f"[{tag}] first call {first_s:.3f} s; {reps} batches of {B}: min {min(batch_s):.4f}, "
+          f"median {med:.4f}, max {max(batch_s):.4f} s; {B / med:.3f} fields/s at the median; "
+          f"peak {peak_gb:.2f} GB ({card})")
+    _same_as_plain(torch, engine, cfg, im1, im2, flow, tag)
+    if float(wrong.float().mean()) > 1e-3:
+        raise AssertionError(f"[{tag}] the path did not recover the known translation")
+    return launches
 
 
 def main() -> int:
@@ -415,7 +538,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from blockbasedmotionestimation_tpu_torch import MotionConfig
-    from blockbasedmotionestimation_tpu_torch.kernels import _build, cv_diff, fused_step, gather, reg_step
+    from blockbasedmotionestimation_tpu_torch.kernels import (
+        _build,
+        cv_diff,
+        fused_step,
+        gather,
+        reg_step,
+        sad_search,
+    )
     from blockbasedmotionestimation_tpu_torch.models import engine
 
     dev = torch.device("cuda", 0)
@@ -448,50 +578,11 @@ def main() -> int:
     noise = np.random.default_rng(0).integers(0, 256, size=(B, H + 16, W + 16), dtype=np.uint8)
     im1 = torch.as_tensor(noise[:, :H, :W].copy(), device=dev)
     im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
-    torch.cuda.reset_peak_memory_stats()
     counters = {f.__name__: f for f in (
         gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs, reg_step.color_step,
-        fused_step.color_step_hybrid, fused_step.color_step_hybrid_tail)}
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.time()
-    flow, pad = engine.estimate_flow_batched(im1, im2, cfg)
-    torch.cuda.synchronize()
-    first_s = time.time() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    for name, n in launches.items():
-        results[name]["launches"] = n
-    print(f"[main] launches: {launches} (expected {WANT_LAUNCHES})")
-    if any(n == 0 for n in launches.values()):
-        raise AssertionError("a kernel of the main path was never launched")
-    if launches != WANT_LAUNCHES:
-        raise AssertionError("the main path did not launch the hybrid form's kernels as expected")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if tuple(flow.shape) != (B, pad.padded_h, pad.padded_w, 2) or not torch.isfinite(flow).all():
-        raise AssertionError(f"bad main-path output {tuple(flow.shape)}")
-    m = 64
-    inner = flow[:, pad.pad_y + m : pad.pad_y + H - m, pad.pad_x + m : pad.pad_x + W - m]
-    want = torch.tensor([-SHIFT_X, -SHIFT_Y], dtype=torch.float32, device=dev)
-    wrong = ~(inner == want).all(-1)
-    print(f"[main] interior pixels off the known flow {(-SHIFT_X, -SHIFT_Y)}: "
-          f"{int(wrong.sum())} of {wrong.numel()}, per frame {wrong.sum(dim=(1, 2)).tolist()}")
-    for bi, y, x in wrong.nonzero()[:8].tolist():
-        print(f"[main]   frame {bi} at ({y + m}, {x + m}): {inner[bi, y, x].tolist()}")
-    batch_s = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        engine.estimate_flow_batched(im1, im2, cfg)
-        torch.cuda.synchronize()
-        batch_s.append(time.time() - t0)
-    med = float(np.median(batch_s))
-    print(f"[main] first call {first_s:.3f} s; 10 batches of {B}: min {min(batch_s):.4f}, "
-          f"median {med:.4f}, max {max(batch_s):.4f} s; {B / med:.3f} fields/s at the median; "
-          f"peak {peak_gb:.2f} GB ({card})")
-    _same_as_plain(torch, engine, cfg, im1, im2, flow, "main")
-    if float(wrong.float().mean()) > 1e-3:
-        raise AssertionError("main path did not recover the known translation")
-    del im1, im2, flow, inner, wrong
+        fused_step.color_step_hybrid, fused_step.color_step_hybrid_tail,
+        sad_search.sad_spiral_argmin)}
+    by_path = {"main": _drive(torch, engine, cfg, im1, im2, counters, WANT_LAUNCHES, "main", card)}
     torch.cuda.empty_cache()
 
     # 4b. two motions per frame at 1080p, B=8: the rival windows decide cells
@@ -500,6 +591,7 @@ def main() -> int:
     tm1, tm2, tflow = _two_motion(H, W, B, np.random.default_rng(1))
     tm1, tm2 = torch.as_tensor(tm1, device=dev), torch.as_tensor(tm2, device=dev)
     flow, pad = engine.estimate_flow_batched(tm1, tm2, cfg)
+    m = 64
     no_band, _ = engine.estimate_flow_batched(tm1, tm2, cfg.replace(cv_store_radius=None))
     with _dense_rival_form():
         dense_form, _ = engine.estimate_flow_batched(tm1, tm2, cfg)
@@ -526,7 +618,20 @@ def main() -> int:
     del tm1, tm2, flow, no_rival, at_known
     torch.cuda.empty_cache()
 
-    # 5. CUDA == CPU (plain) end to end on a two-motion pair, default config
+    # 4c, 4d. the search-then-regularize paths on the pairs of phase 4
+    for tag, c, want in (("fourcolor", cfg.replace(regularizer="fourcolor"), WANT_FOURCOLOR),
+                         ("search", cfg.replace(window_center="search"), WANT_SEARCH)):
+        by_path[tag] = _drive(torch, engine, c, im1, im2, counters, want, tag, card, reps=5)
+        torch.cuda.empty_cache()
+    del im1, im2
+    for name, row in results.items():
+        # kernel 7 runs on the search paths only: its launches are fourcolor's
+        row["launches"] = by_path["fourcolor" if name == "sad_spiral_argmin" else "main"][name]
+        row["launches_by_path"] = {tag: n[name] for tag, n in by_path.items()}
+    results["sad_spiral_argmin"]["launches_from"] = "MotionConfig(regularizer='fourcolor')"
+
+    # 5. CUDA == CPU (plain) end to end on a two-motion pair, default config,
+    #    then the search-then-regularize configurations
     h5, w5 = 256, 384
     tex = _texture(h5 + 64, w5 + 64, rng)
     a2 = tex[32:32 + h5, 32:32 + w5]
@@ -542,6 +647,25 @@ def main() -> int:
         diff = int((on_gpu.cpu() != on_cpu).any(-1).sum())
         raise AssertionError(f"CUDA and CPU flows differ at {diff} pixels")
     print(f"[parity] CUDA == CPU on two {h5}x{w5} two-motion pairs (default config)")
+    small = cfg.replace(regularizer="exact", block_sizes=(8, 8), search_sizes=(16, 16))
+    for what, c, frames in (
+        ("fourcolor", cfg.replace(regularizer="fourcolor"), pair),
+        ("jacobi", cfg.replace(regularizer="jacobi"), pair),
+        ("fourcolor, ssd", cfg.replace(regularizer="fourcolor", cost="ssd"), pair),
+        ("window_center=search, reg_radius=8", cfg.replace(window_center="search", reg_radius=8),
+         pair),
+        ("raster, fourcolor", cfg.replace(search_order="raster", regularizer="fourcolor"), pair),
+        ("raster, windowed", cfg.replace(search_order="raster"), pair),
+        ("exact, 64x96, block_sizes (8, 8)", small,
+         tuple(np.ascontiguousarray(f[:, 96:160, 144:240]) for f in pair)),
+    ):
+        t0 = time.time()
+        on_gpu, _ = engine.estimate_flow_batched(*frames, c)
+        on_cpu, _ = engine.estimate_flow_batched(*frames, c, device="cpu")
+        if not torch.equal(on_gpu.cpu(), on_cpu):
+            diff = int((on_gpu.cpu() != on_cpu).any(-1).sum())
+            raise AssertionError(f"{what}: CUDA and CPU flows differ at {diff} pixels")
+        print(f"[parity] CUDA == CPU, {what}: {tuple(on_cpu.shape)} ({time.time() - t0:.1f} s)")
 
     # 6. the reference driver at Middlebury geometry, interp_factor=4
     h6, w6 = 388, 584

@@ -12,8 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from blockbasedmotionestimation_tpu_torch import MotionConfig
-from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step
+from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step, sad_search
 from blockbasedmotionestimation_tpu_torch.models import engine
+from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
 
 
 @pytest.fixture
@@ -130,3 +131,48 @@ def test_cuda_engine_equals_cpu(cuda):
         on_gpu, _ = engine.estimate_flow_batched(a, b, c, device=cuda)
         on_cpu, _ = engine.estimate_flow_batched(a, b, c, device="cpu")
         assert torch.equal(on_gpu.cpu(), on_cpu)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bs,ss", [(32, 64), (8, 24), (4, 12)])
+def test_cuda_sad_spiral_argmin_equals_plain(cuda, bs, ss):
+    # kernel 7: centres near and past the frame's edges mask offsets (some
+    # blocks every offset); block 5 and its window are constant, so every
+    # unmasked offset costs the same and the spiral rank decides
+    rng = np.random.default_rng(ss)
+    b, h, w = 2, 4 * bs, 6 * bs
+    ext = spiral_extent(ss - bs)
+    win, nblk = bs + 2 * ext, 24
+    im1 = rng.integers(0, 256, size=(b, h, w), dtype=np.uint8)
+    wins = rng.integers(0, 256, size=(b, nblk, win, win), dtype=np.uint8)
+    im1[:, :bs, 5 * bs : 6 * bs] = 9
+    wins[:, 5] = 9
+    cy = rng.integers(-ext - 2, h - bs + ext + 3, size=(b, nblk)).astype(np.int32)
+    cx = rng.integers(-ext - 2, w - bs + ext + 3, size=(b, nblk)).astype(np.int32)
+    args = [torch.as_tensor(a, device=cuda) for a in (im1, wins, cy, cx)]
+    for cost in ("sad", "ssd"):
+        before = sad_search.sad_spiral_argmin.launches
+        got = sad_search.sad_spiral_argmin(*args, bs, ss, cost)
+        assert sad_search.sad_spiral_argmin.launches == before + 1
+        want = sad_search.sad_spiral_argmin_plain(*args, bs, ss, cost)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), cost
+
+
+@pytest.mark.requires_cuda
+def test_cuda_search_schedules_equal_cpu(cuda):
+    # the configurations that search first (kernel 7), then regularize
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 256, size=(2, 80, 112), dtype=np.uint8)
+    b = np.roll(a, (-2, 3), axis=(1, 2))
+    cfg = MotionConfig(block_sizes=(8, 8), search_sizes=(24, 24), interp_factor=1,
+                       rival_radius=(4, None))
+    for c in (cfg.replace(regularizer="fourcolor"), cfg.replace(regularizer="jacobi", cost="ssd"),
+              cfg.replace(window_center="search", reg_radius=3),
+              cfg.replace(search_order="raster"),
+              cfg.replace(regularizer="exact", block_sizes=(4, 4), search_sizes=(8, 8))):
+        before = sad_search.sad_spiral_argmin.launches
+        on_gpu, _ = engine.estimate_flow_batched(a, b, c, device=cuda)
+        on_cpu, _ = engine.estimate_flow_batched(a, b, c, device="cpu")
+        assert torch.equal(on_gpu.cpu(), on_cpu), c
+        spiral = c.search_order == "spiral"
+        assert sad_search.sad_spiral_argmin.launches == before + (2 if spiral else 0), c

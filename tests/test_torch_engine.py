@@ -4,8 +4,8 @@ Tiny configurations (two 8px levels) on numpy pairs made from a seed;
 exact equality of the flow fields.  The port gets its own ``MotionConfig``,
 made from the JAX config's fields.  Also: the port never imports jax or the
 JAX package, its config and spiral tables equal the JAX package's, numpy
-frames go to CUDA by default, and configurations outside the ported slice
-raise.
+frames go to CUDA by default, and the configurations outside the port
+(``cost="zsad"``, ``cv_fused``, ``cv_compact``) raise.
 """
 
 import os
@@ -63,8 +63,14 @@ def _port(cfg: MotionConfig) -> tconfig.MotionConfig:
         TINY.replace(cost="ssd", mv_cap=16, rival_window=False),
         # the hybrid form with the stored band: C, E and F's plain versions
         jconfig.tiny_config(block_sizes=(8, 8), search_sizes=(24, 24), cv_store_radius=2),
+        # search then regularize: kernel 7's plain version, then a schedule
+        TINY.replace(regularizer="fourcolor"),
+        TINY.replace(window_center="search"),
+        TINY.replace(search_order="raster"),
+        TINY.replace(reg_radius=4),
     ],
-    ids=["sad-rival", "ssd-mv_cap-norival", "hybrid-band"],
+    ids=["sad-rival", "ssd-mv_cap-norival", "hybrid-band", "fourcolor", "search-rival",
+         "raster-windowed", "pred-reg_radius4"],
 )
 def test_estimate_flow_batched_matches_jax(rng, cfg):
     im1s, im2s = _pairs(rng, 2, H, W)
@@ -91,13 +97,16 @@ def test_estimate_flow_driver_interp2_matches_jax(rng):
 @pytest.mark.parametrize(
     "override",
     [
-        dict(regularizer="fourcolor"),
-        dict(window_center="search"),
-        dict(search_order="raster"),
-        dict(reg_radius=4),
+        dict(cost="zsad", regularizer="fourcolor"),
+        dict(cost="zsad", window_center="search"),
+        dict(cost="zsad", search_order="raster"),
+        dict(cost="zsad", reg_radius=4),
         dict(cost="zsad"),
         dict(cv_fused=4),
         dict(cv_compact=8),
+        dict(cost="zsad", regularizer="exact"),
+        dict(cv_fused=4, regularizer="fourcolor"),
+        dict(cv_compact=8, window_center="search"),
     ],
 )
 def test_configs_outside_the_slice_raise(override):

@@ -22,7 +22,13 @@ from blockbasedmotionestimation_tpu.kernels.reg_step import windowed_color_step_
 from blockbasedmotionestimation_tpu.ops import regularize as jreg
 from blockbasedmotionestimation_tpu.ops.search import _gather_windows
 from blockbasedmotionestimation_tpu.ops.windowed import _compute_cv
-from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step
+from blockbasedmotionestimation_tpu_torch.kernels import (
+    cv_diff,
+    fused_step,
+    gather,
+    reg_step,
+    sad_search,
+)
 
 
 def _frames(rng, b, h, w):
@@ -376,7 +382,8 @@ def _c_params(src: str, name: str) -> list[str]:
      (cv_diff, "bbme_pooled_cvs", "cv_diff.cu"),
      (reg_step, "bbme_color_step", "reg_step.cu"),
      (fused_step, "bbme_color_step_hybrid", "fused_step.cu"),
-     (fused_step, "bbme_color_step_hybrid_tail", "fused_step.cu")],
+     (fused_step, "bbme_color_step_hybrid_tail", "fused_step.cu"),
+     (sad_search, "bbme_sad_spiral_argmin", "sad_search.cu")],
 )
 def test_ctypes_argtypes_match_c_signature(module, name, source):
     # the library is built only on a CUDA machine; the declared argument
