@@ -1,5 +1,6 @@
-"""Pooled cost volumes at the sub-block sizes (replaces ``delta_pooled_cvs``,
-kernel B, and ``deep_pooled_cvs``, kernel C).
+"""Pooled cost volumes and compact tables (replace the TPU kernels
+``delta_pooled_cvs`` (B), ``deep_pooled_cvs`` (C), ``full_block_volume``
+(13) and ``compact_tables`` (14)).
 
 ``pooled_cvs`` returns ``{cur: volume}`` for cur = 2, 4, ..., bs.  Each
 volume is the reference's ``ops/windowed.py:_compute_cv`` layout with a
@@ -16,10 +17,16 @@ Two options narrow what is written:
     ``delta_pooled_cvs(store_r2=...)`` band);
   * ``emit``: the sizes to write; the others are pooled but never stored.
 ``deep_pooled_cvs`` (kernel C) is the call that writes only cur > fuse_max
-and cur = bs, with its own launch count.
+and cur = bs, ``full_block_volume`` (kernel 13) the one that writes only
+cur = bs, each with its own launch count.
 
-For CPU tensors the wrappers run ``pooled_cvs_plain`` (the ``_compute_cv``
-code in torch); for CUDA tensors they launch ``csrc/cv_diff.cu``.
+``compact_tables`` (kernel 14, ``cv_compact``) stores, for cur = 2 .. bs/2,
+only the costs at the K slot deltas of each parent's 128-parent chunk
+(``ops.compact.chunk_delta_slots``): (B, K, h/cur, w/cur).
+
+For CPU tensors the wrappers run the plain versions (``pooled_cvs_plain``,
+the ``_compute_cv`` code in torch, and ``compact_tables_plain``); for CUDA
+tensors they launch ``csrc/cv_diff.cu``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Iterable
 import torch
 
 from blockbasedmotionestimation_tpu_torch.kernels import _build
+from blockbasedmotionestimation_tpu_torch.ops.compact import CHUNK
 
 
 def cv_dtype(cur: int, cost: str) -> torch.dtype:
@@ -218,9 +226,158 @@ def deep_pooled_cvs(
     im1: torch.Tensor, windows: torch.Tensor, bs: int, r: int, cost: str, fuse_max: int
 ) -> dict[int, torch.Tensor]:
     """Kernel C: only the volumes the dense rounds read, cur > fuse_max and
-    cur = bs (the hybrid form's rival window)."""
+    cur = bs (the hybrid form's and ``cv_fused``'s windows)."""
     return _launch(deep_pooled_cvs, im1, windows, bs, r, cost, None, deep_curs(bs, fuse_max))
+
+
+def full_block_volume_plain(
+    im1: torch.Tensor, windows: torch.Tensor, bs: int, r: int, cost: str
+) -> dict[int, torch.Tensor]:
+    """Kernel 13's volume with torch ops: ``pooled_cvs_plain`` at emit={bs}."""
+    return pooled_cvs_plain(im1, windows, bs, r, cost, emit=[bs])
+
+
+def full_block_volume(
+    im1: torch.Tensor, windows: torch.Tensor, bs: int, r: int, cost: str
+) -> dict[int, torch.Tensor]:
+    """Kernel 13: ``{bs: volume}``, the cur = bs volume alone (the search
+    volume of ``cv_compact``)."""
+    return _launch(full_block_volume, im1, windows, bs, r, cost, None, [bs])
 
 
 pooled_cvs.launches = 0
 deep_pooled_cvs.launches = 0
+full_block_volume.launches = 0
+
+
+# ------------------------------------------------ compact tables (kernel 14)
+
+def table_curs(bs: int) -> list[int]:
+    """The sizes a compact level stores as K-slot tables: 2 .. bs/2."""
+    return _curs(bs)[:-1]
+
+
+def _check_tables(im1, windows, slots, bs, r, cost):
+    """Validate kernel 14's inputs; returns K."""
+    _check_cost(cost)
+    if im1.dtype != torch.uint8 or im1.dim() != 3:
+        raise ValueError(f"im1 must be (B, H, W) uint8, got {im1.dtype} {tuple(im1.shape)}")
+    b, h, w = im1.shape
+    if bs < 4 or h % bs or w % bs:
+        raise ValueError(f"need bs >= 4 tiling the {h}x{w} frame, got bs={bs}")
+    n_p = (h // bs) * (w // bs)
+    win = bs + 2 * r
+    if windows.dtype != torch.uint8 or tuple(windows.shape) != (b, n_p, win, win):
+        raise ValueError(f"windows must be ({b}, {n_p}, {win}, {win}) uint8, got "
+                         f"{windows.dtype} {tuple(windows.shape)}")
+    nch = -(-n_p // CHUNK)
+    if slots.dtype != torch.int32 or slots.dim() != 4 or tuple(slots.shape[:2]) != (b, nch) \
+            or slots.shape[3] != 2:
+        raise ValueError(f"slots must be ({b}, {nch}, K, 2) int32, got "
+                         f"{slots.dtype} {tuple(slots.shape)}")
+    if windows.device != im1.device or slots.device != im1.device:
+        raise ValueError("im1, windows and slots must share a device")
+    return slots.shape[2]
+
+
+def compact_tables_plain(
+    im1: torch.Tensor,      # (B, H, W) u8
+    windows: torch.Tensor,  # (B, nP, bs + 2r, bs + 2r) u8
+    slots: torch.Tensor,    # (B, nch, K, 2) int32 (dy + r, dx + r) or -1
+    bs: int,
+    r: int,
+    cost: str,
+) -> dict[int, torch.Tensor]:
+    """Kernel 14 with torch ops: one slot at a time, the block against the
+    window at the slot's delta, pooled 2x2 from each size to the next."""
+    k_slots = _check_tables(im1, windows, slots, bs, r, cost)
+    b, h, w = im1.shape
+    npy, npx = h // bs, w // bs
+    n_p = npy * npx
+    ws = bs + 2 * r
+    dev = im1.device
+    patches = (
+        im1.reshape(b, npy, bs, npx, bs).permute(0, 1, 3, 2, 4)
+        .reshape(b, n_p, bs, bs).to(torch.int32)
+    )
+    per_parent = slots[:, torch.arange(n_p, device=dev) // CHUNK]  # (B, nP, K, 2)
+    ar = torch.arange(bs, device=dev)
+    flat = windows.reshape(b, n_p, ws * ws)
+    out = {
+        c: torch.empty((b, k_slots, h // c, w // c), dtype=cv_dtype(c, cost), device=dev)
+        for c in table_curs(bs)
+    }
+    for k in range(k_slots):
+        dy, dx = per_parent[:, :, k, 0], per_parent[:, :, k, 1]
+        idx = ((dy.clamp(min=0)[..., None, None] + ar[:, None]) * ws
+               + dx.clamp(min=0)[..., None, None] + ar[None, :])  # (B, nP, bs, bs)
+        vals = torch.gather(flat, 2, idx.reshape(b, n_p, -1).long()).reshape(b, n_p, bs, bs)
+        d = patches - vals.to(torch.int32)
+        used = (dy >= 0) & (dx >= 0)
+        cvr = torch.where(used[..., None, None], d.abs() if cost == "sad" else d * d, 0)
+        cur = 1
+        while 2 * cur < bs:
+            n = bs // cur
+            cvr = cvr.reshape(b, n_p, n // 2, 2, n // 2, 2).sum(dim=(3, 5))
+            cur *= 2
+            f = bs // cur
+            out[cur][:, k] = (
+                cvr.reshape(b, npy, npx, f, f).permute(0, 1, 3, 2, 4)
+                .reshape(b, npy * f, npx * f).to(out[cur].dtype)
+            )
+    return out
+
+
+# bbme_compact_tables(im1, windows, slots, outs, ncur, is16_mask, batch, h, w,
+#                     bs, ws, k_slots, nch, chunk, ssd, stream)
+TABLES_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_void_p)]
+    + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_kernel():
+    return _build.entry("bbme_compact_tables", TABLES_ARGTYPES)
+
+
+def compact_tables(
+    im1: torch.Tensor,
+    windows: torch.Tensor,
+    slots: torch.Tensor,
+    bs: int,
+    r: int,
+    cost: str,
+) -> dict[int, torch.Tensor]:
+    """Kernel 14: ``{cur: (B, K, H/cur, W/cur)}`` for cur = 2 .. bs/2, the
+    cost of sub-block (sy, sx) of parent p at slot k of p's chunk at
+    ``[b, k, py*f + sy, px*f + sx]`` (f = bs/cur); unused slots hold 0.
+    ``slots`` is ``ops.compact.chunk_delta_slots``'s (B, nch, K, 2)."""
+    k_slots = _check_tables(im1, windows, slots, bs, r, cost)
+    if im1.device.type == "cpu":
+        return compact_tables_plain(im1, windows, slots, bs, r, cost)
+    if im1.device.type != "cuda":
+        raise ValueError(f"unsupported device {im1.device}")
+    if not all(t.is_contiguous() for t in (im1, windows, slots)):
+        raise ValueError("compact_tables needs contiguous tensors")
+    b, h, w = im1.shape
+    curs = table_curs(bs)
+    out = {
+        c: torch.empty((b, k_slots, h // c, w // c), dtype=cv_dtype(c, cost), device=im1.device)
+        for c in curs
+    }
+    ptrs = (ctypes.c_void_p * len(curs))(*(out[c].data_ptr() for c in curs))
+    is16 = sum(1 << i for i, c in enumerate(curs) if cv_dtype(c, cost) == torch.uint16)
+    with torch.cuda.device(im1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _tables_kernel()(
+            im1.data_ptr(), windows.data_ptr(), slots.data_ptr(), ptrs, len(curs), is16,
+            b, h, w, bs, bs + 2 * r, k_slots, slots.shape[1], CHUNK, int(cost == "ssd"),
+            stream,
+        )
+    _build.check(code, "compact_tables")
+    compact_tables.launches += 1
+    return out
+
+
+compact_tables.launches = 0

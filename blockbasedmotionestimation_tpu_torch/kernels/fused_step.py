@@ -1,17 +1,24 @@
-"""The hybrid colour steps of the sub-block rounds (kernels E and F).
+"""The colour steps that recompute candidate costs from window pixels
+(kernels E, F, 11 and 12).
 
-Replace the TPU kernels ``windowed_color_step_pm_hybrid`` (E) and
-``windowed_color_step_pm_hybrid_tail`` (F).  Each is one colour step, in
-place on the MV grid like ``kernels.reg_step.color_step``, whose candidate
-costs come from where the hybrid form keeps them:
+Replace the TPU kernels ``windowed_color_step_pm_hybrid`` (E),
+``windowed_color_step_pm_hybrid_tail`` (F), ``windowed_color_step_pm_fused``
+(11) and ``windowed_color_step_pm_fused_rival`` (12).  Each is one colour
+step, in place on the MV grid like ``kernels.reg_step.color_step``, whose
+candidate costs come from where its form keeps them:
 
-  * E (rounds cur <= fuse_max): main-window candidates from the dense main
-    volume at cur; rival candidates (in the rival window, not in the main
-    one) recomputed against the rival window's pixels;
+  * E (the hybrid form's rounds cur <= fuse_max): main-window candidates
+    from the dense main volume at cur; rival candidates (in the rival
+    window, not in the main one) recomputed against the rival window's
+    pixels;
   * F (the cur = 2 round with the stored band): main-window candidates with
     |dx - pm_x| <= store_r from the band (``cv_diff.pooled_cvs(store_r=)``),
     the other main-window candidates recomputed against the main window's
-    pixels, rival candidates against the rival window's.
+    pixels, rival candidates against the rival window's;
+  * 11 (``cv_fused``'s rounds cur <= fuse): no volume, every main-window
+    candidate recomputed against the main window's pixels;
+  * 12 (the same with rival windows): 11, and rival candidates against the
+    rival window's pixels.
 
 A recomputed cost is the cur x cur SAD/SSD of the cell's frame-1 sub-block
 against the window the volumes were built from (kernel A's output, with its
@@ -19,14 +26,13 @@ zero padding), so it equals the stored value bit for bit.
 
 Layouts (batch written out), beside ``reg_step``'s grid / pm / rpm:
   im1:  (B, h, w) u8 frame-1 level image;
-  win:  (B, nP, bs + 2r, bs + 2r) u8 main windows (F);
-  rwin: (B, nP, bs + 2r2, bs + 2r2) u8 rival windows;
+  win:  (B, nP, bs + 2r, bs + 2r) u8 main windows (F, 11, 12);
+  rwin: (B, nP, bs + 2r2, bs + 2r2) u8 rival windows (E, F, 12);
   cv:   (B, side^2, nby, nbx) main volume at cur (E);
   band: (B, side * (2 store_r + 1), nby, nbx) stored cur=2 band (F).
 
-For CPU tensors the wrappers run ``color_step_hybrid_plain`` /
-``color_step_hybrid_tail_plain``; for CUDA tensors they launch
-``csrc/fused_step.cu``.
+For CPU tensors the wrappers run the ``*_plain`` versions; for CUDA tensors
+they launch ``csrc/fused_step.cu`` (one kernel template for the four).
 """
 
 from __future__ import annotations
@@ -149,7 +155,9 @@ def _check_windows(name, t, b, n_p, edge, dev):
 
 
 def _checked(grid, vol, pm, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, cj, cost):
-    """Validate one hybrid step's inputs; returns f (cells per parent edge)."""
+    """Validate one step's inputs (E, F, 11 or 12: vol, win and rwin/rpm
+    may be None where the step takes none); returns f (cells per parent
+    edge)."""
     rs._check_grid(grid, cur, h, w, ci, cj)
     if cost not in ("sad", "ssd"):
         raise NotImplementedError(f"cost={cost!r}: only sad and ssd are ported")
@@ -157,11 +165,9 @@ def _checked(grid, vol, pm, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, 
         raise ValueError(f"need 0 <= store_r <= r = {r}, got {store_r}")
     b, nby, nbx, _ = grid.shape
     dev = grid.device
-    rs._check_volume("volume", vol, b, (2 * r + 1) * (2 * store_r + 1), nby, nbx, dev)
+    if vol is not None:
+        rs._check_volume("volume", vol, b, (2 * r + 1) * (2 * store_r + 1), nby, nbx, dev)
     rs._check_centres("pm", pm, b, nby, nbx, dev)
-    rs._check_centres("rpm", rpm, b, nby, nbx, dev)
-    if rpm.shape != pm.shape:
-        raise ValueError("rpm and pm must have the same shape")
     if im1.dtype != torch.uint8 or tuple(im1.shape) != (b, h, w) or im1.device != dev:
         raise ValueError(f"im1 must be ({b}, {h}, {w}) uint8 on {dev}, got "
                          f"{im1.dtype} {tuple(im1.shape)} on {im1.device}")
@@ -169,10 +175,14 @@ def _checked(grid, vol, pm, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, 
     n_p = pm.shape[1] * pm.shape[2]
     if win is not None:
         _check_windows("win", win, b, n_p, f * cur + 2 * r, dev)
-    _check_windows("rwin", rwin, b, n_p, f * cur + 2 * r2, dev)
-    tensors = [grid, vol, pm, im1, rwin, rpm] + ([win] if win is not None else [])
+    if rwin is not None:
+        rs._check_centres("rpm", rpm, b, nby, nbx, dev)
+        if rpm.shape != pm.shape:
+            raise ValueError("rpm and pm must have the same shape")
+        _check_windows("rwin", rwin, b, n_p, f * cur + 2 * r2, dev)
+    tensors = [t for t in (grid, vol, pm, im1, win, rwin, rpm) if t is not None]
     if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the hybrid colour steps need contiguous tensors")
+        raise ValueError("the colour steps need contiguous tensors")
     return f
 
 
@@ -259,3 +269,118 @@ def color_step_hybrid_tail(
 
 color_step_hybrid.launches = 0
 color_step_hybrid_tail.launches = 0
+
+
+# ----------------------------------------- cv_fused colour steps (11, 12)
+
+def _fused_plain(grid, pm, *, im1, win, rwin, rpm, cur, h, w, r, r2, ci, cj, lam_mult,
+                 cost) -> None:
+    f = grid.shape[1] // pm.shape[1]
+    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj)
+    ddy, ddx, in_window = rs.window_deltas(cands, pm, f, ci, cj, r)
+    costs = recompute_costs(im1, win, ddy, ddx, r, cur, ci, cj, cost)
+    if rwin is not None:
+        rdy, rdx, in_rival = rs.window_deltas(cands, rpm, f, ci, cj, r2)
+        rcosts = recompute_costs(im1, rwin, rdy, rdx, r2, cur, ci, cj, cost)
+        costs = torch.where(in_window, costs, rcosts)
+        in_window = in_window | in_rival
+    step_commit(grid, ci, cj, cands, costs, in_window, present, in_img, rank, lam_mult)
+
+
+def color_step_fused_plain(grid, pm, *, im1, win, cur, h, w, r, ci, cj, lam_mult,
+                           cost) -> None:
+    """Kernel 11 with torch ops: update colour (ci, cj) of ``grid`` in place."""
+    _fused_plain(grid, pm, im1=im1, win=win, rwin=None, rpm=None, cur=cur, h=h, w=w, r=r,
+                 r2=0, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+
+
+def color_step_fused_rival_plain(grid, pm, *, im1, win, rwin, rpm, cur, h, w, r, r2, ci, cj,
+                                 lam_mult, cost) -> None:
+    """Kernel 12 with torch ops: update colour (ci, cj) of ``grid`` in place."""
+    _fused_plain(grid, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w, r=r,
+                 r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+
+
+# bbme_color_step_fused(grid, im1, win, rwin, pm, rpm, rank_table, batch, nby,
+#                       nbx, f, cur, h, w, r, r2, ssd, ci, cj, lam, stream)
+FUSED_ARGTYPES = (
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_kernel():
+    return _build.entry("bbme_color_step_fused", FUSED_ARGTYPES)
+
+
+def _launch_fused(wrapper, grid, pm, im1, win, rwin, rpm, cur, h, w, r, r2, ci, cj, lam_mult,
+                  cost) -> None:
+    """Check a fused step's inputs; run the plain version on the CPU, else
+    launch the kernel and count the launch on ``wrapper``."""
+    f = _checked(grid, None, pm, im1, win, rwin, rpm, cur, h, w, r, r, r2, ci, cj, cost)
+    if grid.device.type == "cpu":
+        _fused_plain(grid, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w, r=r,
+                     r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+        return
+    b, nby, nbx, _ = grid.shape
+    with torch.cuda.device(grid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _fused_kernel()(
+            grid.data_ptr(), im1.data_ptr(), win.data_ptr(),
+            rwin.data_ptr() if rwin is not None else None, pm.data_ptr(),
+            rpm.data_ptr() if rwin is not None else None,
+            rs._rank_table_on(grid.device).data_ptr(),
+            b, nby, nbx, f, cur, h, w, r, r2, int(cost == "ssd"), ci, cj, float(lam_mult),
+            stream,
+        )
+    _build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+
+
+def color_step_fused(
+    grid: torch.Tensor,
+    pm: torch.Tensor,
+    *,
+    im1: torch.Tensor,
+    win: torch.Tensor,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    ci: int,
+    cj: int,
+    lam_mult: float,
+    cost: str,
+) -> None:
+    """Kernel 11: one colour step, in place, every candidate's cost
+    recomputed against the main window ``win`` (no volume)."""
+    _launch_fused(color_step_fused, grid, pm, im1, win, None, None, cur, h, w, r, 0, ci, cj,
+                  lam_mult, cost)
+
+
+def color_step_fused_rival(
+    grid: torch.Tensor,
+    pm: torch.Tensor,
+    *,
+    im1: torch.Tensor,
+    win: torch.Tensor,
+    rwin: torch.Tensor,
+    rpm: torch.Tensor,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    r2: int,
+    ci: int,
+    cj: int,
+    lam_mult: float,
+    cost: str,
+) -> None:
+    """Kernel 12: kernel 11 with rival windows: candidates outside the main
+    window are recomputed against the rival window ``rwin``."""
+    _launch_fused(color_step_fused_rival, grid, pm, im1, win, rwin, rpm, cur, h, w, r, r2, ci,
+                  cj, lam_mult, cost)
+
+
+color_step_fused.launches = 0
+color_step_fused_rival.launches = 0

@@ -4,7 +4,9 @@ Replaces the TPU kernels ``windowed_color_step_rival`` (rounds at cur = bs)
 and ``windowed_color_step_pm_rival`` (rounds at cur < bs of the dense-rival
 form), and without rival windows ``windowed_color_step`` and
 ``windowed_color_step_pm``, with one step that serves every round on stored
-volumes.  ``window_deltas`` and ``select_costs`` are plain pieces the hybrid
+volumes; ``color_step_compact`` replaces ``windowed_color_step_pm_compact``
+(kernel 10, ``cv_compact``'s rounds cur < bs), the same step on K-slot
+tables.  ``window_deltas`` and ``select_costs`` are plain pieces the hybrid
 steps (``kernels.fused_step``) share, with ``step_candidates`` and
 ``step_commit`` of ``ops.regularize``.
 
@@ -13,11 +15,13 @@ Layouts (batch written out):
         place; nby = npy * f with f = bs // cur;
   cv:   (B, side^2, nby, nbx) main-window volume at cur (``kernels.cv_diff``);
   pm:   (B, npy, npx, 2) int32 main-window centre MVs of the parents;
-  rcv / rpm / r2: the rival window's volume, centres and radius, or None.
+  rcv / rpm / r2: the rival window's volume, centres and radius, or None;
+  table: (B, K, nby, nbx) compact table at cur (``cv_diff.compact_tables``)
+        and slots: (B, nch, K, 2) its chunks' slot lists (10).
 
-For CPU tensors the wrapper runs ``color_step_plain`` (the XLA branch of the
-reference's ``_rounds_loop`` body, in torch); for CUDA tensors it launches
-``csrc/reg_step.cu``.
+For CPU tensors the wrappers run ``color_step_plain`` (the XLA branch of the
+reference's ``_rounds_loop`` body, in torch) and ``color_step_compact_plain``;
+for CUDA tensors they launch ``csrc/reg_step.cu``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from blockbasedmotionestimation_tpu_torch.kernels import _build
 from blockbasedmotionestimation_tpu_torch.ops import regularize as reg
+from blockbasedmotionestimation_tpu_torch.ops.compact import CHUNK
 from blockbasedmotionestimation_tpu_torch.ops.regularize import step_candidates, step_commit
 
 
@@ -197,6 +202,118 @@ def color_step(
         )
     _build.check(code, "color_step")
     color_step.launches += 1
+    color_step.row_launches[("D", "D'", "8", "9")[2 * (rcv is None) + (f > 1)]] += 1
 
 
 color_step.launches = 0
+# the TPU kernels this one kernel stands for, counted apart: D / D' with
+# rival windows at f = 1 / f >= 2, 8 / 9 without
+color_step.row_launches = dict.fromkeys(("D", "D'", "8", "9"), 0)
+
+
+# ------------------------------------------------- compact colour step (10)
+
+def color_step_compact_plain(
+    grid: torch.Tensor,
+    table: torch.Tensor,
+    pm: torch.Tensor,
+    slots: torch.Tensor,
+    *,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    ci: int,
+    cj: int,
+    lam_mult: float,
+) -> None:
+    """Kernel 10 with torch ops: update colour (ci, cj) of ``grid`` in place.
+
+    A candidate's cost is the table entry of the slot of its cell's chunk
+    that holds its delta (rebased on the parent's window centre); a
+    candidate in no slot is excluded, and a cell whose own MV is in no slot
+    keeps it (every candidate excluded: rank decides, own MV first)."""
+    f = grid.shape[1] // pm.shape[1]
+    npx = pm.shape[2]
+    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj)
+    ddy, ddx, _ = window_deltas(cands, pm, f, ci, cj, r)
+    m, n = cands.shape[1:3]
+    dev = grid.device
+    rows = torch.arange(ci, ci + 2 * m, 2, device=dev) // f
+    cols = torch.arange(cj, cj + 2 * n, 2, device=dev) // f
+    s = slots[:, (rows[:, None] * npx + cols[None, :]) // CHUNK][:, :, :, None]  # (B,m,n,1,K,2)
+    match = (
+        ((ddy + r)[..., None] == s[..., 0]) & ((ddx + r)[..., None] == s[..., 1])
+        & (s[..., 0] >= 0)
+    )  # (B, m, n, 9, K)
+    covered = match.any(dim=-1)
+    k = match.to(torch.uint8).argmax(dim=-1)  # the slot (slots are distinct)
+    costs = torch.gather(
+        table[:, :, ci::2, cj::2].to(torch.int32), 1, k.permute(0, 3, 1, 2)
+    ).permute(0, 2, 3, 1)
+    covered = covered & covered[..., :1]  # the incumbent-safety guard
+    step_commit(grid, ci, cj, cands, costs, covered, present, in_img, rank, lam_mult)
+
+
+# bbme_color_step_compact(grid, table, table16, slots, pm, rank_table, batch,
+#                         nby, nbx, f, cur, h, w, r, k_slots, nch, chunk, ci, cj,
+#                         lam, stream)
+COMPACT_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _compact_kernel():
+    return _build.entry("bbme_color_step_compact", COMPACT_ARGTYPES)
+
+
+def color_step_compact(
+    grid: torch.Tensor,
+    table: torch.Tensor,
+    pm: torch.Tensor,
+    slots: torch.Tensor,
+    *,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    ci: int,
+    cj: int,
+    lam_mult: float,
+) -> None:
+    """Kernel 10: one colour step on a K-slot table, in place.  table:
+    (B, K, nby, nbx) (``cv_diff.compact_tables`` at cur); slots: the level's
+    (B, nch, K, 2) ``ops.compact.chunk_delta_slots``."""
+    _check_grid(grid, cur, h, w, ci, cj)
+    b, nby, nbx, _ = grid.shape
+    dev = grid.device
+    _check_centres("pm", pm, b, nby, nbx, dev)
+    n_p = pm.shape[1] * pm.shape[2]
+    nch = -(-n_p // CHUNK)
+    if slots.dtype != torch.int32 or slots.dim() != 4 or tuple(slots.shape[:2]) != (b, nch) \
+            or slots.shape[3] != 2 or slots.device != dev:
+        raise ValueError(f"slots must be ({b}, {nch}, K, 2) int32 on {dev}, got "
+                         f"{slots.dtype} {tuple(slots.shape)} on {slots.device}")
+    k_slots = slots.shape[2]
+    _check_volume("table", table, b, k_slots, nby, nbx, dev)
+    kw = dict(cur=cur, h=h, w=w, r=r, ci=ci, cj=cj, lam_mult=lam_mult)
+    if dev.type == "cpu":
+        color_step_compact_plain(grid, table, pm, slots, **kw)
+        return
+    if not all(t.is_contiguous() for t in (grid, table, pm, slots)):
+        raise ValueError("color_step_compact needs contiguous tensors")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _compact_kernel()(
+            grid.data_ptr(), table.data_ptr(), int(table.dtype == torch.uint16),
+            slots.data_ptr(), pm.data_ptr(), _rank_table_on(dev).data_ptr(),
+            b, nby, nbx, nby // pm.shape[1], cur, h, w, r, k_slots, nch, CHUNK, ci,
+            cj, float(lam_mult), stream,
+        )
+    _build.check(code, "color_step_compact")
+    color_step_compact.launches += 1
+
+
+color_step_compact.launches = 0

@@ -19,8 +19,19 @@ uint8 frames as torch tensors (the device is theirs) or numpy arrays, which
 go to ``device=`` (CUDA when it is not given; ``device="cpu"`` runs the
 plain versions); the batch dim is written out where the reference vmapped.
 
-``cost="zsad"``, ``cv_fused`` and ``cv_compact`` raise
-``NotImplementedError`` naming their ROADMAP item.
+The capacity modes run as the reference runs them on its accelerator:
+``cv_fused`` and ``cv_compact`` (with ``cv_compact_ring``) shape the fused
+windowed level (``ops.windowed.windowed_level``); the other paths ignore
+them, as the reference's do.  ``search_impl`` is ignored: the port always
+runs what the reference runs on its accelerator.  For ``cv_compact`` that
+matters, since the reference's XLA path ignores ``cv_compact``: there it
+gives the dense result, here the compact one.  The two agree unless a chunk
+of 128 parents has more than ``cv_compact`` distinct deltas
+(``ops.compact.overflow_fraction``) or a value travels further than
+``cv_compact_ring`` parents in the rounds (the slot lists hold only the
+winners that close).
+
+``cost="zsad"`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,11 +66,6 @@ def check_config(cfg: MotionConfig) -> None:
     if cfg.cost not in ("sad", "ssd"):
         raise NotImplementedError(
             f"cost={cfg.cost!r} is not ported yet (ROADMAP Queue 1 item 9)"
-        )
-    if cfg.cv_fused is not None or cfg.cv_compact is not None:
-        raise NotImplementedError(
-            "cv_fused and cv_compact are not ported yet "
-            "(ROADMAP Queue 1 item 10: capacity modes)"
         )
 
 
@@ -105,6 +111,7 @@ def _run_level(
         return windowed_level(
             im1, im2, pred, bs, ss, lam0, cfg.sweeps_per_round, cost=cfg.cost,
             rival=cfg.rival_window, rival_radius=rr, store_radius=cfg.cv_store_radius,
+            fuse=cfg.cv_fused, compact=cfg.cv_compact, compact_ring=cfg.cv_compact_ring,
         )
     grid = block_search_level(im1, im2, pred, bs, ss, order=cfg.search_order, cost=cfg.cost)
     if cfg.regularizer == "windowed":

@@ -1,12 +1,11 @@
 """The fused windowed level: search + regularization from one set of volumes.
 
 Port of ``blockbasedmotionestimation_tpu/ops/windowed.py:windowed_level`` on
-its untiled path, with the batch dim written out.  Per level:
+its untiled accelerator path, with the batch dim written out.  Per level:
 
   1. one frame-2 window per parent, centred on the truncated prediction
      (kernel A, ``kernels.gather``);
-  2. the pooled cost volumes of the main window (kernel B,
-     ``kernels.cv_diff.pooled_cvs``);
+  2. the pooled cost volumes of the main window (``kernels.cv_diff``);
   3. the spiral argmin over the cur = bs volume: min cost, then min spiral
      visit rank, out-of-image deltas masked (plain torch; XLA code in the
      reference too);
@@ -15,17 +14,33 @@ its untiled path, with the batch dim written out.  Per level:
   5. the rounds, cur = bs, bs/2, ..., 2: ``sweeps_per_round`` sweeps of the
      four colour steps, then subdivide.
 
-The form follows the reference's accelerator path.  With rival windows and
-bs % 8 == 0 it is the **hybrid** form: the rival window stores only the
-volumes of cur > fuse_max = min(16, bs/2) and cur = bs (kernel C,
-``cv_diff.deep_pooled_cvs``); rounds cur > fuse_max run the colour step D
-(``kernels.reg_step``) on stored volumes, rounds cur <= fuse_max run E
-(``kernels.fused_step``), which recomputes rival candidates from the rival
-window's pixels.  With ``store_radius`` (0 <= store_radius < ext) the cur=2
-main volume is stored only for |dx delta| <= store_radius and the cur = 2
-round runs F, which also recomputes the main-window candidates beyond that
-band.  Otherwise (no rival windows, or bs % 8 != 0) every size of both
-windows is stored and every round runs D/D'.  All forms give the same bits.
+The form follows the reference's dispatch, in its order:
+  * ``compact`` = K (``cv_compact``), without rival windows and bs >= 8: the
+    cur = bs volume alone (kernel 13, ``cv_diff.full_block_volume``), then
+    per 128-parent chunk the K deltas the rounds can ask for
+    (``ops.compact.chunk_delta_slots``) and K-slot tables of every cur < bs
+    (kernel 14, ``cv_diff.compact_tables``); the f = 1 round runs D without
+    rival on the volume, every other round kernel 10
+    (``reg_step.color_step_compact``).  Candidates outside the slots are
+    excluded: exact unless a chunk has more than K distinct deltas or a
+    value travels further than ``compact_ring`` parents in the rounds.
+  * ``fuse`` (``cv_fused``), bs % 8 == 0: with fuse_eff = min(fuse, bs/2),
+    the main and rival windows store only cur > fuse_eff and cur = bs
+    (kernel C); rounds cur > fuse_eff run D/D' on them, rounds
+    cur <= fuse_eff run kernel 11 (``fused_step.color_step_fused``) or with
+    rival windows kernel 12 (``color_step_fused_rival``), which recompute
+    every candidate from the windows' pixels.  ``store_radius`` is ignored.
+  * the **hybrid** form, rival windows and bs % 8 == 0 (the default): the
+    rival window stores only cur > fuse_max = min(16, bs/2) and cur = bs
+    (kernel C); rounds cur > fuse_max run D on stored volumes, rounds
+    cur <= fuse_max run E (``fused_step.color_step_hybrid``), which
+    recomputes rival candidates from the rival window's pixels.  With
+    ``store_radius`` (0 <= store_radius < ext) the cur=2 main volume is
+    stored only for |dx delta| <= store_radius and the cur = 2 round runs F,
+    which also recomputes the main-window candidates beyond that band.
+  * otherwise every size of both windows is stored (kernel B) and every
+    round runs D/D'.
+All forms give the same bits (compact: while it excludes nothing).
 """
 
 from __future__ import annotations
@@ -33,12 +48,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from blockbasedmotionestimation_tpu_torch.kernels.cv_diff import deep_pooled_cvs, pooled_cvs
+from blockbasedmotionestimation_tpu_torch.kernels.cv_diff import (
+    compact_tables,
+    deep_pooled_cvs,
+    full_block_volume,
+    pooled_cvs,
+)
 from blockbasedmotionestimation_tpu_torch.kernels.fused_step import (
+    color_step_fused,
+    color_step_fused_rival,
     color_step_hybrid,
     color_step_hybrid_tail,
 )
-from blockbasedmotionestimation_tpu_torch.kernels.reg_step import color_step
+from blockbasedmotionestimation_tpu_torch.kernels.reg_step import color_step, color_step_compact
+from blockbasedmotionestimation_tpu_torch.ops.compact import chunk_delta_slots
 from blockbasedmotionestimation_tpu_torch.ops.regularize import COLORS, subdivide
 from blockbasedmotionestimation_tpu_torch.ops.search import block_origins, gather_windows
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent, spiral_offsets
@@ -111,53 +134,40 @@ def hybrid_form(bs: int, rival: bool) -> bool:
     return rival and bs % 8 == 0
 
 
-def rounds_loop(
-    grid: torch.Tensor,
-    cvs: dict[int, torch.Tensor],
-    pm: torch.Tensor,
-    bs: int,
-    r: int,
-    h: int,
-    w: int,
-    lam0: float,
-    sweeps_per_round: int,
-    rcvs: dict[int, torch.Tensor] | None = None,
-    rpm: torch.Tensor | None = None,
-    r2: int = 0,
-    hybrid: dict | None = None,
-) -> torch.Tensor:
-    """The subdivision rounds; consumes (pops) ``cvs``/``rcvs`` round by round.
+def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
+                sweeps_per_round: int, round_of) -> torch.Tensor:
+    """The subdivision rounds, cur = bs, bs/2, ..., 2.
 
     grid: (B, npy, npx, 2) int32 search winners; returns the stride-1
-    (B, h, w, 2) int32 grid.  lambda is lam0 * (sweep + 1) in the first
-    round and doubles every round; colours run (0,0), (0,1), (1,0), (1,1).
-    ``hybrid`` (the hybrid form's rounds cur <= fuse_max) holds fuse_max,
-    im1, the rival windows rwin, the cost and, with the stored band,
-    store_r and the main windows win; the cur = 2 round reads them last.
+    (B, h, w, 2) int32 grid.  ``round_of(cur)`` gives the round's colour
+    step, its positional arguments after the grid and its keywords (it may
+    pop the round's volumes, so each is freed after its round).  lambda is
+    lam0 * (sweep + 1) in the first round and doubles every round; colours
+    run (0,0), (0,1), (1,0), (1,1).
     """
     cur, lam = bs, lam0
     grid = grid.contiguous()
     while cur > 1:
-        cv = cvs.pop(cur)
-        step, kw = color_step, dict(r=r)
-        if hybrid is not None and cur <= hybrid["fuse_max"]:
-            kw.update(im1=hybrid["im1"], rwin=hybrid["rwin"], rpm=rpm, r2=r2,
-                      cost=hybrid["cost"])
-            step = color_step_hybrid
-            if cur == 2 and "store_r" in hybrid:
-                step = color_step_hybrid_tail
-                kw.update(win=hybrid["win"], store_r=hybrid["store_r"])
-        elif rcvs is not None:
-            kw.update(rcv=rcvs.pop(cur), rpm=rpm, r2=r2)
+        step, args, kw = round_of(cur)
         for sweep in range(sweeps_per_round):
             for ci, cj in COLORS:
-                step(grid, cv, pm, cur=cur, h=h, w=w, ci=ci, cj=cj,
+                step(grid, *args, cur=cur, h=h, w=w, ci=ci, cj=cj,
                      lam_mult=lam * (sweep + 1), **kw)
-        del cv, kw  # free the round's volumes before the next round
+        del args, kw  # free the round's volumes before the next round
         grid = subdivide(grid).contiguous()
         cur >>= 1
         lam *= 2.0
     return grid
+
+
+def _stored_round(cvs, pm, r, rcvs=None, rpm=None, r2=0):
+    """A round on stored volumes, D/D' (or 8/9 without ``rcvs``)."""
+    def round_of(cur):
+        kw = dict(r=r)
+        if rcvs is not None:
+            kw.update(rcv=rcvs.pop(cur), rpm=rpm, r2=r2)
+        return color_step, (cvs.pop(cur), pm), kw
+    return round_of
 
 
 def windowed_level(
@@ -173,8 +183,16 @@ def windowed_level(
     rival: bool = False,
     rival_radius: int | None = None,
     store_radius: int | None = None,
+    fuse: int | None = None,
+    compact: int | None = None,
+    compact_ring: int = 3,
 ) -> torch.Tensor:
-    """Fused block search + windowed regularization; (B, h, w, 2) int32 grid."""
+    """Fused block search + windowed regularization; (B, h, w, 2) int32 grid.
+
+    ``fuse`` / ``compact`` / ``compact_ring`` are ``cv_fused`` /
+    ``cv_compact`` / ``cv_compact_ring``; see the module docstring for the
+    form each selects.
+    """
     _, h, w = im1.shape
     shift = ss - bs
     ext = spiral_offsets(shift)[2]
@@ -190,20 +208,40 @@ def windowed_level(
     windows, by, bx = gather_windows(im2, cy_safe, cx_safe, bs, ext)
     base_mv = torch.stack([bx - ox, by - oy], dim=-1).contiguous()
 
-    hybrid = None
-    if hybrid_form(bs, rival):
-        hybrid = dict(fuse_max=min(16, bs // 2), im1=im1, cost=cost)
-        if store_radius is not None and 0 <= store_radius < ext:
-            hybrid.update(store_r=store_radius, win=windows)
-    cvs = pooled_cvs(im1, windows, bs, ext, cost,
-                     store_r=None if hybrid is None else hybrid.get("store_r"))
-    del windows  # the band's tail keeps its own reference
+    use_compact = compact is not None and not rival and bs >= 8
+    fuse_eff = min(fuse, bs // 2) if fuse is not None and not use_compact and bs % 8 == 0 else 0
+    hybrid = not use_compact and not fuse_eff and hybrid_form(bs, rival)
+    fuse_max = min(16, bs // 2)  # the hybrid form's finest stored size
+    store_r = None
+    if hybrid and store_radius is not None and 0 <= store_radius < ext:
+        store_r = store_radius
+    if use_compact:
+        cvs = full_block_volume(im1, windows, bs, ext, cost)
+    elif fuse_eff:
+        cvs = deep_pooled_cvs(im1, windows, bs, ext, cost, fuse_eff)
+    else:
+        cvs = pooled_cvs(im1, windows, bs, ext, cost, store_r=store_r)
+        if store_r is None:
+            windows = None  # only the tables, the fused steps and F read them
     best_dy, best_dx = spiral_argmin(cvs[bs], cy_safe, cx_safe, shift, bs, h, w)
     u = torch.where(center_ok, cx_safe + best_dx - ox, 0)
     v = torch.where(center_ok, cy_safe + best_dy - oy, 0)
     grid0 = torch.stack([u, v], dim=-1).to(torch.int32)
 
-    rcvs = rbase = None
+    if use_compact:
+        slots = chunk_delta_slots(grid0, base_mv, ext, compact, compact_ring)
+        tables = compact_tables(im1, windows, slots, bs, ext, cost)
+        windows = None
+        dense = _stored_round(cvs, base_mv, ext)
+
+        def round_of(cur):
+            if cur == bs:
+                return dense(cur)
+            return color_step_compact, (tables.pop(cur), base_mv, slots), dict(r=ext)
+
+        return rounds_loop(grid0, bs, h, w, lam0, sweeps_per_round, round_of)
+
+    rcvs = rbase = rwindows = None
     r2 = ext if rival_radius is None else min(rival_radius, ext)
     if rival:
         # rival centres from the search winners: at a discontinuity the
@@ -214,17 +252,36 @@ def windowed_level(
             im2, oy + rmv[..., 1], ox + rmv[..., 0], bs, r2
         )
         rbase = torch.stack([rvx - ox, rvy - oy], dim=-1).contiguous()
-        if hybrid is None:
-            rcvs = pooled_cvs(im1, rwindows, bs, r2, cost)
+        if fuse_eff or hybrid:
+            rcvs = deep_pooled_cvs(im1, rwindows, bs, r2, cost, fuse_eff or fuse_max)
         else:
-            rcvs = deep_pooled_cvs(im1, rwindows, bs, r2, cost, hybrid["fuse_max"])
-            hybrid["rwin"] = rwindows
-        del rwindows
+            rcvs = pooled_cvs(im1, rwindows, bs, r2, cost)
+            rwindows = None
+    stored = _stored_round(cvs, base_mv, ext, rcvs, rbase, r2)
+    if fuse_eff:
+        fkw = dict(im1=im1, win=windows, r=ext, cost=cost)
+        if rival:
+            fkw.update(rwin=rwindows, rpm=rbase, r2=r2)
 
-    return rounds_loop(
-        grid0, cvs, base_mv, bs, ext, h, w, lam0, sweeps_per_round,
-        rcvs=rcvs, rpm=rbase, r2=r2, hybrid=hybrid,
-    )
+        def round_of(cur):
+            if cur > fuse_eff:
+                return stored(cur)
+            return (color_step_fused_rival if rival else color_step_fused), (base_mv,), fkw
+
+        return rounds_loop(grid0, bs, h, w, lam0, sweeps_per_round, round_of)
+    if not hybrid:
+        return rounds_loop(grid0, bs, h, w, lam0, sweeps_per_round, stored)
+    hkw = dict(im1=im1, rwin=rwindows, rpm=rbase, r=ext, r2=r2, cost=cost)
+
+    def round_of(cur):
+        if cur > fuse_max:
+            return stored(cur)
+        if cur == 2 and store_r is not None:
+            return (color_step_hybrid_tail, (cvs.pop(cur), base_mv),
+                    dict(hkw, win=windows, store_r=store_r))
+        return color_step_hybrid, (cvs.pop(cur), base_mv), hkw
+
+    return rounds_loop(grid0, bs, h, w, lam0, sweeps_per_round, round_of)
 
 
 def windowed_schedule(
@@ -275,7 +332,5 @@ def windowed_schedule(
         rcvs = pooled_cvs(im1, rwindows, bs, r2, cost)
         del rwindows
 
-    return rounds_loop(
-        parent_mv.clone(), cvs, parent_mv, bs, r, h, w, lam0, sweeps_per_round,
-        rcvs=rcvs, rpm=rbase, r2=r2,
-    )
+    return rounds_loop(parent_mv.clone(), bs, h, w, lam0, sweeps_per_round,
+                       _stored_round(cvs, parent_mv, r, rcvs, rbase, r2))

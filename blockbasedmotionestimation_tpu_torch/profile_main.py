@@ -3,9 +3,13 @@
     python -m blockbasedmotionestimation_tpu_torch.profile_main
     python -m blockbasedmotionestimation_tpu_torch.profile_main --regularizer fourcolor
     python -m blockbasedmotionestimation_tpu_torch.profile_main --window-center search
+    python -m blockbasedmotionestimation_tpu_torch.profile_main --cv-fused 4
+    python -m blockbasedmotionestimation_tpu_torch.profile_main --cv-compact 64 --no-rival
 
 Runs ``estimate_flow_batched`` with ``MotionConfig(interp_factor=1)`` (or
-the regularizer / window centre given) on seeded-noise 1080p pairs (frame 2
+the regularizer / window centre / capacity mode given; ``--no-rival`` sets
+``rival_window=False``, which ``cv_compact`` needs to take effect) on
+seeded-noise 1080p pairs (frame 2
 = frame 1 moved by (-5, -9), made as ``chip_smoke.py`` makes them) and
 prints, beside the card's name and power limit:
 
@@ -14,8 +18,8 @@ prints, beside the card's name and power limit:
   - wall time per pyramid level, each level synchronised before and after;
   - launches and device time of each kernel wrapper and of each stage of a
     level (the block search, the schedule) over one more batch (CUDA events
-    around every call; B and C share one CUDA kernel, so only the wrappers
-    tell them apart);
+    around every call; B, C and 13 share one CUDA kernel, as do E, F, 11
+    and 12, so only the wrappers tell them apart);
   - device time by kernel over one more batch (``torch.profiler``), the
     device total, and the device's idle share of the median batch.
 
@@ -57,8 +61,9 @@ def _timed_kernels(events: dict):
     from blockbasedmotionestimation_tpu_torch.ops import search, windowed
 
     names = {search: ["_gather", "_sad_argmin"], windowed: [
-        "pooled_cvs", "deep_pooled_cvs", "color_step", "color_step_hybrid",
-        "color_step_hybrid_tail"], engine: [
+        "pooled_cvs", "deep_pooled_cvs", "full_block_volume", "compact_tables",
+        "chunk_delta_slots", "color_step", "color_step_hybrid", "color_step_hybrid_tail",
+        "color_step_fused", "color_step_fused_rival", "color_step_compact"], engine: [
         "block_search_level", "run_schedule", "windowed_schedule", "windowed_level"]}
     saved = {(m, n): getattr(m, n) for m, ns in names.items() for n in ns}
 
@@ -88,6 +93,9 @@ def main(argv=None) -> int:
     ap.add_argument("--regularizer", default="windowed",
                     choices=["windowed", "fourcolor", "jacobi"])
     ap.add_argument("--window-center", default="pred", choices=["pred", "search"])
+    ap.add_argument("--cv-fused", type=int, default=None, metavar="N")
+    ap.add_argument("--cv-compact", type=int, default=None, metavar="K")
+    ap.add_argument("--no-rival", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main: no CUDA device", file=sys.stderr)
@@ -98,12 +106,15 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     cfg = MotionConfig(interp_factor=1, regularizer=args.regularizer,
-                       window_center=args.window_center)
+                       window_center=args.window_center, cv_fused=args.cv_fused,
+                       cv_compact=args.cv_compact, rival_window=not args.no_rival)
     noise = np.random.default_rng(0).integers(0, 256, size=(B, H + 16, W + 16), dtype=np.uint8)
     im1 = torch.as_tensor(noise[:, :H, :W].copy(), device=dev)
     im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
     print(f"[profile] card: {card}; 1080p, B={B}, MotionConfig(interp_factor=1, "
-          f"regularizer={cfg.regularizer!r}, window_center={cfg.window_center!r})")
+          f"regularizer={cfg.regularizer!r}, window_center={cfg.window_center!r}, "
+          f"rival_window={cfg.rival_window}, cv_fused={cfg.cv_fused}, "
+          f"cv_compact={cfg.cv_compact})")
 
     engine.estimate_flow_batched(im1, im2, cfg)  # warm: builds and loads the kernels
     torch.cuda.synchronize()

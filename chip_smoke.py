@@ -10,32 +10,49 @@ Phases (any failure raises and the script exits non-zero):
      at the shapes of the 1080p level 0 at B=8, exact equality, with the
      kernel's and the plain version's times and the kernel's bound: A (main
      and rival windows), B (the stored band at store_r 4, then the dense
-     volumes of the dense-rival form), C, D (rival and not, cur 32 and 2),
-     E (cur 4 and 16) and F (cur 2), on random candidates within +-20 of the
-     window centres; kernel 7 (the spiral search's argmin, sad and ssd)
-     around predictions within +-48 px;
+     volumes of the dense-rival form), C (rival; main at cv_fused=4), 13
+     (cur = bs alone), D, D', 8 and 9 (D's kernel with and without rival, cur
+     32 and 2), E (cur 4 and 16) and F (cur 2), 11 and 12 (cur 2 and 4), on
+     random candidates within +-20 of the window centres; 14 and 10 (cur 2
+     and 16) at K=64 on slot lists with unused (-1) slots and candidates
+     within +-3, many of which miss every slot; kernel 7 (the spiral
+     search's argmin, sad and ssd) around predictions within +-48 px;
   4. the main path: ``estimate_flow_batched`` with ``MotionConfig(
      interp_factor=1)`` on 8 seeded-noise 1080p pairs, counting every
-     kernel's launches (kernel 7: none) and checking the known translation;
-     fields/s and peak memory; every frame also through the plain versions;
+     kernel's launches (7, 11-14 and 10: none) and checking the known
+     translation; fields/s and peak memory; every frame also through the
+     plain versions;
   4b. a two-motion B=8 batch at 1080p: the rival windows decide pixels, the
-     band (cv_store_radius=4) gives the flow of cv_store_radius=None and the
-     hybrid form the flow of the dense-rival form, and every frame equals
-     the plain path on the card;
+     band (cv_store_radius=4) gives the flow of cv_store_radius=None, the
+     hybrid form the flow of the dense-rival form and cv_fused=4 the flow of
+     the default, and every frame equals the plain path on the card;
   4c. the same pairs as 4 through ``regularizer="fourcolor"``: the spiral
      search (A, kernel 7), then the plain colour steps; level 3 is a 5x8
      grid, so the odd-grid schedule runs at full width;
   4d. the same pairs through ``window_center="search"``: the search, then
      windows around its winners (A), their dense volumes (B) and the rounds
      on them (D, rival on);
+  4e. the same pairs through ``cv_fused=4`` (C for both windows, D, kernel
+     12): the default's flow;
+  4f. ``cv_fused=4, rival_window=False`` (C, D as 8 and 9, kernel 11): the
+     rival-off default's flow;
+  4g. ``cv_compact=64, rival_window=False`` (13, 14, D as 8, kernel 10):
+     overflow_fraction per level, and the rival-off default's flow where no
+     chunk overflows; then ``cv_compact=1089`` (every delta of the window:
+     no chunk overflows) at ring 3, and with a ring spanning the frame,
+     which must give that flow;
   5. CUDA equals the CPU (plain) path bit for bit on a two-motion pair at
      the default configuration and at the search-then-regularize ones
      (fourcolor, jacobi, fourcolor with ssd, search-centred windows with
      reg_radius 8, raster search under fourcolor and under windowed; exact
-     on a 64x96 pair);
+     on a 64x96 pair) and the capacity modes (cv_fused=4 with and without
+     rival windows, cv_compact=64 and cv_compact=4 without, the last with
+     overflowing chunks);
   6. ``estimate_flow_driver`` with ``interp_factor=4`` at 388x584.
-The line before the last is a JSON object of per-kernel results; the last
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+The line before the last is a JSON object with one entry per TPU kernel
+row (A, B, C, D, D', E, F, 8, 9, 7, 11, 12, 13, 14, 10; ``launches`` from
+the default path, else from the first path that runs the row); the last is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero before printing either.
 
 A kernel's ``bound_ms`` is the larger of its bytes (each input read once,
@@ -43,8 +60,8 @@ each output written once; for the colour steps only the cost entries and
 window pixels this run's candidates need) over the H100's 3.35 TB/s and its
 integer operations over 67 T/s, the card's CUDA-core (non-tensor) peak in
 its data sheet.  ``library_ms`` is null: no single PyTorch call computes a
-window gather at clipped per-parent offsets, a pooled SAD volume or a
-colour step.
+window gather at clipped per-parent offsets, a pooled SAD volume, a table
+of SADs at per-chunk deltas or a colour step.
 """
 
 from __future__ import annotations
@@ -62,19 +79,33 @@ H, W, B = 1080, 1920, 8
 SHIFT_Y, SHIFT_X = 5, 9  # frame 2 = frame 1 moved by (-5, -9): flow (u, v) = (-9, -5)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CORE_OPS_PER_S = 67e12     # H100 SXM CUDA-core peak, used for integer operations
+FUSE = 4          # cv_fused of phases 4e, 4f
+COMPACT_K = 64    # cv_compact of phase 4g (ring 3): DESIGN.md's quality-viable point
 # per-batch launches of MotionConfig(interp_factor=1): 4 levels of bs 32,
 # 2 sweeps x 4 colours per round; D at cur 32, E at 16/8/4, F at 2
 WANT_LAUNCHES = {"gather_windows": 8, "pooled_cvs": 4, "deep_pooled_cvs": 4,
                  "color_step": 32, "color_step_hybrid": 96, "color_step_hybrid_tail": 32,
-                 "sad_spiral_argmin": 0}
+                 "sad_spiral_argmin": 0, "color_step_fused": 0, "color_step_fused_rival": 0,
+                 "full_block_volume": 0, "compact_tables": 0, "color_step_compact": 0}
+NONE = dict.fromkeys(WANT_LAUNCHES, 0)
 # regularizer="fourcolor": per level one search gather (A) and kernel 7; the
 # colour steps are plain torch
-WANT_FOURCOLOR = dict.fromkeys(WANT_LAUNCHES, 0) | {"gather_windows": 4, "sad_spiral_argmin": 4}
+WANT_FOURCOLOR = NONE | {"gather_windows": 4, "sad_spiral_argmin": 4}
 # window_center="search" (rival on): per level the search (A, 7), the main
 # and rival windows (A twice) and their dense volumes (B twice), and 5
 # rounds x 2 sweeps x 4 colours of D
-WANT_SEARCH = dict.fromkeys(WANT_LAUNCHES, 0) | {
-    "gather_windows": 12, "sad_spiral_argmin": 4, "pooled_cvs": 8, "color_step": 160}
+WANT_SEARCH = NONE | {"gather_windows": 12, "sad_spiral_argmin": 4, "pooled_cvs": 8,
+                      "color_step": 160}
+# cv_fused=4: per level C for the main and the rival window, D in rounds
+# 32/16/8, kernel 12 in rounds 4/2 (11 without rival windows)
+WANT_FUSED = NONE | {"gather_windows": 8, "deep_pooled_cvs": 8, "color_step": 96,
+                     "color_step_fused_rival": 64}
+WANT_FUSED_NORIVAL = NONE | {"gather_windows": 4, "deep_pooled_cvs": 4, "color_step": 96,
+                             "color_step_fused": 64}
+# cv_compact=64, rival off: per level 13 and 14, D (row 8) in round 32,
+# kernel 10 in rounds 16/8/4/2
+WANT_COMPACT = NONE | {"gather_windows": 4, "full_block_volume": 4, "compact_tables": 4,
+                       "color_step": 32, "color_step_compact": 128}
 
 
 def _cmd_line(cmd: list[str], pick=None) -> str:
@@ -156,9 +187,14 @@ def _plain_kernels():
         windowed,
         pooled_cvs=cv_diff.pooled_cvs_plain,
         deep_pooled_cvs=cv_diff.deep_pooled_cvs_plain,
+        full_block_volume=cv_diff.full_block_volume_plain,
+        compact_tables=cv_diff.compact_tables_plain,
         color_step=reg_step.color_step_plain,
+        color_step_compact=reg_step.color_step_compact_plain,
         color_step_hybrid=fused_step.color_step_hybrid_plain,
         color_step_hybrid_tail=fused_step.color_step_hybrid_tail_plain,
+        color_step_fused=fused_step.color_step_fused_plain,
+        color_step_fused_rival=fused_step.color_step_fused_rival_plain,
     ):
         yield
 
@@ -224,8 +260,9 @@ def _step_work(torch, g, pm, rpm, *, kind, cur, h, w, r, r2, ci, cj, store_r=Non
     """(bytes, ops) one colour step needs on these inputs: the grid read and
     its colour written, the window centres, and for each cell's distinct
     usable candidates a cost entry picked (D: main or rival volume; E: main
-    volume; F: band) or a recompute (cur^2 window bytes, once cur^2 frame-1
-    bytes per cell) with its operations, plus the smoothness terms."""
+    volume; F: band; fused, 11/12: none) or a recompute (cur^2 window bytes,
+    once cur^2 frame-1 bytes per cell) with its operations, plus the
+    smoothness terms."""
     from blockbasedmotionestimation_tpu_torch.kernels import reg_step as rs
     from blockbasedmotionestimation_tpu_torch.ops import regularize
 
@@ -236,11 +273,9 @@ def _step_work(torch, g, pm, rpm, *, kind, cur, h, w, r, r2, ci, cj, store_r=Non
     if rpm is not None:
         in_riv = rs.window_deltas(cands, rpm, f, ci, cj, r2)[2] & ~in_win
     usable = present & in_img & (in_win | in_riv)
-    first = usable.clone()
-    for k in range(1, 9):
-        for j in range(k):
-            same = (cands[..., j, :] == cands[..., k, :]).all(-1)
-            first[..., k] &= ~(usable[..., j] & same)
+    first = _first_distinct(torch, cands, usable)
+    if kind == "fused":
+        store_r = -1  # nothing stored: every main-window candidate is recomputed
     band = ddx.abs() <= (r if store_r is None else store_r)
     pick_main = first & in_win & band
     tail = first & in_win & ~band
@@ -259,9 +294,52 @@ def _step_work(torch, g, pm, rpm, *, kind, cur, h, w, r, r2, ci, cj, store_r=Non
     return nbytes, ops
 
 
+def _first_distinct(torch, cands, usable):
+    """usable, minus candidates equal to an earlier usable one of the cell."""
+    first = usable.clone()
+    for k in range(1, 9):
+        for j in range(k):
+            same = (cands[..., j, :] == cands[..., k, :]).all(-1)
+            first[..., k] &= ~(usable[..., j] & same)
+    return first
+
+
+def _compact_step_work(torch, g, pm, slots, table, *, cur, h, w, r, ci, cj):
+    """(bytes, ops) of one compact colour step (kernel 10) on these inputs:
+    the grid read and its colour written, the centres and slot lists, a
+    table entry for each cell's distinct usable covered candidate, the two
+    compares of each candidate with each used slot of its chunk, and the
+    smoothness terms."""
+    from blockbasedmotionestimation_tpu_torch.kernels import reg_step as rs
+    from blockbasedmotionestimation_tpu_torch.ops import regularize
+    from blockbasedmotionestimation_tpu_torch.ops.compact import CHUNK
+
+    cands, _, present, in_img = regularize.step_candidates(g, cur, h, w, ci, cj)
+    f = g.shape[1] // pm.shape[1]
+    ddy, ddx, in_win = rs.window_deltas(cands, pm, f, ci, cj, r)
+    b, m, n = cands.shape[:3]
+    side = 2 * r + 1
+    nch = slots.shape[1]
+    used = slots[..., 0] >= 0  # (B, nch, K)
+    held = torch.zeros((b, nch, side * side + 1), dtype=torch.bool, device=g.device)
+    held.scatter_(2, torch.where(used, slots[..., 0] * side + slots[..., 1], side * side).long(),
+                  True)
+    rows = torch.arange(ci, ci + 2 * m, 2, device=g.device) // f
+    cols = torch.arange(cj, cj + 2 * n, 2, device=g.device) // f
+    ch = ((rows[:, None] * pm.shape[2] + cols[None, :]) // CHUNK)  # (m, n)
+    key = torch.where(in_win, (ddy + r) * side + (ddx + r), side * side)
+    covered = torch.gather(held[:, ch.reshape(-1)].reshape(b, m, n, -1), 3, key.long())
+    covered &= covered[..., :1]
+    first = _first_distinct(torch, cands, present & in_img & covered)
+    cells = b * m * n
+    compares = 9 * 2 * int(used.sum(-1)[:, ch.reshape(-1)].sum())
+    nbytes = (_nbytes(g, pm, slots) + cells * 8 + int(first.sum()) * table.element_size())
+    return nbytes, cells * 9 * 9 * 3 + compares
+
+
 def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> dict:
     """Phase 3: each kernel against its plain version at the 1080p level-0
-    shapes, B=8; returns the per-kernel results (launches 0).  A kernel's
+    shapes, B=8; returns the results per TPU kernel row (launches 0).  A
     row keeps the first shape's times and bound (the main path's shape) and
     the worst error of all its shapes.
 
@@ -276,6 +354,7 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         reg_step,
         sad_search,
     )
+    from blockbasedmotionestimation_tpu_torch.ops import compact
     from blockbasedmotionestimation_tpu_torch.ops import pad as pad_ops
     from blockbasedmotionestimation_tpu_torch.ops import search, windowed
     from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
@@ -291,22 +370,23 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     frames = torch.as_tensor(rng.integers(0, 256, size=(B, hp, wp), dtype=np.uint8), device=dev)
     results = {}
 
-    def record(name, source, replaces, err, ms, plain_ms, work, what, also=None):
+    def record(row, name, source, replaces, err, ms, plain_ms, work, what, also=None):
         bound_ms, bound_by = _bound(*work)
-        print(f"[kernel] {name} {what}: max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}; {work[0]} B, {work[1]} ops) ({card})")
-        if name in results:
-            results[name]["max_abs_err"] = max(err, results[name]["max_abs_err"])
+        print(f"[kernel] {row} {name} {what}: max_abs_err {err}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {work[0]} B, {work[1]} "
+              f"ops) ({card})")
+        if row in results:
+            results[row]["max_abs_err"] = max(err, results[row]["max_abs_err"])
             return
-        results[name] = {
-            "name": name, "route": "cuda",
+        results[row] = {
+            "name": name, "row": row, "route": "cuda",
             "source": f"blockbasedmotionestimation_tpu_torch/csrc/{source}",
             "replaces": f"blockbasedmotionestimation_tpu/kernels/{replaces}",
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         }
         if also:
-            results[name]["also_replaces"] = [f"blockbasedmotionestimation_tpu/kernels/{a}" for a in also]
+            results[row]["also_replaces"] = [f"blockbasedmotionestimation_tpu/kernels/{a}" for a in also]
 
     def per_frame(fn):
         for bi in range(B):
@@ -321,14 +401,16 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         err = _max_abs_err(torch, k, gather.gather_windows_plain(frames, by, bx, bs, e))
         ms = _cuda_ms(torch, lambda: gather.gather_windows(frames, by, bx, bs, e), 20)
         pms = _cuda_ms(torch, lambda: gather.gather_windows_plain(frames, by, bx, bs, e), 5)
-        record("gather_windows", "gather.cu", "gather.py:58", err, ms, pms,
-               (_nbytes(frames, by, bx, k), 0), f"{tag} (win {bs + 2 * e}, B={B})")
+        record("A", "gather_windows", "gather.cu", "gather.py:58", err, ms, pms,
+               (_nbytes(frames, by, bx, k), 0), f"{tag} (win {bs + 2 * e}, B={B})",
+               also=["gather.py:101"])
         offs[tag] = (k, by, bx)
     wins, rwins = offs["main"][0], offs["rival"][0]
 
     # B: the main path's call (the stored band), then the dense volumes of
-    # the dense-rival form; C: the rival window's volumes
-    def volumes(name, source, replaces, fn, plain, win, e, what, also=None):
+    # the dense-rival form; C: the rival window's volumes; 13: the cur = bs
+    # volume alone
+    def volumes(row, name, source, replaces, fn, plain, win, e, what, also=None):
         k = fn(frames, win, bs, e, cfg.cost)
         err = 0
         for bi in range(B):
@@ -341,7 +423,7 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         pms = _cuda_ms(torch, lambda: per_frame(
             lambda bi: plain(frames[bi:bi + 1], win[bi:bi + 1], bs, e, cfg.cost)), 1)
         work = (_nbytes(frames, win, *k.values()), _diff_ops(B, n_p, 2 * e + 1, bs))
-        record(name, source, replaces, err, ms, pms, work,
+        record(row, name, source, replaces, err, ms, pms, work,
                f"{what}: r={e}, B={B} (plain: {B} frames one by one), sizes "
                f"{ {c: tuple(v.shape[1:]) for c, v in k.items()} }", also)
         return k
@@ -349,23 +431,31 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     def band_of(fn):
         return lambda im1, win, bs_, e, cost: fn(im1, win, bs_, e, cost, store_r=store_r)
 
-    vols = volumes("pooled_cvs", "cv_diff.cu", "cv_diff.py:672",
+    vols = volumes("B", "pooled_cvs", "cv_diff.cu", "cv_diff.py:672",
                    band_of(cv_diff.pooled_cvs), band_of(cv_diff.pooled_cvs_plain), wins, ext,
                    f"main, stored band store_r={store_r}", also=["cv_diff.py:771", "cv_diff.py:826",
                                                                  "cv_diff.py:885"])
-    dense = volumes("pooled_cvs", "cv_diff.cu", "cv_diff.py:672", cv_diff.pooled_cvs,
+    dense = volumes("B", "pooled_cvs", "cv_diff.cu", "cv_diff.py:672", cv_diff.pooled_cvs,
                     cv_diff.pooled_cvs_plain, wins, ext, "main, dense")
-    rdense = volumes("pooled_cvs", "cv_diff.cu", "cv_diff.py:672", cv_diff.pooled_cvs,
+    rdense = volumes("B", "pooled_cvs", "cv_diff.cu", "cv_diff.py:672", cv_diff.pooled_cvs,
                      cv_diff.pooled_cvs_plain, rwins, r2, "rival, dense")
 
-    def deep(fn):
-        return lambda im1, win, bs_, e, cost: fn(im1, win, bs_, e, cost, fuse_max)
+    def deep(fn, fm):
+        return lambda im1, win, bs_, e, cost: fn(im1, win, bs_, e, cost, fm)
 
-    rdeep = volumes("deep_pooled_cvs", "cv_diff.cu", "cv_diff.py:448",
-                    deep(cv_diff.deep_pooled_cvs), deep(cv_diff.deep_pooled_cvs_plain), rwins, r2,
+    rdeep = volumes("C", "deep_pooled_cvs", "cv_diff.cu", "cv_diff.py:448",
+                    deep(cv_diff.deep_pooled_cvs, fuse_max),
+                    deep(cv_diff.deep_pooled_cvs_plain, fuse_max), rwins, r2,
                     f"rival, cur > {fuse_max} and cur = {bs}", also=["cv_diff.py:511"])
-    if not torch.equal(rdeep[bs], rdense[bs]):
-        raise AssertionError("kernel C's cur=bs volume differs from kernel B's")
+    volumes("C", "deep_pooled_cvs", "cv_diff.cu", "cv_diff.py:448",
+            deep(cv_diff.deep_pooled_cvs, FUSE), deep(cv_diff.deep_pooled_cvs_plain, FUSE), wins,
+            ext, f"main, cv_fused={FUSE}: cur > {FUSE} and cur = {bs}")
+    full = volumes("13", "full_block_volume", "cv_diff.cu", "cv_diff.py:322",
+                   cv_diff.full_block_volume, cv_diff.full_block_volume_plain, wins, ext,
+                   f"main, cur = {bs} only (cv_compact)", also=["cv_diff.py:354"])
+    if not torch.equal(rdeep[bs], rdense[bs]) or not torch.equal(full[bs], dense[bs]):
+        raise AssertionError("kernel C's or kernel 13's cur=bs volume differs from kernel B's")
+    del full
 
     origin = torch.stack(
         torch.meshgrid(torch.arange(npx, device=dev) * bs, torch.arange(npy, device=dev) * bs,
@@ -376,12 +466,14 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
                                     device=dev)).contiguous()
     del offs
 
-    def steps(name, source, replaces, kernel, plain, cur, vol_of, kw_of, kind, what, also=None):
-        """All four colours against the plain version; one colour timed."""
+    def steps(row, name, source, replaces, kernel, plain, cur, vol_of, kw_of, kind, what,
+              also=None, spread=20, work_of=None):
+        """All four colours against the plain version; one colour timed.
+        Candidates within +-spread of the window centres."""
         f = bs // cur
         pmf = base.repeat_interleave(f, 1).repeat_interleave(f, 2)
-        g0 = (pmf + torch.as_tensor(rng.integers(-20, 21, size=pmf.shape), dtype=torch.int32,
-                                    device=dev)).contiguous()
+        g0 = (pmf + torch.as_tensor(rng.integers(-spread, spread + 1, size=pmf.shape),
+                                    dtype=torch.int32, device=dev)).contiguous()
         common = dict(cur=cur, h=hp, w=wp, r=ext, lam_mult=16.0 * bs / cur)
         vol = vol_of(cur)
         gk = g0.clone()
@@ -392,7 +484,8 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
             gp = g0[bi:bi + 1].clone()
             sl = slice(bi, bi + 1)
             for ci, cj in windowed.COLORS:
-                plain(gp, vol[sl], base[sl], ci=ci, cj=cj, **common, **kw_of(sl))
+                plain(gp, None if vol is None else vol[sl], base[sl], ci=ci, cj=cj, **common,
+                      **kw_of(sl))
             err = max(err, _max_abs_err(torch, gk[sl], gp))
         if torch.equal(gk, g0):
             raise AssertionError(f"{name} at cur={cur} changed no cell")
@@ -400,14 +493,17 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         gt = g0.clone()  # timed in place, colour (1, 0)
         ms = _cuda_ms(torch, lambda: kernel(gt, vol, base, ci=1, cj=0, **common, **kw), 20)
         pms = _cuda_ms(torch, lambda: per_frame(lambda bi: plain(
-            g0[bi:bi + 1].clone(), vol[bi:bi + 1], base[bi:bi + 1], ci=1, cj=0, **common,
-            **kw_of(slice(bi, bi + 1)))), 1)
-        rpm = kw.get("rpm")
-        rcv = kw.get("rcv")
-        work = _step_work(torch, g0, base, rpm, kind=kind, cur=cur, h=hp, w=wp, r=ext, r2=r2,
-                          ci=1, cj=0, store_r=kw.get("store_r"),
-                          cost_bytes=(vol.element_size(), rcv.element_size() if rcv is not None else 0))
-        record(name, source, replaces, err, ms, pms, work,
+            g0[bi:bi + 1].clone(), None if vol is None else vol[bi:bi + 1], base[bi:bi + 1],
+            ci=1, cj=0, **common, **kw_of(slice(bi, bi + 1)))), 1)
+        if work_of is not None:
+            work = work_of(g0, vol, kw)
+        else:
+            rcv = kw.get("rcv")
+            work = _step_work(torch, g0, base, kw.get("rpm"), kind=kind, cur=cur, h=hp, w=wp,
+                              r=ext, r2=r2, ci=1, cj=0, store_r=kw.get("store_r"),
+                              cost_bytes=(vol.element_size() if vol is not None else 0,
+                                          rcv.element_size() if rcv is not None else 0))
+        record(row, name, source, replaces, err, ms, pms, work,
                f"{what} at cur={cur} (f={f}): four colours compared, (1, 0) timed; B={B}, "
                f"grid {tuple(g0.shape[1:3])}", also)
 
@@ -416,28 +512,95 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
             return lambda sl: {}
         return lambda sl: dict(rcv=rcv[sl], rpm=rbase[sl], r2=r2)
 
-    # D: the main path's f=1 round on C's volume, then the dense-rival form's
-    # cur=2 round, then both without rival windows
-    for cur, rv in ((bs, rdeep), (2, rdense), (bs, None), (2, None)):
-        steps("color_step", "reg_step.cu", "reg_step.py:773", reg_step.color_step,
+    # D: the main path's f=1 round on C's volume; D': the dense-rival form's
+    # cur=2 round; 8 and 9: both without rival windows
+    for row, replaces, cur, rv in (("D", "reg_step.py:773", bs, rdeep),
+                                   ("D'", "reg_step.py:680", 2, rdense),
+                                   ("8", "reg_step.py:303", bs, None),
+                                   ("9", "reg_step.py:213", 2, None)):
+        pcall = {"D": "reg_step.py:835", "D'": "reg_step.py:750", "8": "reg_step.py:358",
+                 "9": "reg_step.py:283"}[row]
+        steps(row, f"color_step[{row}]", "reg_step.cu", replaces, reg_step.color_step,
               reg_step.color_step_plain, cur, lambda c: dense[c],
               rival_kw(None if rv is None else rv[cur]), "D",
-              "rival" if rv is not None else "no rival",
-              also=["reg_step.py:680", "reg_step.py:303", "reg_step.py:213"])
+              "rival" if rv is not None else "no rival", also=[pcall])
 
     def hybrid_kw(sl):
         return dict(im1=frames[sl], rwin=rwins[sl], rpm=rbase[sl], r2=r2, cost=cfg.cost)
 
     # E at cur 4 and 16 on the dense main volume; F at cur 2 on the band
     for cur in (4, 16):
-        steps("color_step_hybrid", "fused_step.cu", "fused_step.py:870", fused_step.color_step_hybrid,
-              fused_step.color_step_hybrid_plain, cur, lambda c: dense[c], hybrid_kw, "E",
-              "main volume + rival recompute", also=["fused_step.py:937"])
-    steps("color_step_hybrid_tail", "fused_step.cu", "fused_step.py:772",
+        steps("E", "color_step_hybrid", "fused_step.cu", "fused_step.py:870",
+              fused_step.color_step_hybrid, fused_step.color_step_hybrid_plain, cur,
+              lambda c: dense[c], hybrid_kw, "E", "main volume + rival recompute",
+              also=["fused_step.py:937"])
+    steps("F", "color_step_hybrid_tail", "fused_step.cu", "fused_step.py:772",
           fused_step.color_step_hybrid_tail, fused_step.color_step_hybrid_tail_plain, 2,
           lambda c: vols[c], lambda sl: dict(hybrid_kw(sl), win=wins[sl], store_r=store_r), "F",
           f"band store_r={store_r} + main-tail and rival recompute", also=["fused_step.py:848"])
     del vols, dense, rdense, rdeep
+
+    # 11 and 12: cv_fused's rounds cur <= 4, every candidate recomputed from
+    # the main (and rival) windows
+    def no_volume(fn):
+        return lambda g, vol, pm, **kw: fn(g, pm, **kw)
+
+    def fused_kw(rival):
+        def kw_of(sl):
+            kw = dict(im1=frames[sl], win=wins[sl], cost=cfg.cost)
+            if rival:
+                kw.update(rwin=rwins[sl], rpm=rbase[sl], r2=r2)
+            return kw
+        return kw_of
+
+    for cur in (2, 4):
+        steps("11", "color_step_fused", "fused_step.cu", "fused_step.py:401",
+              no_volume(fused_step.color_step_fused), no_volume(fused_step.color_step_fused_plain),
+              cur, lambda c: None, fused_kw(False), "fused", "main window recompute",
+              also=["fused_step.py:466"])
+        steps("12", "color_step_fused_rival", "fused_step.cu", "fused_step.py:488",
+              no_volume(fused_step.color_step_fused_rival),
+              no_volume(fused_step.color_step_fused_rival_plain), cur, lambda c: None,
+              fused_kw(True), "fused", "main and rival window recompute",
+              also=["fused_step.py:557"])
+
+    # 14 and 10: cv_compact at K = COMPACT_K, the slot lists of winners within
+    # +-2 of the centres (25 deltas: unused slots hold -1)
+    winners = (base + torch.as_tensor(rng.integers(-2, 3, size=base.shape), dtype=torch.int32,
+                                      device=dev)).contiguous()
+    slots = compact.chunk_delta_slots(winners, base, ext, COMPACT_K)
+    used = int((slots[..., 0] >= 0).sum())
+    print(f"[kernel] compact slot lists: {tuple(slots.shape)}, {used} of {slots[..., 0].numel()} "
+          f"slots used, overflow {compact.overflow_fraction(winners, base, ext, COMPACT_K).tolist()}")
+    tables = cv_diff.compact_tables(frames, wins, slots, bs, ext, cfg.cost)
+    err = 0
+    for bi in range(B):
+        ref = cv_diff.compact_tables_plain(frames[bi:bi + 1], wins[bi:bi + 1], slots[bi:bi + 1],
+                                           bs, ext, cfg.cost)
+        err = max([err] + [_max_abs_err(torch, tables[c][bi:bi + 1], ref[c]) for c in tables])
+        del ref
+    ms = _cuda_ms(torch, lambda: cv_diff.compact_tables(frames, wins, slots, bs, ext, cfg.cost), 3)
+    pms = _cuda_ms(torch, lambda: per_frame(lambda bi: cv_diff.compact_tables_plain(
+        frames[bi:bi + 1], wins[bi:bi + 1], slots[bi:bi + 1], bs, ext, cfg.cost)), 1)
+    # the pairs (parent, used slot): a diff, an abs and an add per pixel
+    pairs = int((slots[..., 0] >= 0).sum(-1).repeat_interleave(128, dim=1)[:, :n_p].sum())
+    record("14", "compact_tables", "cv_diff.cu", "cv_diff.py:584", err, ms, pms,
+           (_nbytes(frames, wins, slots, *tables.values()), 3 * pairs * bs * bs),
+           f"K={COMPACT_K}, {pairs} (parent, used slot) pairs, B={B} (plain: {B} frames one by "
+           f"one), sizes { {c: tuple(v.shape[1:]) for c, v in tables.items()} }",
+           also=["cv_diff.py:649"])
+
+    def compact_work(cur):
+        return lambda g0, vol, kw: _compact_step_work(torch, g0, base, slots, vol, cur=cur, h=hp,
+                                                      w=wp, r=ext, ci=1, cj=0)
+
+    for cur in (2, 16):
+        steps("10", "color_step_compact", "reg_step.cu", "reg_step.py:441",
+              reg_step.color_step_compact, reg_step.color_step_compact_plain, cur,
+              lambda c: tables[c], lambda sl: dict(slots=slots[sl]), "compact",
+              f"K={COMPACT_K} slots, candidates within +-3 (many miss every slot)",
+              also=["reg_step.py:500"], spread=3, work_of=compact_work(cur))
+    del tables, slots, winners
 
     # 7: the spiral search's argmin around the centres block_search_level
     # passes (origin + a prediction within +-48 px; the origin where that
@@ -470,12 +633,12 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         ms = _cuda_ms(torch, lambda: sad_search.sad_spiral_argmin(*args, cost), 5)
         pms = _cuda_ms(torch, lambda: sad_search.sad_spiral_argmin_plain(*args, cost), 1)
         work = (_nbytes(im1_7, wins7, cy, cx, rank, *got), 3 * pairs * bs * bs)
-        record("sad_spiral_argmin", "sad_search.cu", "sad_search.py:105", err, ms, pms, work,
+        record("7", "sad_spiral_argmin", "sad_search.cu", "sad_search.py:105", err, ms, pms, work,
                f"{cost}: S={s7}, {B * npy * npx} blocks, win {bs + 2 * s7}, centres within "
                f"+-48 px ({int((~ok).sum())} left the frame: origin), {pairs} in-frame "
                f"(block, offset) pairs of {B * npy * npx * (2 * s7 + 1) ** 2}",
                also=["sad_search.py:149"])
-    bad = [r["name"] for r in results.values() if r["max_abs_err"] != 0]
+    bad = [row for row, r in results.items() if r["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return results
@@ -489,16 +652,21 @@ def _drive(torch, engine, cfg, im1, im2, counters: dict, want: dict, tag: str, c
     at least once); the interior must hold the known flow and every frame
     must equal the plain path on the card.  Prints the launches, the median
     of ``reps`` batches in fields/s and the peak memory; returns the
-    launches."""
+    launches by wrapper, the colour step's launches by TPU kernel row
+    (D, D', 8, 9) and the flow."""
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
+    rows = counters["color_step"].row_launches
+    for row in rows:
+        rows[row] = 0
     t0 = time.time()
     flow, pad = engine.estimate_flow_batched(im1, im2, cfg)
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    print(f"[{tag}] launches: {launches} (expected {want})")
+    rows = dict(rows)
+    print(f"[{tag}] launches: {launches} (expected {want}); color_step by row {rows}")
     if any(launches[name] == 0 for name, n in want.items() if n):
         raise AssertionError(f"[{tag}] a kernel of the path was never launched")
     if launches != want:
@@ -528,7 +696,29 @@ def _drive(torch, engine, cfg, im1, im2, counters: dict, want: dict, tag: str, c
     _same_as_plain(torch, engine, cfg, im1, im2, flow, tag)
     if float(wrong.float().mean()) > 1e-3:
         raise AssertionError(f"[{tag}] the path did not recover the known translation")
-    return launches
+    return launches, rows, flow
+
+
+def _equal_flows(torch, a, b, what: str, tag: str) -> None:
+    if not torch.equal(a, b):
+        diff = int((a != b).any(-1).sum())
+        raise AssertionError(f"[{tag}] the flow differs from {what} at {diff} pixels")
+    print(f"[{tag}] flow == {what}, all {a.shape[0]} frames")
+
+
+@contextlib.contextmanager
+def _overflow_log(log: list):
+    """Record ops.compact.overflow_fraction of each level's slot lists."""
+    from blockbasedmotionestimation_tpu_torch.ops import compact, windowed
+
+    slots = windowed.chunk_delta_slots
+
+    def spy(winners, base, r, k, ring):
+        log.append(compact.overflow_fraction(winners, base, r, k, ring).tolist())
+        return slots(winners, base, r, k, ring)
+
+    with _swapped(windowed, chunk_delta_slots=spy):
+        yield
 
 
 def main() -> int:
@@ -581,8 +771,13 @@ def main() -> int:
     counters = {f.__name__: f for f in (
         gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs, reg_step.color_step,
         fused_step.color_step_hybrid, fused_step.color_step_hybrid_tail,
-        sad_search.sad_spiral_argmin)}
-    by_path = {"main": _drive(torch, engine, cfg, im1, im2, counters, WANT_LAUNCHES, "main", card)}
+        sad_search.sad_spiral_argmin, fused_step.color_step_fused,
+        fused_step.color_step_fused_rival, cv_diff.full_block_volume, cv_diff.compact_tables,
+        reg_step.color_step_compact)}
+    assert sorted(counters) == sorted(WANT_LAUNCHES)
+    by_path, by_row = {}, {}
+    by_path["main"], by_row["main"], main_flow = _drive(
+        torch, engine, cfg, im1, im2, counters, WANT_LAUNCHES, "main", card)
     torch.cuda.empty_cache()
 
     # 4b. two motions per frame at 1080p, B=8: the rival windows decide cells
@@ -601,7 +796,10 @@ def main() -> int:
             raise AssertionError(f"two-motion batch: {what} differs from the default at {diff} pixels")
     print(f"[two-motion] cv_store_radius=4 == cv_store_radius=None == the dense-rival form, "
           f"all {B} frames")
-    del no_band, dense_form
+    fused, _ = engine.estimate_flow_batched(tm1, tm2, cfg.replace(cv_fused=FUSE))
+    _equal_flows(torch, fused, flow, "the default's (kernel 12 decides the rival cells)",
+                 "two-motion, cv_fused")
+    del no_band, dense_form, fused
     no_rival, _ = engine.estimate_flow_batched(tm1, tm2, cfg.replace(rival_window=False))
     crop = (slice(None), slice(pad.pad_y, pad.pad_y + H), slice(pad.pad_x, pad.pad_x + W))
     decided = int((flow[crop] != no_rival[crop]).any(-1).sum())
@@ -621,14 +819,81 @@ def main() -> int:
     # 4c, 4d. the search-then-regularize paths on the pairs of phase 4
     for tag, c, want in (("fourcolor", cfg.replace(regularizer="fourcolor"), WANT_FOURCOLOR),
                          ("search", cfg.replace(window_center="search"), WANT_SEARCH)):
-        by_path[tag] = _drive(torch, engine, c, im1, im2, counters, want, tag, card, reps=5)
+        by_path[tag], by_row[tag], _ = _drive(torch, engine, c, im1, im2, counters, want, tag,
+                                              card, reps=5)
         torch.cuda.empty_cache()
-    del im1, im2
-    for name, row in results.items():
-        # kernel 7 runs on the search paths only: its launches are fourcolor's
-        row["launches"] = by_path["fourcolor" if name == "sad_spiral_argmin" else "main"][name]
-        row["launches_by_path"] = {tag: n[name] for tag, n in by_path.items()}
-    results["sad_spiral_argmin"]["launches_from"] = "MotionConfig(regularizer='fourcolor')"
+
+    # 4e, 4f, 4g. the capacity modes on the pairs of phase 4: cv_fused with
+    # and without rival windows, cv_compact without (with rival windows it
+    # does nothing); each flow equals the dense path's
+    no_rival_cfg = cfg.replace(rival_window=False)
+    no_rival_flow, _ = engine.estimate_flow_batched(im1, im2, no_rival_cfg)
+    for tag, c, want, ref, what in (
+        ("fused", cfg.replace(cv_fused=FUSE), WANT_FUSED, main_flow, "the default's"),
+        ("fused-norival", no_rival_cfg.replace(cv_fused=FUSE), WANT_FUSED_NORIVAL, no_rival_flow,
+         "the rival-off default's"),
+        ("compact", no_rival_cfg.replace(cv_compact=COMPACT_K), WANT_COMPACT, no_rival_flow,
+         "the rival-off default's"),
+    ):
+        by_path[tag], by_row[tag], out = _drive(torch, engine, c, im1, im2, counters, want,
+                                                tag, card, reps=5)
+        overflow = []
+        if tag == "compact":
+            with _overflow_log(overflow):  # one more batch, untimed (the log syncs)
+                engine.estimate_flow_batched(im1, im2, c)
+            print(f"[{tag}] overflow_fraction per level, coarsest first, per frame: {overflow}")
+        if all(max(o) == 0.0 for o in overflow):
+            _equal_flows(torch, out, ref, what, tag)
+        else:
+            diff = int((out != ref).any(-1).sum())
+            print(f"[{tag}] chunks overflow: the flow differs from {what} at {diff} pixels")
+        del out
+        torch.cuda.empty_cache()
+    # K = side^2 slots hold every delta of the window, so no chunk overflows;
+    # a slot list still holds only the winners within cv_compact_ring
+    # parents, so a value that travels further in the rounds is excluded
+    # (the reference's semantics).  With a ring spanning the whole frame
+    # nothing is excluded, and the compact path (13, 14, 10) must give the
+    # dense path's flow.
+    from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
+
+    side = 2 * spiral_extent(cfg.search_sizes[0] - cfg.block_sizes[0]) + 1
+    padded = engine.pad_ops.compute_padding(H, W, cfg)
+    whole = max(padded.padded_h, padded.padded_w) // cfg.block_sizes[0]
+    for ring in (no_rival_cfg.cv_compact_ring, whole):
+        tag = f"compact K={side * side} ring={ring}"
+        overflow = []
+        with _overflow_log(overflow):
+            out, _ = engine.estimate_flow_batched(
+                im1, im2, no_rival_cfg.replace(cv_compact=side * side, cv_compact_ring=ring))
+        assert all(max(o) == 0.0 for o in overflow), overflow
+        if ring == whole:
+            _equal_flows(torch, out, no_rival_flow, "the rival-off default's", tag)
+        else:
+            diff = int((out != no_rival_flow).any(-1).sum())
+            print(f"[{tag}] no chunk overflows; the flow differs from the rival-off default's at "
+                  f"{diff} pixels")
+        del out
+        torch.cuda.empty_cache()
+    del im1, im2, main_flow, no_rival_flow
+
+    # each TPU kernel row's launches: on the default path, else on the first
+    # path that runs it
+    paths = {"main": "MotionConfig(interp_factor=1)",
+             "fused": f"MotionConfig(interp_factor=1, cv_fused={FUSE})",
+             "fused-norival": f"MotionConfig(interp_factor=1, cv_fused={FUSE}, rival_window=False)",
+             "compact": f"MotionConfig(interp_factor=1, cv_compact={COMPACT_K}, rival_window=False)",
+             "fourcolor": "MotionConfig(interp_factor=1, regularizer='fourcolor')",
+             "search": "MotionConfig(interp_factor=1, window_center='search')"}
+    for row, res in results.items():
+        counts = by_row if res["name"].startswith("color_step[") else by_path
+        key = row if counts is by_row else res["name"]
+        res["launches_by_path"] = {tag: counts[tag][key] for tag in paths}
+        tag = next((t for t in paths if res["launches_by_path"][t] > 0), None)
+        if tag is None:
+            raise AssertionError(f"kernel {row} ran on no path")
+        res["launches"] = res["launches_by_path"][tag]
+        res["launches_from"] = paths[tag]
 
     # 5. CUDA == CPU (plain) end to end on a two-motion pair, default config,
     #    then the search-then-regularize configurations
@@ -658,14 +923,24 @@ def main() -> int:
         ("raster, windowed", cfg.replace(search_order="raster"), pair),
         ("exact, 64x96, block_sizes (8, 8)", small,
          tuple(np.ascontiguousarray(f[:, 96:160, 144:240]) for f in pair)),
+        (f"cv_fused={FUSE}", cfg.replace(cv_fused=FUSE), pair),
+        (f"cv_fused={FUSE}, rival off", cfg.replace(cv_fused=FUSE, rival_window=False), pair),
+        (f"cv_compact={COMPACT_K}, rival off",
+         cfg.replace(cv_compact=COMPACT_K, rival_window=False), pair),
+        ("cv_compact=4, rival off (chunks overflow)",
+         cfg.replace(cv_compact=4, rival_window=False), pair),
     ):
         t0 = time.time()
-        on_gpu, _ = engine.estimate_flow_batched(*frames, c)
+        overflow = []
+        with _overflow_log(overflow):
+            on_gpu, _ = engine.estimate_flow_batched(*frames, c)
         on_cpu, _ = engine.estimate_flow_batched(*frames, c, device="cpu")
         if not torch.equal(on_gpu.cpu(), on_cpu):
             diff = int((on_gpu.cpu() != on_cpu).any(-1).sum())
             raise AssertionError(f"{what}: CUDA and CPU flows differ at {diff} pixels")
-        print(f"[parity] CUDA == CPU, {what}: {tuple(on_cpu.shape)} ({time.time() - t0:.1f} s)")
+        more = f"; overflow_fraction per level, coarsest first: {overflow}" if overflow else ""
+        print(f"[parity] CUDA == CPU, {what}: {tuple(on_cpu.shape)} ({time.time() - t0:.1f} s)"
+              f"{more}")
 
     # 6. the reference driver at Middlebury geometry, interp_factor=4
     h6, w6 = 388, 584

@@ -176,3 +176,83 @@ def test_cuda_search_schedules_equal_cpu(cuda):
         assert torch.equal(on_gpu.cpu(), on_cpu), c
         spiral = c.search_order == "spiral"
         assert sad_search.sad_spiral_argmin.launches == before + (2 if spiral else 0), c
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bs,ext,r2", [(8, 8, 4), (32, 16, 12)])
+def test_cuda_capacity_kernels_equal_plain(cuda, bs, ext, r2):
+    # cv_fused's 11 and 12, cv_compact's 13, 14 and 10, against their plain
+    # versions; slot lists with unused (-1) slots, candidates that miss
+    # every slot (the incumbent guard included); 3 chunks, the last ragged
+    from blockbasedmotionestimation_tpu_torch.ops import compact
+
+    rng = np.random.default_rng(bs + 1)
+    b, h, w = 2, 12 * bs, 28 * bs
+    npy, npx = h // bs, w // bs
+    im1 = torch.as_tensor(rng.integers(0, 256, size=(b, h, w), dtype=np.uint8), device=cuda)
+    im2 = torch.as_tensor(rng.integers(0, 256, size=(b, h, w), dtype=np.uint8), device=cuda)
+
+    def offs():
+        return torch.as_tensor(rng.integers(0, h - bs + 1, size=(b, npy * npx)), dtype=torch.int32,
+                               device=cuda), torch.as_tensor(
+            rng.integers(0, w - bs + 1, size=(b, npy * npx)), dtype=torch.int32, device=cuda)
+
+    win = gather.gather_windows(im2, *offs(), bs, ext)
+    rwin = gather.gather_windows(im2, *offs(), bs, r2)
+    pm = torch.as_tensor(rng.integers(-4, 5, size=(b, npy, npx, 2)), dtype=torch.int32, device=cuda)
+    rpm = (pm + torch.as_tensor(rng.integers(-12, 13, size=pm.shape), dtype=torch.int32,
+                                device=cuda)).contiguous()
+    winners = (pm + torch.as_tensor(rng.integers(-3, 4, size=pm.shape), dtype=torch.int32,
+                                    device=cuda)).contiguous()
+    for cost in ("sad", "ssd"):
+        k = cv_diff.full_block_volume(im1, win, bs, ext, cost)
+        assert torch.equal(k[bs], cv_diff.full_block_volume_plain(im1, win, bs, ext, cost)[bs])
+        for k_slots in (8, 64):
+            slots = compact.chunk_delta_slots(winners, pm, ext, k_slots)
+            assert slots.shape[1] == 3
+            slots[:, :, 1::7] = -1  # unused slots among the used ones
+            tk = cv_diff.compact_tables(im1, win, slots, bs, ext, cost)
+            tp = cv_diff.compact_tables_plain(im1, win, slots, bs, ext, cost)
+            assert sorted(tk) == sorted(tp) == cv_diff.table_curs(bs)
+            for cur in tk:
+                assert tk[cur].dtype == tp[cur].dtype and torch.equal(tk[cur], tp[cur]), (cost, cur)
+                f = bs // cur
+                g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
+                g0 = (g0 + torch.as_tensor(rng.integers(-4, 5, size=g0.shape), dtype=torch.int32,
+                                           device=cuda)).contiguous()
+                kw = dict(cur=cur, h=h, w=w, r=ext, lam_mult=3.0 * f)
+                for ci, cj in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                    gk, gp = g0.clone(), g0.clone()
+                    reg_step.color_step_compact(gk, tk[cur], pm, slots, ci=ci, cj=cj, **kw)
+                    reg_step.color_step_compact_plain(gp, tk[cur], pm, slots, ci=ci, cj=cj, **kw)
+                    assert torch.equal(gk, gp), ("10", cost, k_slots, cur, ci, cj)
+                    if k_slots == 8:
+                        continue
+                    g1 = (g0 + torch.as_tensor(rng.integers(-20, 21, size=g0.shape),
+                                               dtype=torch.int32, device=cuda)).contiguous()
+                    for rival in (False, True):
+                        gk, gp = g1.clone(), g1.clone()
+                        fkw = dict(im1=im1, win=win, cost=cost, ci=ci, cj=cj, **kw)
+                        if rival:
+                            fkw.update(rwin=rwin, rpm=rpm, r2=r2)
+                            fused_step.color_step_fused_rival(gk, pm, **fkw)
+                            fused_step.color_step_fused_rival_plain(gp, pm, **fkw)
+                        else:
+                            fused_step.color_step_fused(gk, pm, **fkw)
+                            fused_step.color_step_fused_plain(gp, pm, **fkw)
+                        assert torch.equal(gk, gp), ("11/12", rival, cost, cur, ci, cj)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_capacity_modes_equal_cpu(cuda):
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 256, size=(2, 80, 112), dtype=np.uint8)
+    b = np.roll(a, (2, -3), axis=(1, 2))
+    cfg = MotionConfig(block_sizes=(8, 8), search_sizes=(24, 24), interp_factor=1,
+                       rival_radius=(4, None))
+    for c in (cfg.replace(cv_fused=4), cfg.replace(cv_fused=4, rival_window=False, cost="ssd"),
+              cfg.replace(cv_compact=64, rival_window=False),
+              cfg.replace(cv_compact=4, rival_window=False)):
+        on_gpu, _ = engine.estimate_flow_batched(a, b, c, device=cuda)
+        on_cpu, _ = engine.estimate_flow_batched(a, b, c, device="cpu")
+        assert torch.equal(on_gpu.cpu(), on_cpu), c

@@ -4,8 +4,11 @@ Tiny configurations (two 8px levels) on numpy pairs made from a seed;
 exact equality of the flow fields.  The port gets its own ``MotionConfig``,
 made from the JAX config's fields.  Also: the port never imports jax or the
 JAX package, its config and spiral tables equal the JAX package's, numpy
-frames go to CUDA by default, and the configurations outside the port
-(``cost="zsad"``, ``cv_fused``, ``cv_compact``) raise.
+frames go to CUDA by default, and the one configuration outside the port
+(``cost="zsad"``) raises.  The capacity modes (``cv_fused``,
+``cv_compact``) are held to JAX's dense flow, which JAX's own tests hold its
+fused and (non-overflowing) compact paths to; their kernels are held to
+JAX's interpret-mode kernels in ``tests/test_torch_capacity.py``.
 """
 
 import os
@@ -17,6 +20,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several pytest-xdist workers at once,
+# and OpenMP threads that outnumber the cores slow every worker
+torch.set_num_threads(1)
 
 import dataclasses
 
@@ -81,6 +87,46 @@ def test_estimate_flow_batched_matches_jax(rng, cfg):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# each port configuration against the JAX configuration of the test above
+# whose program it shares (jax.jit hits its cache): JAX's XLA path ignores
+# the capacity modes and gives the dense flow
+NORIVAL = TINY.replace(cost="ssd", mv_cap=16, rival_window=False)
+
+
+@pytest.mark.parametrize(
+    "jax_cfg,override",
+    [
+        (TINY, dict(cv_fused=4)),
+        (NORIVAL, dict(cv_fused=4)),
+        (NORIVAL, dict(cv_compact=64)),
+        (TINY, dict(cv_compact=8)),  # rival windows: compact does nothing
+        (TINY.replace(window_center="search"), dict(cv_fused=4)),  # search first: ignored
+    ],
+    ids=["fused-rival", "fused-norival", "compact64-norival", "compact8-rival-ignored",
+         "fused-search-ignored"],
+)
+def test_capacity_modes_match_jax_dense(rng, monkeypatch, jax_cfg, override):
+    from blockbasedmotionestimation_tpu_torch.ops import compact
+    from blockbasedmotionestimation_tpu_torch.ops import windowed as tw
+
+    overflow = []
+    slots = tw.chunk_delta_slots
+
+    def spy(winners, base, r, k, ring):
+        overflow.append(compact.overflow_fraction(winners, base, r, k, ring))
+        return slots(winners, base, r, k, ring)
+
+    monkeypatch.setattr(tw, "chunk_delta_slots", spy)
+    im1s, im2s = _pairs(rng, 2, H, W)
+    want, _ = jeng.estimate_flow_batched(im1s, im2s, jax_cfg.replace(search_impl="xla"))
+    got, _ = teng.estimate_flow_batched(im1s, im2s, _port(jax_cfg).replace(**override),
+                                        device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    compacts = "cv_compact" in override and not jax_cfg.rival_window
+    assert len(overflow) == (2 if compacts else 0)  # both levels, when it applies
+    assert all(float(o.max()) == 0.0 for o in overflow)
+
+
 def test_estimate_flow_driver_interp2_matches_jax(rng):
     cfg = TINY.replace(interp_factor=2)
     im1s, im2s = _pairs(rng, 1, H // 2, W // 2)
@@ -102,11 +148,8 @@ def test_estimate_flow_driver_interp2_matches_jax(rng):
         dict(cost="zsad", search_order="raster"),
         dict(cost="zsad", reg_radius=4),
         dict(cost="zsad"),
-        dict(cv_fused=4),
-        dict(cv_compact=8),
         dict(cost="zsad", regularizer="exact"),
-        dict(cv_fused=4, regularizer="fourcolor"),
-        dict(cv_compact=8, window_center="search"),
+        dict(cost="zsad", cv_fused=4),
     ],
 )
 def test_configs_outside_the_slice_raise(override):

@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several pytest-xdist workers at once,
+# and OpenMP threads that outnumber the cores slow every worker
+torch.set_num_threads(1)
 
 import jax
 import jax.numpy as jnp
@@ -383,7 +386,10 @@ def _c_params(src: str, name: str) -> list[str]:
      (reg_step, "bbme_color_step", "reg_step.cu"),
      (fused_step, "bbme_color_step_hybrid", "fused_step.cu"),
      (fused_step, "bbme_color_step_hybrid_tail", "fused_step.cu"),
-     (sad_search, "bbme_sad_spiral_argmin", "sad_search.cu")],
+     (sad_search, "bbme_sad_spiral_argmin", "sad_search.cu"),
+     (cv_diff, "bbme_compact_tables", "cv_diff.cu"),
+     (reg_step, "bbme_color_step_compact", "reg_step.cu"),
+     (fused_step, "bbme_color_step_fused", "fused_step.cu")],
 )
 def test_ctypes_argtypes_match_c_signature(module, name, source):
     # the library is built only on a CUDA machine; the declared argument
@@ -393,7 +399,12 @@ def test_ctypes_argtypes_match_c_signature(module, name, source):
 
     src = (Path(module.__file__).resolve().parent.parent / "csrc" / source).read_text()
     params = _c_params(src, name)
-    argtypes = module.TAIL_ARGTYPES if name.endswith("_tail") else module.ARGTYPES
+    argtypes = getattr(module, {
+        "bbme_color_step_hybrid_tail": "TAIL_ARGTYPES",
+        "bbme_compact_tables": "TABLES_ARGTYPES",
+        "bbme_color_step_compact": "COMPACT_ARGTYPES",
+        "bbme_color_step_fused": "FUSED_ARGTYPES",
+    }.get(name, "ARGTYPES"))
     assert len(params) == len(argtypes), (params, argtypes)
     for p, t in zip(params, argtypes):
         if "*" in p:

@@ -7,6 +7,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several pytest-xdist workers at once,
+# and OpenMP threads that outnumber the cores slow every worker
+torch.set_num_threads(1)
 
 import jax.numpy as jnp
 

@@ -16,6 +16,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several pytest-xdist workers at once,
+# and OpenMP threads that outnumber the cores slow every worker
+torch.set_num_threads(1)
 
 from blockbasedmotionestimation_tpu.config import MotionConfig
 from blockbasedmotionestimation_tpu.models import engine as jeng

@@ -4,10 +4,15 @@ Inputs are two-motion pairs made with numpy from a seed; the port runs them
 as one batch, JAX one frame at a time.  Exact equality.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several pytest-xdist workers at once,
+# and OpenMP threads that outnumber the cores slow every worker
+torch.set_num_threads(1)
 
 import jax
 import jax.numpy as jnp
@@ -48,18 +53,24 @@ def _batch(rng):
     return np.stack([a1, b1]), np.stack([a2, b2]), pred
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_level(cost: str, rival: bool, radius):
+    """JAX's XLA level, jitted once per program the tests below share."""
+    return jax.jit(
+        lambda a, b, p: jax_windowed_level(
+            a, b, p, BS, SS, 4.0, 2, cost=cost, impl="xla", rival=rival,
+            rival_radius=radius,
+        )
+    )
+
+
 @pytest.mark.parametrize(
     "rival,radius,cost",
     [(True, None, "sad"), (True, 4, "sad"), (False, None, "sad"), (True, 4, "ssd")],
 )
 def test_windowed_level_matches_jax(rng, rival, radius, cost):
     im1, im2, pred = _batch(rng)
-    fn = jax.jit(
-        lambda a, b, p: jax_windowed_level(
-            a, b, p, BS, SS, 4.0, 2, cost=cost, impl="xla", rival=rival,
-            rival_radius=radius,
-        )
-    )
+    fn = _jax_level(cost, rival, radius)
     got = tw.windowed_level(
         torch.as_tensor(im1), torch.as_tensor(im2), torch.as_tensor(pred), BS, SS,
         4.0, 2, cost=cost, rival=rival, rival_radius=radius,
@@ -82,12 +93,7 @@ def test_hybrid_level_matches_jax_xla(rng, monkeypatch, cost, radius, store_radi
     # versions; F only with a band) against JAX's dense XLA level, and the
     # dense-rival form against both
     im1, im2, pred = _batch(rng)
-    fn = jax.jit(
-        lambda a, b, p: jax_windowed_level(
-            a, b, p, BS, SS, 4.0, 2, cost=cost, impl="xla", rival=True,
-            rival_radius=radius,
-        )
-    )
+    fn = _jax_level(cost, True, radius)
     args = (torch.as_tensor(im1), torch.as_tensor(im2), torch.as_tensor(pred), BS, SS, 4.0, 2)
     kw = dict(cost=cost, rival=True, rival_radius=radius)
     got = tw.windowed_level(*args, store_radius=store_radius, **kw)
