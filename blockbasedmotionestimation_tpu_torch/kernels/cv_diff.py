@@ -26,12 +26,15 @@ only the costs at the K slot deltas of each parent's 128-parent chunk
 
 For CPU tensors the wrappers run the plain versions (``pooled_cvs_plain``,
 the ``_compute_cv`` code in torch, and ``compact_tables_plain``); for CUDA
-tensors they launch ``csrc/cv_diff.cu``.
+tensors they launch ``csrc/cv_diff.cu``.  The volume kernel is built for bs
+2, 4, .., 64; ``volume_geometry`` picks its launch (parents and delta rows
+per block, threads, shared bytes), and the entry point refuses any other bs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Iterable
 
@@ -144,11 +147,111 @@ def deep_pooled_cvs_plain(
     return pooled_cvs_plain(im1, windows, bs, r, cost, emit=deep_curs(bs, fuse_max))
 
 
+# ------------------------------------------------- launch geometry (B, C, 13)
+
+SMEM_LIMIT = 232_448  # H100: dynamic shared memory one block may use
+SMS = 132             # H100 SXM streaming multiprocessors
+TARGET_BLOCKS = 8 * SMS
+MAX_THREADS = 256     # csrc/cv_diff.cu kMaxThreads
+
+
+# parents a block takes: a call that writes the cur 2 or 4 volume is bound
+# by its writes, and a block of FINE_PARENTS neighbours of one row writes
+# each volume row in runs FINE_PARENTS times as long; the other calls are
+# bound by their diffs and gain a little from 2 (the times at each choice:
+# ``profile_main --volume-launches``, PERF.md)
+FINE_PARENTS = 4
+COARSE_PARENTS = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class VolumeGeometry:
+    """How ``csrc/cv_diff.cu`` launches one volume call: one block per
+    ``parents_per_block`` parents of a row and group of ``dy_per_block``
+    delta rows, ``groups`` groups (the last one may be short), ``blocks``
+    blocks in all, ``threads`` per block, ``smem_bytes`` of dynamic shared
+    memory."""
+
+    parents_per_block: int
+    dy_per_block: int
+    groups: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+def _ndx(bs: int) -> int:
+    """Deltas per thread (cv_diff.cu Shape::kNdx)."""
+    return 2 if bs >= 64 else 4
+
+
+def _items_per_row(bs: int, side: int) -> int:
+    """Threads' items of one dy row: for each residue k = dx % 4, its deltas
+    in runs of ``_ndx(bs)``."""
+    ndx = _ndx(bs)
+    return sum(-(-max(0, -(-(side - k) // 4)) // ndx) for k in range(4))
+
+
+def volume_smem(bs: int, r: int, dy_per_block: int, parents_per_block: int = 1) -> int:
+    """Shared bytes of one block (cv_diff.cu volume_layout): per parent its
+    patch, its window rows' four byte-shifted word copies, its raw rows."""
+    side, wc = 2 * r + 1, bs + 2 * r
+    ndx, nw = _ndx(bs), max(1, bs // 4)
+    vec = 4 if ndx % 4 == 0 else 2
+    nload = -(-(ndx + nw - 1) // vec) * vec
+    cnt_max = -(-(-(-side // 4)) // ndx)
+    rows = dy_per_block + bs - 1
+    wpr = -(-((cnt_max - 1) * ndx + nload) // 4) * 4
+    if (wpr // 4) % 2 == 0:
+        wpr += 4  # row pitch 16 * odd bytes: no bank conflicts in a quarter-warp
+    patch = -(-(bs * max(bs, 4)) // 16) * 16
+    raw = -(-(rows * wc + 4 * wpr + 32) // 16) * 16
+    return parents_per_block * (patch + 4 * rows * wpr * 4 + raw)
+
+
+def volume_launch(bs: int, r: int, batch: int, npy: int, npx: int, parents_per_block: int,
+                  dy_per_block: int) -> VolumeGeometry:
+    """The launch of one volume call at ``parents_per_block`` parents and
+    ``dy_per_block`` delta rows a block."""
+    side, f2, pp = 2 * r + 1, max(1, bs // 2), parents_per_block
+    groups = -(-side // dy_per_block)
+    lanes = dy_per_block * _items_per_row(bs, side) * f2 * pp
+    unit = max(32, f2 * pp)  # whole warps, whole (parent, row) groups
+    threads = min(MAX_THREADS // unit * unit, -(-lanes // unit) * unit)
+    return VolumeGeometry(pp, dy_per_block, groups, batch * npy * -(-npx // pp) * groups,
+                          threads, volume_smem(bs, r, dy_per_block, pp))
+
+
+def volume_geometry(bs: int, r: int, batch: int, npy: int, npx: int,
+                    writes_fine: bool) -> VolumeGeometry:
+    """The launch of one volume call over ``batch`` frames of npy x npx
+    parents; ``writes_fine``: the call writes the cur 2 or 4 volume.
+
+    FINE_PARENTS (else COARSE_PARENTS) parents of a row a block, at most
+    256 threads' worth and the row, and every delta row in one group (each
+    window read once) unless the grid then has fewer than ``TARGET_BLOCKS``
+    blocks (the 1080p level 3 at B=8 has 320 parents) or the rows overflow
+    the shared memory: then the fewest groups that fix both."""
+    side, f2 = 2 * r + 1, max(1, bs // 2)
+    want = FINE_PARENTS if writes_fine else COARSE_PARENTS
+    pp = 1
+    while (2 * pp <= min(want, MAX_THREADS // f2, npx)
+           and volume_smem(bs, r, 1, 2 * pp) <= SMEM_LIMIT):
+        pp *= 2
+    tiles = batch * npy * -(-npx // pp)
+    groups = 1
+    while groups < side and (tiles * groups < TARGET_BLOCKS
+                             or volume_smem(bs, r, -(-side // groups), pp) > SMEM_LIMIT):
+        groups += 1
+    return volume_launch(bs, r, batch, npy, npx, pp, -(-side // groups))
+
+
 # bbme_pooled_cvs(im1, windows, outs, ncur, is16_mask, emit_mask, batch, h, w,
-#                 bs, side, store_r, ssd, stream)
+#                 bs, side, store_r, ssd, dy_per_cta, parents_per_cta, threads,
+#                 smem_bytes, stream)
 ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
-    + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 )
 
 
@@ -194,12 +297,14 @@ def _launch(wrapper, im1, windows, bs, r, cost, store_r, emit) -> dict[int, torc
     ptrs = (ctypes.c_void_p * len(curs))(*(out[c].data_ptr() if c in out else None for c in curs))
     is16 = sum(1 << i for i, c in enumerate(curs) if cv_dtype(c, cost) == torch.uint16)
     emit_mask = sum(1 << i for i, c in enumerate(curs) if c in out)
+    geo = volume_geometry(bs, r, b, h // bs, w // bs, writes_fine=bool(emit_mask & 3))
     with torch.cuda.device(im1.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _kernel()(
             im1.data_ptr(), windows.data_ptr(), ptrs, len(curs), is16, emit_mask,
             b, h, w, bs, side, -1 if store_r is None else store_r,
-            int(cost == "ssd"), stream,
+            int(cost == "ssd"), geo.dy_per_block, geo.parents_per_block, geo.threads,
+            geo.smem_bytes, stream,
         )
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1

@@ -5,6 +5,7 @@
     python -m blockbasedmotionestimation_tpu_torch.profile_main --window-center search
     python -m blockbasedmotionestimation_tpu_torch.profile_main --cv-fused 4
     python -m blockbasedmotionestimation_tpu_torch.profile_main --cv-compact 64 --no-rival
+    python -m blockbasedmotionestimation_tpu_torch.profile_main --volume-launches
 
 Runs ``estimate_flow_batched`` with ``MotionConfig(interp_factor=1)`` (or
 the regularizer / window centre / capacity mode given; ``--no-rival`` sets
@@ -22,6 +23,11 @@ prints, beside the card's name and power limit:
     and 12, so only the wrappers tell them apart);
   - device time by kernel over one more batch (``torch.profiler``), the
     device total, and the device's idle share of the median batch.
+
+``--volume-launches`` instead times the volume kernel's calls at the 1080p
+level-0 B=8 shapes (B with the band, C on the rival window, 13) at other
+launch geometries than ``kernels/cv_diff.volume_geometry``'s: 1, 2, 4 or 8
+parents a block with every delta row, and 1 parent at 3 or 1 rows.
 
 Exits non-zero without a CUDA device.
 """
@@ -87,6 +93,56 @@ def _timed_kernels(events: dict):
             setattr(m, n, fn)
 
 
+def _cuda_ms(fn, reps: int = 3) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _volume_launches(cfg, dev, card: str) -> None:
+    """--volume-launches: B (band), C (rival) and 13 at the level-0 shapes,
+    each at the policy's launch and at fixed (parents, delta rows) ones."""
+    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff
+    from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
+
+    pad = engine.pad_ops.compute_padding(H, W, cfg)
+    bs = cfg.block_sizes[0]
+    npy, npx = pad.padded_h // bs, pad.padded_w // bs
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.integers(0, 256, size=(B, pad.padded_h, pad.padded_w),
+                                          dtype=np.uint8), device=dev)
+    ext, r2 = spiral_extent(cfg.search_sizes[0] - bs), cfg.rival_radius_at(0)
+    wins = {r: torch.as_tensor(rng.integers(0, 256, size=(B, npy * npx, bs + 2 * r, bs + 2 * r),
+                                            dtype=np.uint8), device=dev) for r in (ext, r2)}
+    calls = [
+        ("B, band store_r=4", ext,
+         lambda: cv_diff.pooled_cvs(frames, wins[ext], bs, ext, cfg.cost, store_r=4)),
+        ("C, rival", r2, lambda: cv_diff.deep_pooled_cvs(frames, wins[r2], bs, r2, cfg.cost, 16)),
+        ("13", ext, lambda: cv_diff.full_block_volume(frames, wins[ext], bs, ext, cfg.cost)),
+    ]
+    policy = cv_diff.volume_geometry
+    for name, r, call in calls:
+        side = 2 * r + 1
+        times = [f"policy {_cuda_ms(call):.3f}"]
+        for pp, dyg in ((1, side), (2, side), (4, side), (8, side), (1, 3), (1, 1)):
+            cv_diff.volume_geometry = (
+                lambda bs_, r_, b_, y_, x_, writes_fine, pp=pp, dyg=dyg:
+                cv_diff.volume_launch(bs_, r_, b_, y_, x_, pp, dyg))
+            try:
+                times.append(f"({pp}, {dyg}) {_cuda_ms(call):.3f}")
+            finally:
+                cv_diff.volume_geometry = policy
+        print(f"[volume] {name}, r={r}, B={B}, level 0: ms at (parents, delta rows) a block: "
+              + "; ".join(times) + f" ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # exact is sequential over the blocks: for small frames, not for 1080p
@@ -96,6 +152,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cv-fused", type=int, default=None, metavar="N")
     ap.add_argument("--cv-compact", type=int, default=None, metavar="K")
     ap.add_argument("--no-rival", action="store_true")
+    ap.add_argument("--volume-launches", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main: no CUDA device", file=sys.stderr)
@@ -111,6 +168,9 @@ def main(argv=None) -> int:
     noise = np.random.default_rng(0).integers(0, 256, size=(B, H + 16, W + 16), dtype=np.uint8)
     im1 = torch.as_tensor(noise[:, :H, :W].copy(), device=dev)
     im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
+    if args.volume_launches:
+        _volume_launches(cfg, dev, card)
+        return 0
     print(f"[profile] card: {card}; 1080p, B={B}, MotionConfig(interp_factor=1, "
           f"regularizer={cfg.regularizer!r}, window_center={cfg.window_center!r}, "
           f"rival_window={cfg.rival_window}, cv_fused={cfg.cv_fused}, "

@@ -16,7 +16,11 @@ Phases (any failure raises and the script exits non-zero):
      random candidates within +-20 of the window centres; 14 and 10 (cur 2
      and 16) at K=64 on slot lists with unused (-1) slots and candidates
      within +-3, many of which miss every slot; kernel 7 (the spiral
-     search's argmin, sad and ssd) around predictions within +-48 px;
+     search's argmin, sad and ssd) around predictions within +-48 px; the
+     volume kernel (B, C) over a sweep of shapes (bs 8/16/32, r
+     0/3/12/16, sad and ssd, band on and off, C's sizes); then B and C timed
+     at every level's shapes of the default path (its calls recorded on one
+     batch), with their per-batch sums;
   4. the main path: ``estimate_flow_batched`` with ``MotionConfig(
      interp_factor=1)`` on 8 seeded-noise 1080p pairs, counting every
      kernel's launches (7, 11-14 and 10: none) and checking the known
@@ -644,6 +648,70 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     return results
 
 
+def _volume_sweep(torch, dev, card: str, rng: np.random.Generator) -> None:
+    """Phase 3: the volume kernel (B, C) against its plain version over a
+    sweep of shapes: bs 8/16/32, r 0/3/12/16, sad and ssd, the band
+    (store_r = min(4, r)) on and off, C's sizes; B=2 frames of 6x10 parents,
+    so delta rows split into groups and the last group is short."""
+    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff
+
+    worst, calls = 0, 0
+    for bs in (8, 16, 32):
+        for r in (0, 3, 12, 16):
+            b, npy, npx, wc = 2, 6, 10, bs + 2 * r
+            im1 = torch.as_tensor(rng.integers(0, 256, size=(b, npy * bs, npx * bs), dtype=np.uint8),
+                                  device=dev)
+            win = torch.as_tensor(rng.integers(0, 256, size=(b, npy * npx, wc, wc), dtype=np.uint8),
+                                  device=dev)
+            for cost in ("sad", "ssd"):
+                for kw in (dict(store_r=None), dict(store_r=min(4, r)),
+                           dict(emit=cv_diff.deep_curs(bs, min(16, bs // 2)))):
+                    k = cv_diff.pooled_cvs(im1, win, bs, r, cost, **kw)
+                    p = cv_diff.pooled_cvs_plain(im1, win, bs, r, cost, **kw)
+                    if sorted(k) != sorted(p):
+                        raise AssertionError(f"volume sweep: sizes {sorted(k)} vs {sorted(p)}")
+                    worst = max([worst] + [_max_abs_err(torch, k[c], p[c]) for c in k])
+                    calls += 1
+    print(f"[kernel] volume sweep: {calls} calls (bs 8/16/32, r 0/3/12/16, sad and ssd, band on "
+          f"and off, C's sizes) against the plain version: max_abs_err {worst} ({card})")
+    if worst:
+        raise AssertionError("the volume kernel disagrees with its plain version in the sweep")
+
+
+def _volume_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
+    """B and C at every level's shapes of the default path: each call one
+    batch of the path makes (recorded by a spy), timed alone with CUDA
+    events; returns the times by call and their per-batch sum by row."""
+    from blockbasedmotionestimation_tpu_torch.ops import windowed
+
+    calls = []
+
+    def spy(row, fn):
+        def call(*args, **kw):
+            calls.append((row, fn, args, kw))
+            return fn(*args, **kw)
+        return call
+
+    with _swapped(windowed, pooled_cvs=spy("B", windowed.pooled_cvs),
+                  deep_pooled_cvs=spy("C", windowed.deep_pooled_cvs)):
+        engine.estimate_flow_batched(im1, im2, cfg)
+    out = {"B": {"ms_by_call": [], "per_batch_ms": 0.0},
+           "C": {"ms_by_call": [], "per_batch_ms": 0.0}}
+    for row, fn, args, kw in calls:
+        ms = _cuda_ms(torch, lambda: fn(*args, **kw), 3)
+        frames, win, bs, r = args[:4]
+        more = f", fuse_max {args[5]}" if len(args) > 5 else f", {kw}" if kw else ""
+        print(f"[levels] {row}: level {tuple(frames.shape)}, windows {tuple(win.shape)}, r={r}"
+              f"{more}: {ms:.4f} ms ({card})")
+        out[row]["ms_by_call"].append(ms)
+        out[row]["per_batch_ms"] += ms
+    del calls
+    print(f"[levels] per batch of {B}: B {out['B']['per_batch_ms']:.4f} ms over "
+          f"{len(out['B']['ms_by_call'])} launches, C {out['C']['per_batch_ms']:.4f} ms over "
+          f"{len(out['C']['ms_by_call'])} launches ({card})")
+    return out
+
+
 def _drive(torch, engine, cfg, im1, im2, counters: dict, want: dict, tag: str, card: str,
            reps: int = 10) -> dict:
     """Drive one path through ``estimate_flow_batched`` on the B=8 batch of
@@ -761,6 +829,7 @@ def main() -> int:
     cfg = MotionConfig(interp_factor=1)
     rng = np.random.default_rng(0)
     results = _kernels_vs_plain(torch, dev, cfg, card, rng)
+    _volume_sweep(torch, dev, card, rng)
     torch.cuda.empty_cache()
 
     # 4. the main path: default config, 8 pairs at 1080p, made as bench.py
@@ -768,6 +837,10 @@ def main() -> int:
     noise = np.random.default_rng(0).integers(0, 256, size=(B, H + 16, W + 16), dtype=np.uint8)
     im1 = torch.as_tensor(noise[:, :H, :W].copy(), device=dev)
     im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
+    # 3 (end). B and C at each level's shapes of this path, per-batch sums
+    for row, timed in _volume_levels(torch, engine, cfg, im1, im2, card).items():
+        results[row].update(timed)
+    torch.cuda.empty_cache()
     counters = {f.__name__: f for f in (
         gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs, reg_step.color_step,
         fused_step.color_step_hybrid, fused_step.color_step_hybrid_tail,

@@ -65,6 +65,55 @@ def test_cuda_kernels_equal_plain(cuda, bs, ext, r2):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("r", [0, 1, 3, 12, 16])
+@pytest.mark.parametrize("bs", [2, 4, 8, 16, 32, 64])
+def test_cuda_volume_kernel_equals_plain(cuda, bs, r):
+    # B, C and 13 (one kernel, templated on bs) against pooled_cvs_plain:
+    # sad and ssd, the band at store_r 0 and 4 and none, the emit sets of B
+    # (every size), C (deep_curs) and 13 (cur = bs); 8x10 parents a frame,
+    # so B's blocks of 4 parents leave a ragged last block in each row, and
+    # at B=3, r >= 12 C's delta rows split into groups with a short last one
+    rng = np.random.default_rng(100 * bs + r)
+    npy, npx, wc = 8, 10, bs + 2 * r
+    emits = {"B": None, "C": cv_diff.deep_curs(bs, min(16, bs // 2)), "13": [bs]}
+    for b in (1, 3):
+        if bs >= 8:
+            assert cv_diff.volume_geometry(bs, r, b, npy, npx, True).parents_per_block == 4
+        geo = cv_diff.volume_geometry(bs, r, b, npy, npx, False)
+        if b == 3 and r >= 12:
+            assert geo.groups * geo.dy_per_block > 2 * r + 1, geo
+        im1 = torch.as_tensor(rng.integers(0, 256, size=(b, npy * bs, npx * bs), dtype=np.uint8),
+                              device=cuda)
+        win = torch.as_tensor(rng.integers(0, 256, size=(b, npy * npx, wc, wc), dtype=np.uint8),
+                              device=cuda)
+        for cost in ("sad", "ssd"):
+            for what, emit in emits.items():
+                for store_r in (None, 0, 4):
+                    if store_r is not None and (what != "B" or store_r > r):
+                        continue
+                    before = cv_diff.pooled_cvs.launches
+                    k = cv_diff.pooled_cvs(im1, win, bs, r, cost, store_r=store_r, emit=emit)
+                    assert cv_diff.pooled_cvs.launches == before + 1
+                    p = cv_diff.pooled_cvs_plain(im1, win, bs, r, cost, store_r=store_r, emit=emit)
+                    assert sorted(k) == sorted(p)
+                    for cur in k:
+                        assert k[cur].dtype == p[cur].dtype and k[cur].shape == p[cur].shape
+                        assert torch.equal(k[cur].to(torch.int32), p[cur].to(torch.int32)), (
+                            b, cost, what, store_r, cur)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_volume_kernel_refuses_unbuilt_bs(cuda):
+    # the kernel is built for bs 2 .. 64; a larger block raises, nothing falls back
+    im1 = torch.zeros((1, 128, 128), dtype=torch.uint8, device=cuda)
+    win = torch.zeros((1, 1, 130, 130), dtype=torch.uint8, device=cuda)
+    before = cv_diff.pooled_cvs.launches
+    with pytest.raises(RuntimeError, match="pooled_cvs"):
+        cv_diff.pooled_cvs(im1, win, 128, 1, "sad")
+    assert cv_diff.pooled_cvs.launches == before
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("bs,ext,r2,store_r", [(8, 8, 4, 2), (32, 16, 12, 4), (16, 6, 6, 0)])
 def test_cuda_hybrid_kernels_equal_plain(cuda, bs, ext, r2, store_r):
     # C, the stored band of B, E and F against their plain versions

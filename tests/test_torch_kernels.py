@@ -8,6 +8,8 @@ to the plain versions on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 
@@ -215,6 +217,49 @@ def test_pooled_cvs_options_are_checked(rng):
     launches = cv_diff.deep_pooled_cvs.launches
     assert sorted(cv_diff.deep_pooled_cvs(im1, wins, 8, 4, "sad", 4)) == [8]
     assert cv_diff.deep_pooled_cvs.launches == launches  # CPU: plain, no launch
+
+
+_GRIDS = [(1, 1, 1), (1, 2, 3), (3, 8, 12), (8, 5, 8), (8, 20, 32), (8, 40, 64)]
+
+
+@pytest.mark.parametrize("bs", [2, 4, 8, 16, 32, 64])
+def test_volume_geometry_fits_the_block(bs):
+    # the kernel's launch for every bs it is built for and every r <= 32:
+    # shared memory within the H100's 232 448 bytes a block, whole warps of
+    # whole (parent, cur=2 row) groups, at most 8 parents of one row
+    for r in range(33):
+        for (b, npy, npx), fine in itertools.product(_GRIDS, (False, True)):
+            geo = cv_diff.volume_geometry(bs, r, b, npy, npx, fine)
+            assert geo.smem_bytes <= cv_diff.SMEM_LIMIT == 232_448, (r, npx, geo)
+            assert geo.threads % 32 == 0 and 32 <= geo.threads <= cv_diff.MAX_THREADS
+            assert geo.threads % (max(1, bs // 2) * geo.parents_per_block) == 0, geo
+            assert geo.parents_per_block in (1, 2, 4, 8) and geo.parents_per_block <= npx
+            assert geo.smem_bytes == cv_diff.volume_smem(bs, r, geo.dy_per_block,
+                                                         geo.parents_per_block)
+
+
+@pytest.mark.parametrize("fine", [False, True])
+@pytest.mark.parametrize("r", [16, 12, 8])
+def test_volume_geometry_fills_the_card_at_level_3(r, fine):
+    # the 1080p level 3 at B=8: a 5x8 parent grid per frame, 320 parents;
+    # the main window (r 16) and the rival windows (r 12, 8)
+    assert cv_diff.volume_geometry(32, r, 8, 5, 8, fine).blocks >= 2 * cv_diff.SMS
+    # level 0 (a 40x64 grid): C and 13 read each window once
+    level0 = cv_diff.volume_geometry(32, r, 8, 40, 64, fine)
+    assert level0.blocks >= 2 * cv_diff.SMS
+    assert level0.groups == 1
+
+
+@pytest.mark.parametrize("bs,grid", [(2, (1, 1, 1)), (8, (1, 8, 12)), (32, (3, 8, 12)),
+                                     (32, (8, 5, 8)), (64, (8, 40, 64))])
+def test_volume_geometry_covers_every_dy_row_once(bs, grid):
+    for r, fine in itertools.product(range(33), (False, True)):
+        side = 2 * r + 1
+        geo = cv_diff.volume_geometry(bs, r, *grid, fine)
+        rows = [dy for g in range(geo.groups)
+                for dy in range(g * geo.dy_per_block, min(side, (g + 1) * geo.dy_per_block))]
+        assert rows == list(range(side)), (r, geo)
+        assert (geo.groups - 1) * geo.dy_per_block < side  # no empty group
 
 
 def test_pooled_cvs_refuse_zsad(rng):
