@@ -41,8 +41,10 @@ class MotionConfig:
         with lambda multiplier sweep_index + 1.
       lambda_scale: initial lambda = block_size * lambda_scale, doubled on
         each subdivision.
-      search_impl: the reference's cost-volume backend; the port ignores it
-        (the tensors' device decides).
+      search_impl: the reference's cost-volume backend.  ``xla`` runs the
+        reference's XLA path, which ignores ``cv_fused`` and ``cv_compact``;
+        the others run its accelerator path.  The tensors' device decides
+        between the CUDA kernels and their plain versions.
       reg_radius: max |candidate delta| from the parent search MV in
         ``windowed`` mode; None means the level's spiral extent S.
       search_order: ``spiral`` (the reference's live path) or ``raster``.

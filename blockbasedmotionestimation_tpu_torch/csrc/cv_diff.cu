@@ -55,7 +55,9 @@
 //   - pooling in registers: the 2x2 sum of a size is a pair sum in the
 //     thread plus __shfl_xor across the neighbouring sy lanes, two cells a
 //     word while they fit 16 bits; no shared buffer and no barrier after the
-//     inputs are staged;
+//     inputs are staged, but at bs = 128: its 64 sy lanes span two warps, so
+//     a thread takes one delta and the cur = 128 cell is pooled through 16
+//     bytes of shared memory, between two barriers;
 //   - stores: each lane writes its row run of cells as 16/8/4-byte vectors
 //     (the cur=2 row of a bs=32 parent is 32 bytes); offsets are 64-bit (the
 //     B=8 dense cur=2 volume has 5.7 G entries).
@@ -98,8 +100,8 @@ template <int BS>
 struct Shape {
   static constexpr int kF2 = BS / 2;                      // cur=2 cells per row
   static constexpr int kNW = BS >= 4 ? BS / 4 : 1;        // patch words per row
-  static constexpr int kNdx = BS >= 64 ? 2 : 4;           // deltas per thread
-  static constexpr int kVec = kNdx % 4 == 0 ? 4 : 2;      // words per row load
+  static constexpr int kNdx = BS >= 128 ? 1 : BS >= 64 ? 2 : 4;  // deltas per thread
+  static constexpr int kVec = kNdx % 4 == 0 ? 4 : kNdx % 2 == 0 ? 2 : 1;  // words per row load
   static constexpr int kNLoad = (kNdx + kNW - 1 + kVec - 1) / kVec * kVec;
   static constexpr int kLevels = log2i(BS);               // cur = 2 .. BS
   static constexpr int kPatchPitch = BS >= 4 ? BS : 4;    // bytes
@@ -108,9 +110,10 @@ struct Shape {
 
 // Shared memory of one block of pp parents: the pp patches, then their
 // four shifted copies ([pp][4][rows][wpr] words, rows = dyg + bs - 1), then
-// their raw window rows (raw_bytes each).
+// their raw window rows (raw_bytes each); at bs >= 128 (a cur=2 column of 64
+// lanes, two warps) 16 bytes through which the warps pool the cur = bs cell.
 struct VolumeLayout {
-  int rows, wpr, raw_bytes, copies_off, raw_off, bytes;
+  int rows, wpr, raw_bytes, copies_off, raw_off, xchg_off, bytes;
 };
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
@@ -127,7 +130,8 @@ __host__ __device__ inline VolumeLayout volume_layout(int side, int dyg, int pp)
   l.raw_bytes = round_up(l.rows * wc + 4 * l.wpr + 32, 16);
   l.copies_off = pp * S::kPatchBytes;
   l.raw_off = l.copies_off + pp * 4 * l.rows * l.wpr * 4;
-  l.bytes = l.raw_off + pp * l.raw_bytes;
+  l.xchg_off = l.raw_off + pp * l.raw_bytes;
+  l.bytes = l.xchg_off + (S::kF2 > 32 ? 16 : 0);
   return l;
 }
 
@@ -312,10 +316,12 @@ pooled_cvs_kernel(const uint8_t* __restrict__ im1, const uint8_t* __restrict__ w
           wv[q + 1] = x.y;
           wv[q + 2] = x.z;
           wv[q + 3] = x.w;
-        } else {
+        } else if constexpr (S::kVec == 2) {
           const uint2 x = reinterpret_cast<const uint2*>(row)[q / 2];
           wv[q] = x.x;
           wv[q + 1] = x.y;
+        } else {
+          wv[q] = row[q];
         }
       }
 #pragma unroll
@@ -396,6 +402,16 @@ pooled_cvs_kernel(const uint8_t* __restrict__ im1, const uint8_t* __restrict__ w
               pk[q] += __shfl_xor_sync(0xffffffffu, pk[q], mask);
             }
           }
+        } else if (mask >= 32) {
+          // bs >= 128: lanes sy and sy ^ 32 are in two warps; the one cell
+          // (nf = 1) goes through shared memory, one slot per group of F2
+          // lanes.  Every thread of the block runs every iteration, so the
+          // barriers are uniform.
+          int* xchg = reinterpret_cast<int*>(smem + lay.xchg_off);
+          __syncthreads();  // the previous delta's readers are done
+          if (sy == 32) xchg[threadIdx.x / F2] = hs[0];
+          __syncthreads();
+          v[0] = sy == 0 ? hs[0] + xchg[threadIdx.x / F2] : hs[0];
         } else {
 #pragma unroll
           for (int q = 0; q < F2 / 2; ++q) {
@@ -573,7 +589,7 @@ __global__ void compact_tables_kernel(const uint8_t* __restrict__ im1,
 // (B, side * (2 store_r + 1), h / 2, w / 2); -1 keeps it dense.  The launch
 // geometry (dy rows per block, threads, shared bytes) is
 // kernels/cv_diff.py volume_geometry's; the shared bytes must equal this
-// file's layout for it.  bs is one of 2, 4, .., 64: any other is refused.
+// file's layout for it.  bs is one of 2, 4, .., 128: any other is refused.
 extern "C" int bbme_pooled_cvs(const void* im1, const void* windows,
                                void* const* outs, int ncur, int is16_mask,
                                int emit_mask, int batch, int h, int w, int bs,
@@ -611,6 +627,7 @@ extern "C" int bbme_pooled_cvs(const void* im1, const void* windows,
     BBME_BS(16)
     BBME_BS(32)
     BBME_BS(64)
+    BBME_BS(128)
 #undef BBME_BS
     default:
       return bad;

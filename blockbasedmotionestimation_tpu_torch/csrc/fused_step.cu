@@ -14,10 +14,14 @@
 //     main window;
 //   windowed_color_step_pm_fused_rival (kernel 12): kernel 11 plus the rival
 //     window for candidates outside the main one.
-// One template, hybrid_step_kernel<Form>, for the four.
-// One colour step of one colour, in place, like reg_step.cu: one thread per
-// cell (i, j) of colour (ci, cj).  Candidates, ranks, the in-image mask and
-// the (energy, rank) winner are step_common.cuh's, as for D/D'.
+// One template, round_kernel<Form, CUR>, for the four (CUR 2, 4, 8, 16 as
+// the rounds use them, 0 for any other cur).  A launch runs a span of
+// consecutive colour steps of one round: step s has colour COLORS[(step0 +
+// s) % 4] ((0,0), (0,1), (1,0), (1,1)) and multiplier lam[(step0 + s) / 4],
+// so a whole round (step0 = 0, 4 * sweeps steps) is one launch, and a span
+// of one step is a single colour step.  Each step updates the MV grid in
+// place; all 8 neighbours of a cell have another colour, so a step's writes
+// never meet its own reads.
 //
 // A recomputed cost is the cur x cur SAD (or SSD) of the cell's frame-1
 // sub-block against the window the volumes were built from, at the
@@ -29,14 +33,43 @@
 // visit, x-parity planes and one-hot picks were for Mosaic and VMEM and are
 // not carried over.
 //
-// Bound: device-memory latency of the data-dependent reads, as for D/D'.
-// Picks are one 2- or 4-byte read per candidate; a recompute reads cur^2
-// frame-1 and cur^2 window bytes (<= 512 B at cur = 16), through L1/L2.
-// After the search most candidates lie in the band (F) or the main window
-// (E), so recomputes are rare but for motion edges and frame borders.  The
-// fused steps (11, 12) recompute every usable candidate: at cur <= 4 that
-// is <= 9 x 32 bytes per cell, mostly hits in L1/L2 since neighbouring
-// cells share candidates and window rows.
+// What bounded the first design (one thread per cell on a flat 64-bit
+// index, one launch per colour step, byte-wise recomputes, each of a
+// cell's cost reads and recomputes in turn): E took 0.122 ms a level-0 step
+// against a 6 us bound, and the default path made 128 of these launches a
+// batch from Python (PERF.md).  The design now:
+//   - one cooperative launch per round (cudaLaunchCooperativeKernel), the
+//     grid sized to the blocks that fit on the card at once, blocks walking
+//     the tiles of each step in a grid-stride loop; cooperative_groups'
+//     grid.sync() between steps replaces the launch boundary and is what
+//     makes one step's writes visible to the next (the grid is read with
+//     ld.global.cg, past L1, since other SMs wrote it in the previous step);
+//   - a block takes a tile of one colour in one frame: 32 cells of a row
+//     (a warp) x 8 rows, 32-bit indices inside the frame.  Each step stages
+//     the tile's MVs with their one-cell halo (17 x 65 grid entries), its
+//     parents' window centres and the rank table in shared memory, each
+//     thread issuing all its loads before its stores; a neighbour's MV is
+//     then a shared-memory read.  Nothing stays resident across the
+//     barrier (the level-0 cur = 2 grid is 42 MB);
+//   - a cell issues all its stored-cost reads at once, then its
+//     recomputes.  A recompute takes four pixels an instruction: window
+//     rows sit at data-dependent offsets, so each word is a funnel shift of
+//     two aligned loads (the second only when the row is unaligned); SAD is
+//     VABSDIFF4 with accumulate, SSD the byte |d| dotted with itself by
+//     dp4a (exact: every byte <= 255).  At cur = 2 a cell's two rows are one
+//     packed word and all of a cell's recomputes load at once; at cur >= 4
+//     the warp shares them out (recompute_warp), so a lane with several no
+//     longer holds its warp up for each in turn (before that, the few
+//     cells with rival recomputes set the time of E at cur 16 and 8);
+//   - lambda per sweep comes by value in the argument struct, computed on
+//     the host as today; energies use __fmul_rn/__fadd_rn (built with
+//     --fmad=false) and finish_step's (energy, rank) order.
+// What bounds it now (PERF.md): latency.  A block works its tiles one after
+// another (stage, barrier, cells), 2-3 blocks an SM, so a level-0 step
+// takes many times what its bytes need; at the coarse levels a step costs
+// a few microseconds whatever its size (staging, cells and grid barrier in
+// turn).
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -44,121 +77,586 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace bbme_step;
 
-struct HybridArgs {
-  int* grid;
-  const void* cv;     // E: (B, side^2, nby, nbx); F: band (B, side*side_st, nby, nbx); 11/12: null
-  int cv16;
+constexpr int kTileW = 32;                 // cells of a tile row: one warp
+constexpr int kTileR = 8;                  // rows of a tile: the block's warps
+constexpr int kThreads = kTileW * kTileR;  // 256
+constexpr int kHaloR = 2 * kTileR + 1;     // grid rows a tile and its neighbours span
+constexpr int kHaloC = 2 * kTileW + 1;     // grid cols
+constexpr int kParR = 2 * kTileR;          // parent rows a tile spans (f = 1: 15)
+constexpr int kParC = 2 * kTileW;          // parent cols (f = 1: 63)
+constexpr int kMaxSweeps = 8;              // kernels/fused_step.py MAX_SWEEPS
+
+struct RoundArgs {
+  int* grid;            // (B, nby, nbx, 2) i32, updated in place
+  const void* cv;       // E: (B, side^2, nby, nbx); F: band (B, side*side_st, nby, nbx); 11/12: null
   const uint8_t* im1;   // (B, h, w) frame-1 level image
   const uint8_t* win;   // F, 11, 12: (B, nP, bs + 2r, bs + 2r) main windows
   const uint8_t* rwin;  // (B, nP, bs + 2r2, bs + 2r2) rival windows; 11: null
   const int* pm;        // (B, npy, npx, 2) main window centres
   const int* rpm;       // (B, npy, npx, 2) rival window centres; 11: null
   const int* rank_table;
-  long long total;
-  int nby, nbx, f, cur, h, w, r, store_r, r2, ssd, ci, cj;
-  float lam;
+  int cv16, batch, nby, nbx, f, cur, h, w, r, store_r, r2, ssd;
+  int step0, nsteps;    // the span: colour index of its first step, its steps
+  float lam[kMaxSweeps];  // lambda x multiplier of each sweep the span touches
 };
 
-// cur x cur SAD/SSD of frame-1 sub-block a (row pitch w) against window
-// pixels v (row pitch ws)
-__device__ __forceinline__ int block_cost(const uint8_t* __restrict__ a, int w,
-                                          const uint8_t* __restrict__ v, int ws,
-                                          int cur, int ssd) {
-  int s = 0;
-  for (int y = 0; y < cur; ++y) {
-    for (int x = 0; x < cur; ++x) {
-      const int d = static_cast<int>(a[y * w + x]) - static_cast<int>(v[y * ws + x]);
-      s += ssd ? d * d : abs(d);
-    }
+// sum of |a - b| over the four bytes, plus c: VABSDIFF4.U8.ACC
+__device__ __forceinline__ uint32_t sad_all(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t word_cost(uint32_t a, uint32_t v, uint32_t acc, int ssd) {
+  if (ssd) {
+    const uint32_t ad = __vabsdiffu4(a, v);
+    return __dp4a(ad, ad, acc);
   }
-  return s;
+  return sad_all(a, v, acc);
 }
 
 enum Form { kHybrid, kTail, kFused };  // E, F, 11/12
 
-template <Form kForm>
-__global__ void hybrid_step_kernel(HybridArgs a) {
-  const long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (idx >= a.total) return;
-  const Cell c = cell_of(idx, a.nby, a.nbx, a.ci, a.cj);
-  int cx[9], cy[9], rank[9];
-  bool present[9];
-  load_candidates(a.grid, a.rank_table, c, a.nby, a.nbx, a.h / a.cur,
-                  a.w / a.cur, cx, cy, rank, present);
+struct Tiles {
+  int mc, nc, tx, per_frame;
+};
 
-  const int npy = a.nby / a.f;
-  const int npx = a.nbx / a.f;
-  const long long p = (c.b * npy + c.i / a.f) * npx + c.j / a.f;  // b * nP + parent
-  const int pmx = a.pm[p * 2];
-  const int pmy = a.pm[p * 2 + 1];
-  const int rpmx = a.rwin ? a.rpm[p * 2] : 0;
-  const int rpmy = a.rwin ? a.rpm[p * 2 + 1] : 0;
-  const int bs = a.f * a.cur;
-  const int oy = (c.i % a.f) * a.cur;  // the sub-block in its parent
-  const int ox = (c.j % a.f) * a.cur;
-  const uint8_t* blk = a.im1 + (static_cast<size_t>(c.b) * a.h + c.i * a.cur) * a.w +
-                       static_cast<size_t>(c.j) * a.cur;
-  const int side = 2 * a.r + 1;
-  const int side_st = kForm == kTail ? 2 * a.store_r + 1 : side;
-  const int cr = kForm == kTail ? a.store_r : a.r;  // stored dx radius
-  const int ws = bs + 2 * a.r;
-  const int rws = bs + 2 * a.r2;
-  const size_t plane = static_cast<size_t>(a.nby) * a.nbx;
-  const size_t cell = static_cast<size_t>(c.i) * a.nbx + c.j;
-
-  int cost[9];
-  bool usable[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int ddx = cx[k] - pmx;
-    const int ddy = cy[k] - pmy;
-    const bool in_window = ddx >= -a.r && ddx <= a.r && ddy >= -a.r && ddy <= a.r;
-    const int rdx = cx[k] - rpmx;
-    const int rdy = cy[k] - rpmy;
-    const bool in_rival = a.rwin != nullptr && rdx >= -a.r2 && rdx <= a.r2 &&
-                          rdy >= -a.r2 && rdy <= a.r2;
-    usable[k] = present[k] && (in_window || in_rival) &&
-                in_image(c, a.cur, a.h, a.w, cx[k], cy[k]);
-    cost[k] = 0;
-    if (!usable[k]) continue;  // its energy is FLT_MAX whatever the cost
-    if (kForm != kFused && in_window && ddx >= -cr && ddx <= cr) {
-      const size_t key = static_cast<size_t>(ddy + a.r) * side_st + (ddx + cr);
-      cost[k] = load_cost(a.cv, a.cv16, (c.b * side * side_st + key) * plane + cell);
-    } else if (in_window) {  // F beyond the band, 11/12 always: the main window
-      const uint8_t* v = a.win + (static_cast<size_t>(p) * ws + a.r + ddy + oy) * ws +
-                         a.r + ddx + ox;
-      cost[k] = block_cost(blk, a.w, v, ws, a.cur, a.ssd);
-    } else {  // the rival window
-      const uint8_t* v = a.rwin + (static_cast<size_t>(p) * rws + a.r2 + rdy + oy) * rws +
-                         a.r2 + rdx + ox;
-      cost[k] = block_cost(blk, a.w, v, rws, a.cur, a.ssd);
-    }
-  }
-  finish_step(a.grid, c, a.nby, a.nbx, a.lam, cx, cy, rank, present, cost, usable);
+__device__ __forceinline__ Tiles tiles_of(int nby, int nbx, int ci, int cj) {
+  Tiles t;
+  t.mc = (nby - ci + 1) / 2;
+  t.nc = (nbx - cj + 1) / 2;
+  t.tx = (t.nc + kTileW - 1) / kTileW;
+  t.per_frame = ((t.mc + kTileR - 1) / kTileR) * t.tx;
+  return t;
 }
 
-template <Form kForm>
-int launch(const HybridArgs& a, void* stream) {
-  if (a.total <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = (a.total + threads - 1) / threads;
-  hybrid_step_kernel<kForm><<<static_cast<unsigned>(blocks), threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(a);
+// The cur = 2 recomputes of one cell, each the block's packed rows av
+// against two 2-byte window rows: every load of all of them is issued
+// before any is used, so the cell waits one round trip, not one each.
+__device__ __forceinline__ void recompute2(uint32_t redo, const uintptr_t (&vk)[9],
+                                           const int (&wsk)[9], uint32_t av, int ssd,
+                                           int (&cost)[9]) {
+  uint32_t lo[9][2], hi[9][2];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      const uintptr_t p = vk[k] + static_cast<uintptr_t>(y * wsk[k]);
+      const uint32_t* al = reinterpret_cast<const uint32_t*>(p & ~static_cast<uintptr_t>(3));
+      lo[k][y] = (redo >> k) & 1 ? __ldg(al) : 0u;
+      hi[k][y] = ((redo >> k) & 1) && (p & 3) == 3 ? __ldg(al + 1) : 0u;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    if (!((redo >> k) & 1)) continue;
+    uint32_t vv = 0;
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      const uint32_t s = static_cast<uint32_t>((vk[k] + y * wsk[k]) & 3);
+      vv |= (__funnelshift_r(lo[k][y], hi[k][y], 8 * s) & 0xffffu) << (16 * y);
+    }
+    cost[k] = static_cast<int>(word_cost(av, vv, 0u, ssd));
+  }
+}
+
+// Lanes that share one recompute at CUR (0: any cur >= 32): a cur x cur
+// block is cur^2 / 4 words.
+template <int CUR>
+__host__ __device__ constexpr int group_lanes() {
+  return CUR == 4 ? 4 : CUR == 8 ? 16 : 32;
+}
+
+// Lane sub's share, of a group of G, of the cost of frame-1 block a (pitch
+// w, rows 4-byte aligned: the entry points check) against window pixels v
+// (pitch ws, any alignment): words sub, sub + G, ... of the block's cur^2/4,
+// each a funnel shift of two aligned loads (the second only when the row
+// is not aligned, so no load leaves the row).
+template <int CUR, int G>
+__device__ __forceinline__ uint32_t share_cost(const uint8_t* __restrict__ a, int w,
+                                               const uint8_t* __restrict__ v, int ws, int cur,
+                                               int sub, int ssd) {
+  const int nwr = (CUR > 0 ? CUR : cur) >> 2;  // words a row
+  const int nwt = (CUR > 0 ? CUR : cur) * nwr;
+  uint32_t acc = 0;
+#pragma unroll
+  for (int id = sub; id < nwt; id += G) {
+    const int y = id / nwr;
+    const int x = id - y * nwr;
+    const uint8_t* p = v + y * ws + 4 * x;
+    const uint32_t s = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p) & 3);
+    const uint32_t* al = reinterpret_cast<const uint32_t*>(p - s);
+    const uint32_t lo = __ldg(al);
+    const uint32_t hi = s != 0 ? __ldg(al + 1) : 0u;
+    acc = word_cost(__ldg(reinterpret_cast<const uint32_t*>(a + y * w) + x),
+                    __funnelshift_r(lo, hi, 8 * s), acc, ssd);
+  }
+  return acc;
+}
+
+// The position of the (n + 1)-th set bit of m, or -1.
+__device__ __forceinline__ int nth_set(uint32_t m, int n) {
+  if (__popc(m) <= n) return -1;
+  int pos = 0;  // the largest pos with fewer than n + 1 set bits below it
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    if (__popc(m & ((1u << (pos + step)) - 1)) <= n) pos += step;
+  }
+  return pos;
+}
+
+// The recomputes of a warp's cells, shared out across its lanes: for each
+// candidate slot k, the lanes whose cell needs candidate k recomputed
+// (bit k of redo) are the owners of a task each, and groups of G lanes take
+// 32 / G tasks at a time (the owner's window pointer, pitch and block
+// shuffled to its group, the group's partial sums reduced by shuffles and
+// the sum shuffled back).  A lane with several recomputes no longer holds
+// up its warp for each in turn.  Every lane of the warp calls this.
+template <int CUR>
+__device__ __forceinline__ void recompute_warp(uint32_t redo, const uintptr_t (&vk)[9],
+                                               const int (&wsk)[9], uintptr_t blk, int w,
+                                               int cur, int ssd, int (&cost)[9]) {
+  constexpr int G = group_lanes<CUR>();
+  constexpr int T = 32 / G;  // tasks a pass
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+  const int sub = lane % G;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    uint32_t m = __ballot_sync(kAll, (redo >> k) & 1);
+    while (m != 0) {
+      const int owner = nth_set(m, lane / G);
+      const int src = owner >= 0 ? owner : lane;
+      const uintptr_t v = __shfl_sync(kAll, static_cast<unsigned long long>(vk[k]), src);
+      const int ws = __shfl_sync(kAll, wsk[k], src);
+      const uintptr_t a = __shfl_sync(kAll, static_cast<unsigned long long>(blk), src);
+      uint32_t part = 0;
+      if (owner >= 0) {
+        part = share_cost<CUR, G>(reinterpret_cast<const uint8_t*>(a), w,
+                                  reinterpret_cast<const uint8_t*>(v), ws, cur, sub, ssd);
+      }
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) part += __shfl_xor_sync(kAll, part, off);
+      const int rank = __popc(m & ((1u << lane) - 1));
+      const bool mine = ((m >> lane) & 1) && rank < T;
+      const uint32_t sum = __shfl_sync(kAll, part, mine ? rank * G : lane);
+      if (mine) cost[k] = static_cast<int>(sum);
+      const int next = nth_set(m, T);  // the first task of the next pass
+      m = next < 0 ? 0u : m & ~((1u << next) - 1);
+    }
+  }
+}
+
+// A cell of a tile: frame b, grid cell (i, j), its place (ly, lx) in the
+// staged halo, and the first parent row and column staged.
+struct CellAt {
+  int b, i, j, ly, lx, pr0, pc0;
+};
+
+// One cell's colour step: the 9 candidates from the staged halo, every
+// stored cost loaded at once, then the recomputes, then the reference's
+// _finish_step (step_common.cuh finish_step's arithmetic and order, with
+// presence and usability as bit masks and the winner tracked as it is
+// found).
+template <Form kForm, int CUR>
+__device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHaloC],
+                                          const int2* s_pm, const int2* s_rpm,
+                                          const int* s_rank, const CellAt at, bool valid,
+                                          float lam) {
+  const int cur = CUR > 0 ? CUR : a.cur;
+  const int i = at.i;
+  const int j = at.j;
+  const int* rank = s_rank + border_case(i, j, a.nby, a.nbx) * 9;
+  int cx[9], cy[9];
+  uint32_t present = 0;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int2 mv = s_mv[at.ly + kSlotDy[k]][at.lx + kSlotDx[k]];
+    const int gi = i + kSlotDy[k];
+    const int gj = j + kSlotDx[k];
+    cx[k] = mv.x;
+    cy[k] = mv.y;
+    if (valid && rank[k] < kBigRank && gi >= 0 && gi < a.nby && gj >= 0 && gj < a.nbx) {
+      present |= 1u << k;
+    }
+  }
+  const int pi = i / a.f;
+  const int pj = j / a.f;
+  const int ps = (pi - at.pr0) * kParC + pj - at.pc0;
+  const int2 pmv = s_pm[ps];
+  const int2 rpmv = a.rwin != nullptr ? s_rpm[ps] : make_int2(0, 0);
+  const int cr = kForm == kTail ? a.store_r : a.r;  // stored dx radius
+  const Cell c{at.b, i, j};
+  uint32_t usable = 0, stored = 0, in_main = 0;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int ddx = cx[k] - pmv.x;
+    const int ddy = cy[k] - pmv.y;
+    const bool in_window = ddx >= -a.r && ddx <= a.r && ddy >= -a.r && ddy <= a.r;
+    const int rdx = cx[k] - rpmv.x;
+    const int rdy = cy[k] - rpmv.y;
+    const bool in_rival = a.rwin != nullptr && rdx >= -a.r2 && rdx <= a.r2 &&
+                          rdy >= -a.r2 && rdy <= a.r2;
+    if (((present >> k) & 1) && (in_window || in_rival) &&
+        in_image(c, cur, a.h, a.w, cx[k], cy[k])) {
+      usable |= 1u << k;
+      if (kForm != kFused && in_window && ddx >= -cr && ddx <= cr) {
+        stored |= 1u << k;
+      } else if (in_window) {
+        in_main |= 1u << k;
+      }
+    }
+  }
+  // every stored cost at once (a frame's volume holds < 2^31 entries a
+  // delta plane, offsets in 64 bits)
+  const int plane = a.nby * a.nbx;
+  const int cell = i * a.nbx + j;
+  int cost[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) cost[k] = 0;
+  if constexpr (kForm != kFused) {
+    const int side = 2 * a.r + 1;
+    const int side_st = kForm == kTail ? 2 * a.store_r + 1 : side;
+    const size_t frame = static_cast<size_t>(at.b) * side * side_st * plane + cell;
+    if (a.cv16) {
+      const uint16_t* vol = static_cast<const uint16_t*>(a.cv) + frame;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const int key = (cy[k] - pmv.y + a.r) * side_st + (cx[k] - pmv.x + cr);
+        if ((stored >> k) & 1) cost[k] = __ldg(vol + static_cast<size_t>(key) * plane);
+      }
+    } else {
+      const int* vol = static_cast<const int*>(a.cv) + frame;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const int key = (cy[k] - pmv.y + a.r) * side_st + (cx[k] - pmv.x + cr);
+        if ((stored >> k) & 1) cost[k] = __ldg(vol + static_cast<size_t>(key) * plane);
+      }
+    }
+  }
+  // the recomputes: the main window (F beyond the band, 11/12 always) or
+  // the rival window; at cur >= 4 shared out across the warp
+  const uint32_t redo = usable & ~stored;
+  if (CUR == 2 ? redo != 0 : __any_sync(0xffffffffu, redo != 0)) {
+    const int bs = a.f * cur;
+    const int oy = (i - pi * a.f) * cur;  // the sub-block in its parent
+    const int ox = (j - pj * a.f) * cur;
+    const size_t p = static_cast<size_t>(at.b) * (a.nby / a.f) * (a.nbx / a.f) +
+                     pi * (a.nbx / a.f) + pj;  // b * nP + parent
+    const int ws = bs + 2 * a.r;
+    const int rws = bs + 2 * a.r2;
+    const uintptr_t wmain = reinterpret_cast<uintptr_t>(a.win) +
+                            (p * ws + a.r + oy) * ws + a.r + ox;
+    const uintptr_t wriv = reinterpret_cast<uintptr_t>(a.rwin) +
+                           (p * rws + a.r2 + oy) * rws + a.r2 + ox;
+    uintptr_t vk[9];
+    int wsk[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const bool m = (in_main >> k) & 1;
+      vk[k] = m ? wmain + static_cast<intptr_t>((cy[k] - pmv.y) * ws + (cx[k] - pmv.x))
+                : wriv + static_cast<intptr_t>((cy[k] - rpmv.y) * rws + (cx[k] - rpmv.x));
+      wsk[k] = m ? ws : rws;
+    }
+    const uint8_t* blk = a.im1 + (static_cast<size_t>(at.b) * a.h + i * cur) * a.w + j * cur;
+    if constexpr (CUR == 2) {
+      const uint32_t av =
+          static_cast<uint32_t>(__ldg(reinterpret_cast<const uint16_t*>(blk))) |
+          (static_cast<uint32_t>(__ldg(reinterpret_cast<const uint16_t*>(blk + a.w))) << 16);
+      recompute2(redo, vk, wsk, av, a.ssd, cost);
+    } else {
+      recompute_warp<CUR>(redo, vk, wsk, reinterpret_cast<uintptr_t>(blk), a.w, cur, a.ssd,
+                          cost);
+    }
+  }
+  // energy = cost + lam * smoothness (f32, separately rounded), FLT_MAX
+  // where not usable; the lexicographic (energy, rank) winner
+  // smooth[k] = sum over present q of |cx[k] - cx[q]| + |cy[k] - cy[q]|
+  // (an integer: the order of the sum does not matter), each pair once
+  int smooth[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) smooth[k] = 0;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+#pragma unroll
+    for (int q = k + 1; q < 9; ++q) {
+      const int d = abs(cx[k] - cx[q]) + abs(cy[k] - cy[q]);
+      if ((present >> q) & 1) smooth[k] += d;
+      if ((present >> k) & 1) smooth[q] += d;
+    }
+  }
+  float best_e = 0.0f;
+  int best_r = 0, best_x = 0, best_y = 0;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const float e = ((usable >> k) & 1) ? __fadd_rn(__int2float_rn(cost[k]),
+                                                    __fmul_rn(lam, __int2float_rn(smooth[k])))
+                                        : FLT_MAX;
+    const int rk = rank[k];
+    if (k == 0 || e < best_e || (e == best_e && rk < best_r)) {
+      best_e = e;
+      best_r = rk;
+      best_x = cx[k];
+      best_y = cy[k];
+    }
+  }
+  if (valid) {
+    reinterpret_cast<int2*>(a.grid)[(static_cast<size_t>(at.b) * a.nby + i) * a.nbx + j] =
+        make_int2(best_x, best_y);
+  }
+}
+
+// One tile of a step: frame b, tile (ty, tx) of the colour's cells, its
+// halo's top-left grid cell (gi0, gj0) and its parents (npr x npc from
+// (pr0, pc0)).
+struct TileAt {
+  int b, ty, tx, gi0, gj0, pr0, pc0, npr, npc;
+};
+
+__device__ __forceinline__ TileAt tile_at(int t, const Tiles& tl, int ci, int cj, int f,
+                                          int npy, int npx) {
+  TileAt T;
+  T.b = t / tl.per_frame;
+  const int tr = t - T.b * tl.per_frame;
+  T.ty = tr / tl.tx;
+  T.tx = tr - T.ty * tl.tx;
+  T.gi0 = ci + 2 * kTileR * T.ty - 1;
+  T.gj0 = cj + 2 * kTileW * T.tx - 1;
+  T.pr0 = (T.gi0 + 1) / f;
+  T.pc0 = (T.gj0 + 1) / f;
+  T.npr = min(npy - 1, (T.gi0 + 1 + 2 * (kTileR - 1)) / f) - T.pr0 + 1;
+  T.npc = min(npx - 1, (T.gj0 + 1 + 2 * (kTileW - 1)) / f) - T.pc0 + 1;
+  return T;
+}
+
+__device__ __forceinline__ int2 parent_of(const int* centres, const TileAt& T, int e, int npy,
+                                          int npx) {
+  const int y = e / T.npc;
+  const int x = e - y * T.npc;
+  return __ldg(reinterpret_cast<const int2*>(centres) + (T.b * npy + T.pr0 + y) * npx + T.pc0 + x);
+}
+
+// Stage a tile: its halo of MVs (read past L1, ld.global.cg: other SMs
+// wrote the grid in the previous step) and its parents' window centres.
+__device__ __forceinline__ void stage(const RoundArgs& a, const TileAt& T, int2 (*s_mv)[kHaloC],
+                                      int2* s_pm, int2* s_rpm) {
+  const int2* grid = reinterpret_cast<const int2*>(a.grid) +
+                     static_cast<size_t>(T.b) * a.nby * a.nbx;
+  // every load of the thread's share first, then the stores: one round
+  // trip to L2 a tile, not one an entry
+  constexpr int kHaloPer = (kHaloR * kHaloC + kThreads - 1) / kThreads;
+  int2 mv[kHaloPer];
+#pragma unroll
+  for (int m = 0; m < kHaloPer; ++m) {
+    const int e = threadIdx.x + m * kThreads;
+    const int y = e / kHaloC;
+    const int gi = T.gi0 + y;
+    const int gj = T.gj0 + e - y * kHaloC;
+    mv[m] = make_int2(0, 0);
+    if (e < kHaloR * kHaloC && gi >= 0 && gi < a.nby && gj >= 0 && gj < a.nbx) {
+      mv[m] = __ldcg(grid + gi * a.nbx + gj);
+    }
+  }
+  const int npy = a.nby / a.f;
+  const int npx = a.nbx / a.f;
+  constexpr int kParPer = 2;  // f >= 2: at most 9 x 33 parents; f = 1 loops on
+  int2 pm[kParPer], rpm[kParPer];
+#pragma unroll
+  for (int m = 0; m < kParPer; ++m) {
+    const int e = threadIdx.x + m * kThreads;
+    if (e < T.npr * T.npc) {
+      pm[m] = parent_of(a.pm, T, e, npy, npx);
+      if (a.rwin != nullptr) rpm[m] = parent_of(a.rpm, T, e, npy, npx);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kHaloPer; ++m) {
+    const int e = threadIdx.x + m * kThreads;
+    if (e < kHaloR * kHaloC) s_mv[e / kHaloC][e % kHaloC] = mv[m];
+  }
+#pragma unroll
+  for (int m = 0; m < kParPer; ++m) {
+    const int e = threadIdx.x + m * kThreads;
+    if (e < T.npr * T.npc) {
+      const int slot = (e / T.npc) * kParC + e % T.npc;
+      s_pm[slot] = pm[m];
+      if (a.rwin != nullptr) s_rpm[slot] = rpm[m];
+    }
+  }
+  for (int e = threadIdx.x + kParPer * kThreads; e < T.npr * T.npc; e += kThreads) {
+    const int slot = (e / T.npc) * kParC + e % T.npc;
+    s_pm[slot] = parent_of(a.pm, T, e, npy, npx);
+    if (a.rwin != nullptr) s_rpm[slot] = parent_of(a.rpm, T, e, npy, npx);
+  }
+}
+
+// Blocks an SM holds at once for a cur: the cur = 2 steps need fewer
+// registers (no shared recomputes) and gain from more warps.
+__host__ __device__ constexpr int min_blocks(int cur) { return cur == 2 ? 3 : 2; }
+
+template <Form kForm, int CUR>
+__global__ void __launch_bounds__(kThreads, min_blocks(CUR)) round_kernel(const RoundArgs a) {
+  __shared__ int2 s_mv[kHaloR][kHaloC];
+  __shared__ int2 s_pm[kParR * kParC];
+  __shared__ int2 s_rpm[kParR * kParC];
+  __shared__ int s_rank[81];
+  const int lane = threadIdx.x % kTileW;
+  const int row = threadIdx.x / kTileW;
+  for (int t = threadIdx.x; t < 81; t += kThreads) s_rank[t] = a.rank_table[t];
+  const int npy = a.nby / a.f;
+  const int npx = a.nbx / a.f;
+  cg::grid_group gg = cg::this_grid();
+
+  for (int s = 0; s < a.nsteps; ++s) {
+    const int g = a.step0 + s;
+    const int ci = (g >> 1) & 1;
+    const int cj = g & 1;
+    float lam = a.lam[0];  // a.lam[g >> 2], without a local copy of the array
+#pragma unroll
+    for (int q = 1; q < kMaxSweeps; ++q) lam = (g >> 2) == q ? a.lam[q] : lam;
+    const Tiles tl = tiles_of(a.nby, a.nbx, ci, cj);
+    const int ntiles = a.batch * tl.per_frame;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const TileAt T = tile_at(t, tl, ci, cj, a.f, npy, npx);
+      __syncthreads();  // the previous tile's readers are done
+      stage(a, T, s_mv, s_pm, s_rpm);
+      __syncthreads();
+      // every lane of a warp takes part (the recomputes are shared out
+      // across the warp); lanes past the colour's cells write nothing
+      const int ii = kTileR * T.ty + row;
+      const int jj = kTileW * T.tx + lane;
+      const bool valid = ii < tl.mc && jj < tl.nc;
+      const CellAt at{T.b, ci + 2 * ii, cj + 2 * jj, 2 * row + 1, 2 * lane + 1, T.pr0, T.pc0};
+      cell_step<kForm, CUR>(a, s_mv, s_pm, s_rpm, s_rank, at, valid, lam);
+    }
+    if (s + 1 < a.nsteps) gg.sync();  // the step's writes, visible to the next
+  }
+}
+
+// The blocks one cooperative launch may hold on this device (cached per
+// device, form and cur).
+template <Form kForm, int CUR>
+int resident_blocks(int* out) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (cached[dev] == 0) {
+    int per_sm = 0, sms = 0, coop = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, round_kernel<kForm, CUR>, kThreads,
+                                                      0);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (!coop || per_sm * sms <= 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    cached[dev] = per_sm * sms;
+  }
+  *out = cached[dev];
+  return 0;
+}
+
+// Checks shared by every entry point; fills the span.  lams: n_lam values.
+int prepare(RoundArgs& a, int step0, int nsteps, const float* lams, int n_lam) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (a.f < 1 || a.cur < 2 || (a.cur & (a.cur - 1)) || a.nby % a.f || a.nbx % a.f) return bad;
+  if (a.nby != a.h / a.cur || a.nbx != a.w / a.cur || a.r < 0 || a.r2 < 0) return bad;
+  if (static_cast<long long>(a.nby) * a.nbx * 2 >= (1LL << 31) ||
+      static_cast<long long>(a.h) * a.w >= (1LL << 31)) {
+    return bad;  // indices inside a frame are 32-bit
+  }
+  // the recompute's frame-1 words: rows aligned to 4 bytes (2 at cur = 2)
+  const int align = a.cur >= 4 ? 4 : 2;
+  if (a.w % align || reinterpret_cast<uintptr_t>(a.im1) % align) return bad;
+  if (step0 < 0 || step0 > 3 || nsteps < 1 || n_lam < 1 || n_lam > kMaxSweeps ||
+      (step0 + nsteps - 1) / 4 >= n_lam) {
+    return bad;
+  }
+  a.step0 = step0;
+  a.nsteps = nsteps;
+  for (int q = 0; q < kMaxSweeps; ++q) a.lam[q] = q < n_lam ? lams[q] : 0.0f;
+  return 0;
+}
+
+template <Form kForm, int CUR>
+int launch_cur(RoundArgs& a, void* stream) {
+  // colour (0, 0) has the most tiles
+  const long long tiles =
+      static_cast<long long>(a.batch) *
+      ((((a.nby + 1) / 2) + kTileR - 1) / kTileR) * ((((a.nbx + 1) / 2) + kTileW - 1) / kTileW);
+  if (tiles == 0) return 0;
+  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  int resident = 0;
+  const int code = resident_blocks<kForm, CUR>(&resident);
+  if (code != 0) return code;
+  const unsigned blocks = static_cast<unsigned>(tiles < resident ? tiles : resident);
+  void* params[] = {&a};
+  const cudaError_t e = cudaLaunchCooperativeKernel(round_kernel<kForm, CUR>, dim3(blocks),
+                                                    dim3(kThreads), params, 0,
+                                                    static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused launch is not sticky; clear it
+    return static_cast<int>(e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-long long cells(int batch, int nby, int nbx, int ci, int cj) {
-  return static_cast<long long>(batch) * ((nby - ci + 1) / 2) * ((nbx - cj + 1) / 2);
+// One cooperative launch of the span; the kernel is instantiated for cur 2,
+// 4, 8 and 16 (the rounds E, F, 11 and 12 run) and for any other cur.
+template <Form kForm>
+int launch(RoundArgs& a, int step0, int nsteps, const float* lams, int n_lam, void* stream) {
+  const int code = prepare(a, step0, nsteps, lams, n_lam);
+  if (code != 0) return code;
+  switch (a.cur) {
+    case 2: return launch_cur<kForm, 2>(a, stream);
+    case 4: return launch_cur<kForm, 4>(a, stream);
+    case 8: return launch_cur<kForm, 8>(a, stream);
+    case 16: return launch_cur<kForm, 16>(a, stream);
+    default: return launch_cur<kForm, 0>(a, stream);
+  }
+}
+
+RoundArgs args_of(void* grid, const void* cv, int cv16, const void* im1, const void* win,
+                  const void* rwin, const void* pm, const void* rpm, const void* rank_table,
+                  int batch, int nby, int nbx, int f, int cur, int h, int w, int r,
+                  int store_r, int r2, int ssd) {
+  RoundArgs a{};
+  a.grid = static_cast<int*>(grid);
+  a.cv = cv;
+  a.im1 = static_cast<const uint8_t*>(im1);
+  a.win = static_cast<const uint8_t*>(win);
+  a.rwin = static_cast<const uint8_t*>(rwin);
+  a.pm = static_cast<const int*>(pm);
+  a.rpm = static_cast<const int*>(rpm);
+  a.rank_table = static_cast<const int*>(rank_table);
+  a.cv16 = cv16;
+  a.batch = batch;
+  a.nby = nby;
+  a.nbx = nbx;
+  a.f = f;
+  a.cur = cur;
+  a.h = h;
+  a.w = w;
+  a.r = r;
+  a.store_r = store_r;
+  a.r2 = r2;
+  a.ssd = ssd;
+  return a;
+}
+
+int colour_index(int ci, int cj) {
+  return (ci == 0 || ci == 1) && (cj == 0 || cj == 1) ? 2 * ci + cj : -1;
 }
 
 }  // namespace
 
-// Kernel E.  grid: (B, nby, nbx, 2) i32, updated in place; cv: (B, side^2,
-// nby, nbx) main volume at cur; im1: (B, h, w) u8; rwin: (B, nP, bs + 2 r2,
-// bs + 2 r2) u8 rival windows; pm / rpm: (B, nby/f, nbx/f, 2) i32 window
-// centres; rank_table: (9, 9) i32.
+// Kernel E, one colour step.  grid: (B, nby, nbx, 2) i32, updated in place;
+// cv: (B, side^2, nby, nbx) main volume at cur; im1: (B, h, w) u8; rwin:
+// (B, nP, bs + 2 r2, bs + 2 r2) u8 rival windows; pm / rpm: (B, nby/f,
+// nbx/f, 2) i32 window centres; rank_table: (9, 9) i32.
 extern "C" int bbme_color_step_hybrid(void* grid, const void* cv, int cv16,
                                       const void* im1, const void* rwin,
                                       const void* pm, const void* rpm,
@@ -166,18 +664,14 @@ extern "C" int bbme_color_step_hybrid(void* grid, const void* cv, int cv16,
                                       int nby, int nbx, int f, int cur, int h,
                                       int w, int r, int r2, int ssd, int ci,
                                       int cj, float lam, void* stream) {
-  const HybridArgs a{static_cast<int*>(grid), cv, cv16,
-                     static_cast<const uint8_t*>(im1), nullptr,
-                     static_cast<const uint8_t*>(rwin),
-                     static_cast<const int*>(pm), static_cast<const int*>(rpm),
-                     static_cast<const int*>(rank_table),
-                     cells(batch, nby, nbx, ci, cj), nby, nbx, f, cur, h, w, r,
-                     -1, r2, ssd, ci, cj, lam};
-  return launch<kHybrid>(a, stream);
+  RoundArgs a = args_of(grid, cv, cv16, im1, nullptr, rwin, pm, rpm, rank_table, batch, nby,
+                        nbx, f, cur, h, w, r, -1, r2, ssd);
+  return launch<kHybrid>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }
 
-// Kernel F.  As E, with band: (B, side * (2 store_r + 1), nby, nbx) the
-// stored cur=2 band and win: (B, nP, bs + 2r, bs + 2r) u8 main windows.
+// Kernel F, one colour step.  As E, with band: (B, side * (2 store_r + 1),
+// nby, nbx) the stored cur=2 band and win: (B, nP, bs + 2r, bs + 2r) u8
+// main windows.
 extern "C" int bbme_color_step_hybrid_tail(void* grid, const void* band,
                                            int band16, const void* im1,
                                            const void* win, const void* rwin,
@@ -188,21 +682,16 @@ extern "C" int bbme_color_step_hybrid_tail(void* grid, const void* band,
                                            int r2, int ssd, int ci, int cj,
                                            float lam, void* stream) {
   if (store_r < 0 || store_r > r) return static_cast<int>(cudaErrorInvalidValue);
-  const HybridArgs a{static_cast<int*>(grid), band, band16,
-                     static_cast<const uint8_t*>(im1),
-                     static_cast<const uint8_t*>(win),
-                     static_cast<const uint8_t*>(rwin),
-                     static_cast<const int*>(pm), static_cast<const int*>(rpm),
-                     static_cast<const int*>(rank_table),
-                     cells(batch, nby, nbx, ci, cj), nby, nbx, f, cur, h, w, r,
-                     store_r, r2, ssd, ci, cj, lam};
-  return launch<kTail>(a, stream);
+  RoundArgs a = args_of(grid, band, band16, im1, win, rwin, pm, rpm, rank_table, batch, nby,
+                        nbx, f, cur, h, w, r, store_r, r2, ssd);
+  return launch<kTail>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }
 
-// Kernels 11 (rwin, rpm null) and 12.  grid: (B, nby, nbx, 2) i32, updated
-// in place; im1: (B, h, w) u8; win: (B, nP, bs + 2r, bs + 2r) u8 main
-// windows; rwin: (B, nP, bs + 2 r2, bs + 2 r2) u8 rival windows; pm / rpm:
-// (B, nby/f, nbx/f, 2) i32 window centres; rank_table: (9, 9) i32.
+// Kernels 11 (rwin, rpm null) and 12, one colour step.  grid: (B, nby, nbx,
+// 2) i32, updated in place; im1: (B, h, w) u8; win: (B, nP, bs + 2r, bs +
+// 2r) u8 main windows; rwin: (B, nP, bs + 2 r2, bs + 2 r2) u8 rival
+// windows; pm / rpm: (B, nby/f, nbx/f, 2) i32 window centres; rank_table:
+// (9, 9) i32.
 extern "C" int bbme_color_step_fused(void* grid, const void* im1,
                                      const void* win, const void* rwin,
                                      const void* pm, const void* rpm,
@@ -213,13 +702,54 @@ extern "C" int bbme_color_step_fused(void* grid, const void* im1,
   if ((rwin == nullptr) != (rpm == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const HybridArgs a{static_cast<int*>(grid), nullptr, 0,
-                     static_cast<const uint8_t*>(im1),
-                     static_cast<const uint8_t*>(win),
-                     static_cast<const uint8_t*>(rwin),
-                     static_cast<const int*>(pm), static_cast<const int*>(rpm),
-                     static_cast<const int*>(rank_table),
-                     cells(batch, nby, nbx, ci, cj), nby, nbx, f, cur, h, w, r,
-                     -1, r2, ssd, ci, cj, lam};
-  return launch<kFused>(a, stream);
+  RoundArgs a = args_of(grid, nullptr, 0, im1, win, rwin, pm, rpm, rank_table, batch, nby, nbx,
+                        f, cur, h, w, r, -1, r2, ssd);
+  return launch<kFused>(a, colour_index(ci, cj), 1, &lam, 1, stream);
+}
+
+// The round entry points: nsweeps (1 .. 8) whole sweeps of the four colours,
+// in one cooperative launch; lams (host memory): lambda x (sweep + 1) of
+// each sweep as f32.  Arguments otherwise as the single steps above.
+extern "C" int bbme_color_round_hybrid(void* grid, const void* cv, int cv16,
+                                       const void* im1, const void* rwin,
+                                       const void* pm, const void* rpm,
+                                       const void* rank_table, int batch,
+                                       int nby, int nbx, int f, int cur, int h,
+                                       int w, int r, int r2, int ssd,
+                                       const float* lams, int nsweeps,
+                                       void* stream) {
+  RoundArgs a = args_of(grid, cv, cv16, im1, nullptr, rwin, pm, rpm, rank_table, batch, nby,
+                        nbx, f, cur, h, w, r, -1, r2, ssd);
+  return launch<kHybrid>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
+}
+
+extern "C" int bbme_color_round_hybrid_tail(void* grid, const void* band,
+                                            int band16, const void* im1,
+                                            const void* win, const void* rwin,
+                                            const void* pm, const void* rpm,
+                                            const void* rank_table, int batch,
+                                            int nby, int nbx, int f, int cur,
+                                            int h, int w, int r, int store_r,
+                                            int r2, int ssd, const float* lams,
+                                            int nsweeps, void* stream) {
+  if (store_r < 0 || store_r > r) return static_cast<int>(cudaErrorInvalidValue);
+  RoundArgs a = args_of(grid, band, band16, im1, win, rwin, pm, rpm, rank_table, batch, nby,
+                        nbx, f, cur, h, w, r, store_r, r2, ssd);
+  return launch<kTail>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
+}
+
+extern "C" int bbme_color_round_fused(void* grid, const void* im1,
+                                      const void* win, const void* rwin,
+                                      const void* pm, const void* rpm,
+                                      const void* rank_table, int batch,
+                                      int nby, int nbx, int f, int cur, int h,
+                                      int w, int r, int r2, int ssd,
+                                      const float* lams, int nsweeps,
+                                      void* stream) {
+  if ((rwin == nullptr) != (rpm == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RoundArgs a = args_of(grid, nullptr, 0, im1, win, rwin, pm, rpm, rank_table, batch, nby, nbx,
+                        f, cur, h, w, r, -1, r2, ssd);
+  return launch<kFused>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
 }

@@ -27,8 +27,9 @@ only the costs at the K slot deltas of each parent's 128-parent chunk
 For CPU tensors the wrappers run the plain versions (``pooled_cvs_plain``,
 the ``_compute_cv`` code in torch, and ``compact_tables_plain``); for CUDA
 tensors they launch ``csrc/cv_diff.cu``.  The volume kernel is built for bs
-2, 4, .., 64; ``volume_geometry`` picks its launch (parents and delta rows
+2, 4, .., 128; ``volume_geometry`` picks its launch (parents and delta rows
 per block, threads, shared bytes), and the entry point refuses any other bs.
+``cuda_refusals`` names the shapes no launch of these kernels can take.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def deep_curs(bs: int, fuse_max: int) -> list[int]:
 def _check_cost(cost: str) -> None:
     if cost not in ("sad", "ssd"):
         raise NotImplementedError(
-            f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 9)"
+            f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 2)"
         )
 
 
@@ -150,6 +151,7 @@ def deep_pooled_cvs_plain(
 # ------------------------------------------------- launch geometry (B, C, 13)
 
 SMEM_LIMIT = 232_448  # H100: dynamic shared memory one block may use
+MAX_BS = 128          # the largest bs csrc/cv_diff.cu instantiates
 SMS = 132             # H100 SXM streaming multiprocessors
 TARGET_BLOCKS = 8 * SMS
 MAX_THREADS = 256     # csrc/cv_diff.cu kMaxThreads
@@ -182,7 +184,7 @@ class VolumeGeometry:
 
 def _ndx(bs: int) -> int:
     """Deltas per thread (cv_diff.cu Shape::kNdx)."""
-    return 2 if bs >= 64 else 4
+    return 1 if bs >= 128 else 2 if bs >= 64 else 4
 
 
 def _items_per_row(bs: int, side: int) -> int:
@@ -194,10 +196,12 @@ def _items_per_row(bs: int, side: int) -> int:
 
 def volume_smem(bs: int, r: int, dy_per_block: int, parents_per_block: int = 1) -> int:
     """Shared bytes of one block (cv_diff.cu volume_layout): per parent its
-    patch, its window rows' four byte-shifted word copies, its raw rows."""
+    patch, its window rows' four byte-shifted word copies, its raw rows;
+    at bs >= 128 also the 16 bytes through which the two warps of a parent
+    row pool its cur = bs cell."""
     side, wc = 2 * r + 1, bs + 2 * r
     ndx, nw = _ndx(bs), max(1, bs // 4)
-    vec = 4 if ndx % 4 == 0 else 2
+    vec = 4 if ndx % 4 == 0 else 2 if ndx % 2 == 0 else 1
     nload = -(-(ndx + nw - 1) // vec) * vec
     cnt_max = -(-(-(-side // 4)) // ndx)
     rows = dy_per_block + bs - 1
@@ -206,7 +210,7 @@ def volume_smem(bs: int, r: int, dy_per_block: int, parents_per_block: int = 1) 
         wpr += 4  # row pitch 16 * odd bytes: no bank conflicts in a quarter-warp
     patch = -(-(bs * max(bs, 4)) // 16) * 16
     raw = -(-(rows * wc + 4 * wpr + 32) // 16) * 16
-    return parents_per_block * (patch + 4 * rows * wpr * 4 + raw)
+    return parents_per_block * (patch + 4 * rows * wpr * 4 + raw) + (16 if bs >= 128 else 0)
 
 
 def volume_launch(bs: int, r: int, batch: int, npy: int, npx: int, parents_per_block: int,
@@ -356,6 +360,13 @@ full_block_volume.launches = 0
 
 
 # ------------------------------------------------ compact tables (kernel 14)
+
+def compact_smem(bs: int, r: int) -> int:
+    """Shared bytes of one kernel-14 block (cv_diff.cu bbme_compact_tables):
+    the cur=2 sums and the next size's, the patch and the window."""
+    f2 = bs // 2
+    return 4 * (f2 * f2 + max(1, (f2 // 2) ** 2)) + bs * bs + (bs + 2 * r) ** 2
+
 
 def table_curs(bs: int) -> list[int]:
     """The sizes a compact level stores as K-slot tables: 2 .. bs/2."""

@@ -31,8 +31,17 @@ Layouts (batch written out), beside ``reg_step``'s grid / pm / rpm:
   cv:   (B, side^2, nby, nbx) main volume at cur (E);
   band: (B, side * (2 store_r + 1), nby, nbx) stored cur=2 band (F).
 
-For CPU tensors the wrappers run the ``*_plain`` versions; for CUDA tensors
-they launch ``csrc/fused_step.cu`` (one kernel template for the four).
+Each kernel has two entry points.  ``color_step_*`` runs one colour step
+(colour (ci, cj), multiplier ``lam_mult``).  ``color_round_*`` runs a whole
+round: ``sweeps`` sweeps of the four colours (``ops.regularize.COLORS``),
+sweep s at multiplier ``lam * (s + 1)``, computed in Python double and
+rounded to f32 as the per-step loop rounds it (``sweep_lams``); each is
+validated once per round.  For CPU tensors the wrappers run the
+``*_plain`` versions (the round ones loop the plain steps); for CUDA
+tensors they launch ``csrc/fused_step.cu`` (one kernel template for the
+four), one colour step a launch, or one cooperative launch a round with a
+grid barrier between its steps (up to ``MAX_SWEEPS`` sweeps a launch; more
+take several launches).  Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -44,7 +53,41 @@ import torch
 
 from blockbasedmotionestimation_tpu_torch.kernels import _build
 from blockbasedmotionestimation_tpu_torch.kernels import reg_step as rs
-from blockbasedmotionestimation_tpu_torch.ops.regularize import step_candidates, step_commit
+from blockbasedmotionestimation_tpu_torch.ops.regularize import (
+    COLORS,
+    step_candidates,
+    step_commit,
+)
+
+# sweeps one round launch takes (csrc/fused_step.cu kMaxSweeps: the f32
+# multipliers ride by value in the kernel's argument struct)
+MAX_SWEEPS = 8
+
+
+def sweep_lams(lam: float, sweeps: int) -> list[float]:
+    """The multiplier of each sweep of a round, ``lam * (sweep + 1)`` in
+    Python double, as the per-step loop passes it (the wrappers round it
+    to f32 once, on its way to the kernel)."""
+    return [lam * (sweep + 1) for sweep in range(sweeps)]
+
+
+def _lam_array(lams: list[float]):
+    """The f32 multipliers of one launch, as the kernel receives them."""
+    return (ctypes.c_float * len(lams))(*lams)
+
+
+def _spans(sweeps: int) -> list[range]:
+    """The sweeps of each launch of a round: MAX_SWEEPS at a time."""
+    if sweeps < 0:
+        raise ValueError(f"need sweeps >= 0, got {sweeps}")
+    return [range(s0, min(sweeps, s0 + MAX_SWEEPS)) for s0 in range(0, sweeps, MAX_SWEEPS)]
+
+
+def _round_plain(step_plain, grid, *args, lam, sweeps, **kw) -> None:
+    """A round of ``step_plain``: sweeps x the four colours, in place."""
+    for mult in sweep_lams(lam, sweeps):
+        for ci, cj in COLORS:
+            step_plain(grid, *args, ci=ci, cj=cj, lam_mult=mult, **kw)
 
 
 def recompute_costs(
@@ -181,8 +224,16 @@ def _checked(grid, vol, pm, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, 
             raise ValueError("rpm and pm must have the same shape")
         _check_windows("rwin", rwin, b, n_p, f * cur + 2 * r2, dev)
     tensors = [t for t in (grid, vol, pm, im1, win, rwin, rpm) if t is not None]
-    if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the colour steps need contiguous tensors")
+    if dev.type == "cuda":
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("the colour steps need contiguous tensors")
+        # the kernel reads frame-1 rows as 4-byte words (2-byte at cur = 2)
+        # and indexes a frame with 32-bit ints
+        align = 4 if cur >= 4 else 2
+        if w % align or im1.data_ptr() % align:
+            raise ValueError(f"im1 rows must be {align}-byte aligned at cur={cur}")
+        if nby * nbx * 2 >= 2**31 or h * w >= 2**31:
+            raise ValueError(f"a {h}x{w} frame is too large for the kernel's 32-bit indices")
     return f
 
 
@@ -269,6 +320,130 @@ def color_step_hybrid_tail(
 
 color_step_hybrid.launches = 0
 color_step_hybrid_tail.launches = 0
+
+
+# ------------------------------------------------- whole rounds (E, F, 11, 12)
+
+_ROUND_HEAD = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+_ROUND_END = [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
+# bbme_color_round_hybrid(grid, cv, cv16, im1, rwin, pm, rpm, rank_table,
+#                         batch, nby, nbx, f, cur, h, w, r, r2, ssd, lams,
+#                         nsweeps, stream)
+ROUND_ARGTYPES = _ROUND_HEAD + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + _ROUND_END
+# bbme_color_round_hybrid_tail(grid, band, band16, im1, win, rwin, pm, rpm,
+#                              rank_table, batch, nby, nbx, f, cur, h, w, r,
+#                              store_r, r2, ssd, lams, nsweeps, stream)
+ROUND_TAIL_ARGTYPES = _ROUND_HEAD + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + _ROUND_END
+# bbme_color_round_fused(grid, im1, win, rwin, pm, rpm, rank_table, batch,
+#                        nby, nbx, f, cur, h, w, r, r2, ssd, lams, nsweeps,
+#                        stream)
+ROUND_FUSED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + _ROUND_END
+
+
+@functools.lru_cache(maxsize=None)
+def _round_kernel(name: str):
+    argtypes = {"bbme_color_round_hybrid": ROUND_ARGTYPES,
+                "bbme_color_round_hybrid_tail": ROUND_TAIL_ARGTYPES,
+                "bbme_color_round_fused": ROUND_FUSED_ARGTYPES}[name]
+    return _build.entry(name, argtypes)
+
+
+def _launch_round(wrapper, entry: str, args: tuple, grid: torch.Tensor, lam: float,
+                  sweeps: int) -> None:
+    """Run a round on the card: one cooperative launch for each span of up
+    to MAX_SWEEPS sweeps, each counted on ``wrapper``; ``args`` are the
+    entry point's arguments before ``lams``."""
+    lams = sweep_lams(lam, sweeps)
+    with torch.cuda.device(grid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for span in _spans(sweeps):
+            part = lams[span.start:span.stop]
+            code = _round_kernel(entry)(*args, _lam_array(part), len(part), stream)
+            _build.check(code, wrapper.__name__)
+            wrapper.launches += 1
+
+
+def color_round_hybrid_plain(grid, cv, pm, *, lam, sweeps, **kw) -> None:
+    """A round of kernel E with torch ops: ``sweeps`` x the four colours."""
+    _round_plain(color_step_hybrid_plain, grid, cv, pm, lam=lam, sweeps=sweeps, **kw)
+
+
+def color_round_hybrid_tail_plain(grid, band, pm, *, lam, sweeps, **kw) -> None:
+    """A round of kernel F with torch ops."""
+    _round_plain(color_step_hybrid_tail_plain, grid, band, pm, lam=lam, sweeps=sweeps, **kw)
+
+
+def color_round_hybrid(
+    grid: torch.Tensor,
+    cv: torch.Tensor,
+    pm: torch.Tensor,
+    *,
+    im1: torch.Tensor,
+    rwin: torch.Tensor,
+    rpm: torch.Tensor,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    r2: int,
+    lam: float,
+    sweeps: int,
+    cost: str,
+) -> None:
+    """Kernel E, a whole round in place: ``sweeps`` sweeps of the four
+    colours, sweep s at ``lam * (s + 1)``; see the module docstring."""
+    f = _checked(grid, cv, pm, im1, None, rwin, rpm, cur, h, w, r, r, r2, 0, 0, cost)
+    if grid.device.type == "cpu":
+        color_round_hybrid_plain(grid, cv, pm, im1=im1, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w,
+                                 r=r, r2=r2, lam=lam, sweeps=sweeps, cost=cost)
+        return
+    b, nby, nbx, _ = grid.shape
+    _launch_round(color_round_hybrid, "bbme_color_round_hybrid", (
+        grid.data_ptr(), cv.data_ptr(), int(cv.dtype == torch.uint16), im1.data_ptr(),
+        rwin.data_ptr(), pm.data_ptr(), rpm.data_ptr(),
+        rs._rank_table_on(grid.device).data_ptr(),
+        b, nby, nbx, f, cur, h, w, r, r2, int(cost == "ssd"),
+    ), grid, lam, sweeps)
+
+
+def color_round_hybrid_tail(
+    grid: torch.Tensor,
+    band: torch.Tensor,
+    pm: torch.Tensor,
+    *,
+    im1: torch.Tensor,
+    win: torch.Tensor,
+    rwin: torch.Tensor,
+    rpm: torch.Tensor,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    store_r: int,
+    r2: int,
+    lam: float,
+    sweeps: int,
+    cost: str,
+) -> None:
+    """Kernel F, a whole round on the stored band, in place."""
+    f = _checked(grid, band, pm, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, 0, 0, cost)
+    if grid.device.type == "cpu":
+        color_round_hybrid_tail_plain(
+            grid, band, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w, r=r,
+            store_r=store_r, r2=r2, lam=lam, sweeps=sweeps, cost=cost,
+        )
+        return
+    b, nby, nbx, _ = grid.shape
+    _launch_round(color_round_hybrid_tail, "bbme_color_round_hybrid_tail", (
+        grid.data_ptr(), band.data_ptr(), int(band.dtype == torch.uint16), im1.data_ptr(),
+        win.data_ptr(), rwin.data_ptr(), pm.data_ptr(), rpm.data_ptr(),
+        rs._rank_table_on(grid.device).data_ptr(),
+        b, nby, nbx, f, cur, h, w, r, store_r, r2, int(cost == "ssd"),
+    ), grid, lam, sweeps)
+
+
+color_round_hybrid.launches = 0
+color_round_hybrid_tail.launches = 0
 
 
 # ----------------------------------------- cv_fused colour steps (11, 12)
@@ -384,3 +559,83 @@ def color_step_fused_rival(
 
 color_step_fused.launches = 0
 color_step_fused_rival.launches = 0
+
+
+def color_round_fused_plain(grid, pm, *, lam, sweeps, **kw) -> None:
+    """A round of kernel 11 with torch ops."""
+    _round_plain(color_step_fused_plain, grid, pm, lam=lam, sweeps=sweeps, **kw)
+
+
+def color_round_fused_rival_plain(grid, pm, *, lam, sweeps, **kw) -> None:
+    """A round of kernel 12 with torch ops."""
+    _round_plain(color_step_fused_rival_plain, grid, pm, lam=lam, sweeps=sweeps, **kw)
+
+
+def _fused_round(wrapper, grid, pm, im1, win, rwin, rpm, cur, h, w, r, r2, lam, sweeps,
+                 cost) -> None:
+    """Check a fused round's inputs; run the plain steps on the CPU, else
+    launch the round kernel and count its launches on ``wrapper``."""
+    f = _checked(grid, None, pm, im1, win, rwin, rpm, cur, h, w, r, r, r2, 0, 0, cost)
+    if grid.device.type == "cpu":
+        _round_plain(_fused_plain, grid, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h,
+                     w=w, r=r, r2=r2, lam=lam, sweeps=sweeps, cost=cost)
+        return
+    b, nby, nbx, _ = grid.shape
+    _launch_round(wrapper, "bbme_color_round_fused", (
+        grid.data_ptr(), im1.data_ptr(), win.data_ptr(),
+        rwin.data_ptr() if rwin is not None else None, pm.data_ptr(),
+        rpm.data_ptr() if rwin is not None else None,
+        rs._rank_table_on(grid.device).data_ptr(),
+        b, nby, nbx, f, cur, h, w, r, r2, int(cost == "ssd"),
+    ), grid, lam, sweeps)
+
+
+def color_round_fused(
+    grid: torch.Tensor,
+    pm: torch.Tensor,
+    *,
+    im1: torch.Tensor,
+    win: torch.Tensor,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    lam: float,
+    sweeps: int,
+    cost: str,
+) -> None:
+    """Kernel 11, a whole round in place."""
+    _fused_round(color_round_fused, grid, pm, im1, win, None, None, cur, h, w, r, 0, lam,
+                 sweeps, cost)
+
+
+def color_round_fused_rival(
+    grid: torch.Tensor,
+    pm: torch.Tensor,
+    *,
+    im1: torch.Tensor,
+    win: torch.Tensor,
+    rwin: torch.Tensor,
+    rpm: torch.Tensor,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    r2: int,
+    lam: float,
+    sweeps: int,
+    cost: str,
+) -> None:
+    """Kernel 12, a whole round in place."""
+    _fused_round(color_round_fused_rival, grid, pm, im1, win, rwin, rpm, cur, h, w, r, r2, lam,
+                 sweeps, cost)
+
+
+color_round_fused.launches = 0
+color_round_fused_rival.launches = 0
+# what ops.windowed.rounds_loop calls once per round, not once per step
+for _fn in (color_round_hybrid, color_round_hybrid_tail, color_round_fused,
+            color_round_fused_rival, color_round_hybrid_plain, color_round_hybrid_tail_plain,
+            color_round_fused_plain, color_round_fused_rival_plain):
+    _fn.per_round = True
+del _fn

@@ -44,7 +44,7 @@ def block_cost(a: torch.Tensor, b: torch.Tensor, dims, cost: str) -> torch.Tenso
     if cost == "ssd":
         return (d * d).sum(dim=dims, dtype=torch.int32)
     raise NotImplementedError(
-        f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 9)"
+        f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 2)"
     )
 
 
@@ -84,7 +84,12 @@ def sad_spiral_argmin_plain(
 ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 # the launch's shared memory (window + block) must fit a thread block
-_SMEM_LIMIT = 227 * 1024
+SMEM_LIMIT = 227 * 1024
+
+
+def smem_bytes(bs: int, ext: int) -> int:
+    """Shared bytes of one block of the kernel: the window and the block."""
+    return (bs + 2 * ext) ** 2 + bs * bs
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,7 +115,7 @@ def sad_spiral_argmin(
     frame b has its pixel (0, 0) at frame position (cy - S, cx - S)."""
     if cost not in ("sad", "ssd"):
         raise NotImplementedError(
-            f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 9)"
+            f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 2)"
         )
     if im1.dtype != torch.uint8 or im1.dim() != 3:
         raise ValueError(f"im1 must be (B, H, W) uint8, got {im1.dtype} {tuple(im1.shape)}")
@@ -135,7 +140,7 @@ def sad_spiral_argmin(
         return sad_spiral_argmin_plain(im1, windows, cy, cx, bs, ss, cost)
     if im1.device.type != "cuda":
         raise ValueError(f"unsupported device {im1.device}")
-    if win * win + bs * bs > _SMEM_LIMIT:
+    if smem_bytes(bs, ext) > SMEM_LIMIT:
         raise ValueError(f"window {win}^2 + block {bs}^2 bytes exceed a thread block's shared memory")
     for t in (im1, windows, cy, cx):
         if not t.is_contiguous():

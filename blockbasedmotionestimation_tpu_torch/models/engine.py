@@ -19,19 +19,24 @@ uint8 frames as torch tensors (the device is theirs) or numpy arrays, which
 go to ``device=`` (CUDA when it is not given; ``device="cpu"`` runs the
 plain versions); the batch dim is written out where the reference vmapped.
 
-The capacity modes run as the reference runs them on its accelerator:
-``cv_fused`` and ``cv_compact`` (with ``cv_compact_ring``) shape the fused
-windowed level (``ops.windowed.windowed_level``); the other paths ignore
-them, as the reference's do.  ``search_impl`` is ignored: the port always
-runs what the reference runs on its accelerator.  For ``cv_compact`` that
-matters, since the reference's XLA path ignores ``cv_compact``: there it
-gives the dense result, here the compact one.  The two agree unless a chunk
-of 128 parents has more than ``cv_compact`` distinct deltas
-(``ops.compact.overflow_fraction``) or a value travels further than
-``cv_compact_ring`` parents in the rounds (the slot lists hold only the
-winners that close).
+``search_impl`` picks the reference's path.  ``"auto"``, ``"pallas"`` and
+``"pallas_interpret"`` run what the reference runs on its accelerator: the
+capacity modes ``cv_fused`` and ``cv_compact`` (with ``cv_compact_ring``)
+shape the fused windowed level (``ops.windowed.windowed_level``); the other
+paths ignore them, as the reference's do.  ``"xla"`` runs the level as the
+reference's XLA path does, which ignores both: no compact tables and no
+fused volumes.  That matters for ``cv_compact`` alone, whose flow differs
+from the dense one where a chunk of 128 parents has more than
+``cv_compact`` distinct deltas (``ops.compact.overflow_fraction``) or a
+value travels further than ``cv_compact_ring`` parents in the rounds (the
+slot lists hold only the winners that close); every other form (fused,
+hybrid, the stored band) gives the dense bits.  The device, not
+``search_impl``, decides between the kernels (CUDA) and their plain
+versions (CPU).
 
-``cost="zsad"`` raises ``NotImplementedError`` naming its ROADMAP item.
+``cost="zsad"`` raises ``NotImplementedError`` naming its ROADMAP item.  On
+a CUDA device, a level whose shapes no kernel can take (``cuda_refusals``)
+raises ``ValueError`` before any work.
 """
 
 from __future__ import annotations
@@ -40,14 +45,17 @@ import numpy as np
 import torch
 
 from blockbasedmotionestimation_tpu_torch.config import MotionConfig
+from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, sad_search
 from blockbasedmotionestimation_tpu_torch.ops import pad as pad_ops
 from blockbasedmotionestimation_tpu_torch.ops import resample
 from blockbasedmotionestimation_tpu_torch.ops.regularize import run_schedule, subdivide
 from blockbasedmotionestimation_tpu_torch.ops.search import block_search_level
+from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
 from blockbasedmotionestimation_tpu_torch.ops.windowed import windowed_level, windowed_schedule
 
 __all__ = [
     "check_config",
+    "cuda_refusals",
     "estimate_flow",
     "estimate_flow_batched",
     "estimate_flow_driver",
@@ -58,15 +66,67 @@ __all__ = [
 ]
 
 
-def check_config(cfg: MotionConfig) -> None:
-    """Raise NotImplementedError for configurations outside the port.
+def _accelerated(cfg: MotionConfig) -> bool:
+    """Whether the capacity modes apply (the reference's accelerator path)."""
+    return cfg.search_impl != "xla"
 
-    ``search_impl`` is ignored (the device decides).
+
+def cuda_refusals(cfg: MotionConfig) -> list[str]:
+    """The levels of ``cfg`` that no CUDA kernel of the port can take, each
+    named with its (bs, search size) and the kernel's limit; empty when the
+    whole configuration runs on the card.
+
+    The limits are shared memory a thread block may use (232 448 bytes on
+    the H100): kernel 7 holds a whole (bs + 2S)^2 window and its block; the
+    volume kernel (B, C, 13; built for bs 2 .. 128) at least one delta row
+    of one parent's window; kernel 14 the parent's window and its pooled
+    sums.  The plain versions (CPU tensors) have no such limit.
     """
+    out = []
+    for level, (bs, ss) in enumerate(zip(cfg.block_sizes, cfg.search_sizes)):
+        ext = spiral_extent(ss - bs)
+        where = f"level {level} (bs={bs}, search={ss}, S={ext})"
+        vol_r = None
+        if cfg.uses_fused_windowed:
+            vol_r = ext
+            compact = (_accelerated(cfg) and cfg.cv_compact is not None
+                       and not cfg.rival_window and bs >= 8)
+            if compact and cv_diff.compact_smem(bs, ext) > cv_diff.SMEM_LIMIT:
+                out.append(f"{where}: kernel 14 needs {cv_diff.compact_smem(bs, ext)} bytes of "
+                           f"shared memory, over {cv_diff.SMEM_LIMIT}")
+        else:
+            if cfg.search_order == "spiral":
+                need = sad_search.smem_bytes(bs, ext)
+                if need > sad_search.SMEM_LIMIT:
+                    out.append(f"{where}: kernel 7's window ({bs + 2 * ext}^2) and block need "
+                               f"{need} bytes of shared memory, over {sad_search.SMEM_LIMIT}")
+            if cfg.regularizer == "windowed":
+                vol_r = ext if cfg.reg_radius is None else min(cfg.reg_radius, ext)
+        if vol_r is None:
+            continue
+        if bs > cv_diff.MAX_BS:
+            out.append(f"{where}: the volume kernel is built for bs 2 .. {cv_diff.MAX_BS}")
+        elif cv_diff.volume_smem(bs, vol_r, 1, 1) > cv_diff.SMEM_LIMIT:
+            out.append(f"{where}: the volume kernel needs {cv_diff.volume_smem(bs, vol_r, 1, 1)} "
+                       f"bytes of shared memory at one parent and one delta row (r={vol_r}), "
+                       f"over {cv_diff.SMEM_LIMIT}")
+    return out
+
+
+def check_config(cfg: MotionConfig, device=None) -> None:
+    """Raise NotImplementedError for configurations outside the port, and
+    ValueError on a CUDA ``device`` for levels no kernel can take
+    (``cuda_refusals``), before any work.  ``search_impl="xla"`` turns the
+    capacity modes off, as in the reference; the device decides between
+    kernels and plain versions."""
     if cfg.cost not in ("sad", "ssd"):
         raise NotImplementedError(
-            f"cost={cfg.cost!r} is not ported yet (ROADMAP Queue 1 item 9)"
+            f"cost={cfg.cost!r} is not ported yet (ROADMAP Queue 1 item 2)"
         )
+    if device is not None and torch.device(device).type == "cuda":
+        refused = cuda_refusals(cfg)
+        if refused:
+            raise ValueError("no CUDA kernel of the port takes " + "; ".join(refused))
 
 
 def _as_frames(x, device, ndim: int) -> torch.Tensor:
@@ -108,10 +168,12 @@ def _run_level(
     lam0 = float(bs) * cfg.lambda_scale
     rr = cfg.rival_radius_at(level)
     if cfg.uses_fused_windowed:
+        accel = _accelerated(cfg)
         return windowed_level(
             im1, im2, pred, bs, ss, lam0, cfg.sweeps_per_round, cost=cfg.cost,
             rival=cfg.rival_window, rival_radius=rr, store_radius=cfg.cv_store_radius,
-            fuse=cfg.cv_fused, compact=cfg.cv_compact, compact_ring=cfg.cv_compact_ring,
+            fuse=cfg.cv_fused if accel else None, compact=cfg.cv_compact if accel else None,
+            compact_ring=cfg.cv_compact_ring,
         )
     grid = block_search_level(im1, im2, pred, bs, ss, order=cfg.search_order, cost=cfg.cost)
     if cfg.regularizer == "windowed":
@@ -126,7 +188,7 @@ def _run_level(
 
 def estimate_flow_padded(im1p: torch.Tensor, im2p: torch.Tensor, cfg: MotionConfig) -> torch.Tensor:
     """Dense (B, H, W, 2) f32 flow of pre-padded (B, H, W) u8 frames."""
-    check_config(cfg)
+    check_config(cfg, im1p.device)
     levels = cfg.num_levels
     pyr1 = resample.build_pyramid(im1p, levels)
     pyr2 = resample.build_pyramid(im2p, levels)

@@ -27,13 +27,13 @@ The form follows the reference's dispatch, in its order:
   * ``fuse`` (``cv_fused``), bs % 8 == 0: with fuse_eff = min(fuse, bs/2),
     the main and rival windows store only cur > fuse_eff and cur = bs
     (kernel C); rounds cur > fuse_eff run D/D' on them, rounds
-    cur <= fuse_eff run kernel 11 (``fused_step.color_step_fused``) or with
-    rival windows kernel 12 (``color_step_fused_rival``), which recompute
+    cur <= fuse_eff run kernel 11 (``fused_step.color_round_fused``) or with
+    rival windows kernel 12 (``color_round_fused_rival``), which recompute
     every candidate from the windows' pixels.  ``store_radius`` is ignored.
   * the **hybrid** form, rival windows and bs % 8 == 0 (the default): the
     rival window stores only cur > fuse_max = min(16, bs/2) and cur = bs
     (kernel C); rounds cur > fuse_max run D on stored volumes, rounds
-    cur <= fuse_max run E (``fused_step.color_step_hybrid``), which
+    cur <= fuse_max run E (``fused_step.color_round_hybrid``), which
     recomputes rival candidates from the rival window's pixels.  With
     ``store_radius`` (0 <= store_radius < ext) the cur=2 main volume is
     stored only for |dx delta| <= store_radius and the cur = 2 round runs F,
@@ -55,10 +55,10 @@ from blockbasedmotionestimation_tpu_torch.kernels.cv_diff import (
     pooled_cvs,
 )
 from blockbasedmotionestimation_tpu_torch.kernels.fused_step import (
-    color_step_fused,
-    color_step_fused_rival,
-    color_step_hybrid,
-    color_step_hybrid_tail,
+    color_round_fused,
+    color_round_fused_rival,
+    color_round_hybrid,
+    color_round_hybrid_tail,
 )
 from blockbasedmotionestimation_tpu_torch.kernels.reg_step import color_step, color_step_compact
 from blockbasedmotionestimation_tpu_torch.ops.compact import chunk_delta_slots
@@ -143,16 +143,21 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
     step, its positional arguments after the grid and its keywords (it may
     pop the round's volumes, so each is freed after its round).  lambda is
     lam0 * (sweep + 1) in the first round and doubles every round; colours
-    run (0,0), (0,1), (1,0), (1,1).
+    run (0,0), (0,1), (1,0), (1,1).  A step marked ``per_round`` (the round
+    wrappers of ``kernels.fused_step``) is a whole round: it is called once
+    with ``lam`` and ``sweeps`` and runs the same steps in the same order.
     """
     cur, lam = bs, lam0
     grid = grid.contiguous()
     while cur > 1:
         step, args, kw = round_of(cur)
-        for sweep in range(sweeps_per_round):
-            for ci, cj in COLORS:
-                step(grid, *args, cur=cur, h=h, w=w, ci=ci, cj=cj,
-                     lam_mult=lam * (sweep + 1), **kw)
+        if getattr(step, "per_round", False):
+            step(grid, *args, cur=cur, h=h, w=w, lam=lam, sweeps=sweeps_per_round, **kw)
+        else:
+            for sweep in range(sweeps_per_round):
+                for ci, cj in COLORS:
+                    step(grid, *args, cur=cur, h=h, w=w, ci=ci, cj=cj,
+                         lam_mult=lam * (sweep + 1), **kw)
         del args, kw  # free the round's volumes before the next round
         grid = subdivide(grid).contiguous()
         cur >>= 1
@@ -266,7 +271,7 @@ def windowed_level(
         def round_of(cur):
             if cur > fuse_eff:
                 return stored(cur)
-            return (color_step_fused_rival if rival else color_step_fused), (base_mv,), fkw
+            return (color_round_fused_rival if rival else color_round_fused), (base_mv,), fkw
 
         return rounds_loop(grid0, bs, h, w, lam0, sweeps_per_round, round_of)
     if not hybrid:
@@ -277,9 +282,9 @@ def windowed_level(
         if cur > fuse_max:
             return stored(cur)
         if cur == 2 and store_r is not None:
-            return (color_step_hybrid_tail, (cvs.pop(cur), base_mv),
+            return (color_round_hybrid_tail, (cvs.pop(cur), base_mv),
                     dict(hkw, win=windows, store_r=store_r))
-        return color_step_hybrid, (cvs.pop(cur), base_mv), hkw
+        return color_round_hybrid, (cvs.pop(cur), base_mv), hkw
 
     return rounds_loop(grid0, bs, h, w, lam0, sweeps_per_round, round_of)
 

@@ -20,7 +20,14 @@ prints, beside the card's name and power limit:
   - launches and device time of each kernel wrapper and of each stage of a
     level (the block search, the schedule) over one more batch (CUDA events
     around every call; B, C and 13 share one CUDA kernel, as do E, F, 11
-    and 12, so only the wrappers tell them apart);
+    and 12, so only the wrappers tell them apart), and the host time per
+    call of each (host clock around the call, which only enqueues);
+  - the host time per call of the colour-step wrappers that recompute
+    from windows, before and after they took whole rounds: the batch's
+    rounds of E and F (or 11/12) replayed through the round wrapper (one
+    call a round) and through the one-step wrapper (one call a colour
+    step), host clock per call, the card synchronised only around each
+    replay;
   - device time by kernel over one more batch (``torch.profiler``), the
     device total, and the device's idle share of the median batch.
 
@@ -48,7 +55,7 @@ from blockbasedmotionestimation_tpu_torch.models import engine
 
 H, W, B = 1080, 1920, 8
 REPS = 10
-TOP = 12  # kernels listed by device time
+TOP = 16  # kernels listed by device time
 SHIFT_Y, SHIFT_X = 5, 9
 
 
@@ -68,8 +75,8 @@ def _timed_kernels(events: dict):
 
     names = {search: ["_gather", "_sad_argmin"], windowed: [
         "pooled_cvs", "deep_pooled_cvs", "full_block_volume", "compact_tables",
-        "chunk_delta_slots", "color_step", "color_step_hybrid", "color_step_hybrid_tail",
-        "color_step_fused", "color_step_fused_rival", "color_step_compact"], engine: [
+        "chunk_delta_slots", "color_step", "color_round_hybrid", "color_round_hybrid_tail",
+        "color_round_fused", "color_round_fused_rival", "color_step_compact"], engine: [
         "block_search_level", "run_schedule", "windowed_schedule", "windowed_level"]}
     saved = {(m, n): getattr(m, n) for m, ns in names.items() for n in ns}
 
@@ -78,10 +85,13 @@ def _timed_kernels(events: dict):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
+            t0 = time.perf_counter()
             out = fn(*a, **k)
+            host_s = time.perf_counter() - t0
             end.record()
-            events.setdefault(fn.__name__, []).append((start, end))
+            events.setdefault(fn.__name__, []).append((start, end, host_s))
             return out
+        call.per_round = getattr(fn, "per_round", False)
         return call
 
     for (m, n), fn in saved.items():
@@ -91,6 +101,72 @@ def _timed_kernels(events: dict):
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
+
+
+def _host_per_call(cfg, im1, im2, card: str) -> None:
+    """The round wrappers' host time per call against the one-step
+    wrappers' on the same inputs: the rounds of one batch recorded, then
+    replayed each way (the grid reset to what the round met), the host
+    clock around every call and the card synchronised only around each
+    replay."""
+    from blockbasedmotionestimation_tpu_torch.kernels import fused_step
+    from blockbasedmotionestimation_tpu_torch.ops import windowed
+
+    step_of = {fused_step.color_round_hybrid: fused_step.color_step_hybrid,
+               fused_step.color_round_hybrid_tail: fused_step.color_step_hybrid_tail,
+               fused_step.color_round_fused: fused_step.color_step_fused,
+               fused_step.color_round_fused_rival: fused_step.color_step_fused_rival}
+    calls = []
+
+    def spy(fn):
+        def call(grid, *a, **k):
+            calls.append((fn, grid.clone(), a, k))
+            return fn(grid, *a, **k)
+        call.per_round = True
+        return call
+
+    names = [fn.__name__ for fn in step_of]
+    saved = {n: getattr(windowed, n) for n in names}
+    for n in names:
+        setattr(windowed, n, spy(saved[n]))
+    try:
+        engine.estimate_flow_batched(im1, im2, cfg)
+    finally:
+        for n, fn in saved.items():
+            setattr(windowed, n, fn)
+    if not calls:
+        print("[host] this path runs no round of E, F, 11 or 12")
+        return
+    per = {}
+    for fn, g0, a, k in calls:
+        step = step_of[fn]
+        skw = {key: v for key, v in k.items() if key not in ("lam", "sweeps")}
+        g = g0.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(g, *a, **k)
+        t_round = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        g = g0.clone()
+        torch.cuda.synchronize()
+        n, t_steps = 0, 0.0
+        for mult in fused_step.sweep_lams(k["lam"], k["sweeps"]):
+            for ci, cj in windowed.COLORS:
+                t0 = time.perf_counter()
+                step(g, *a, ci=ci, cj=cj, lam_mult=mult, **skw)
+                t_steps += time.perf_counter() - t0
+                n += 1
+        torch.cuda.synchronize()
+        acc = per.setdefault(fn.__name__, [0, 0.0, 0, 0.0])
+        acc[0] += 1
+        acc[1] += t_round
+        acc[2] += n
+        acc[3] += t_steps
+    for name, (nr, tr, ns, ts) in per.items():
+        print(f"[host] {name}: {nr} calls a batch, {tr / nr * 1e6:.1f} us host time per call "
+              f"({tr * 1e3:.3f} ms a batch); the same rounds through "
+              f"{step_of[getattr(fused_step, name)].__name__}: {ns} calls, "
+              f"{ts / ns * 1e6:.1f} us per call ({ts * 1e3:.3f} ms a batch) ({card})")
 
 
 def _cuda_ms(fn, reps: int = 3) -> float:
@@ -216,8 +292,11 @@ def main(argv=None) -> int:
         engine.estimate_flow_batched(im1, im2, cfg)
     torch.cuda.synchronize()
     for name, evs in events.items():
-        ms = sum(s.elapsed_time(e) for s, e in evs)
-        print(f"[profile] {name}: {len(evs)} calls, {ms:.3f} ms (CUDA events, one batch)")
+        ms = sum(s.elapsed_time(e) for s, e, _ in evs)
+        host_us = sum(h for _, _, h in evs) / len(evs) * 1e6
+        print(f"[profile] {name}: {len(evs)} calls, {ms:.3f} ms (CUDA events, one batch); "
+              f"host {host_us:.1f} us per call")
+    _host_per_call(cfg, im1, im2, card)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

@@ -13,14 +13,18 @@ Phases (any failure raises and the script exits non-zero):
      volumes of the dense-rival form), C (rival; main at cv_fused=4), 13
      (cur = bs alone), D, D', 8 and 9 (D's kernel with and without rival, cur
      32 and 2), E (cur 4 and 16) and F (cur 2), 11 and 12 (cur 2 and 4), on
-     random candidates within +-20 of the window centres; 14 and 10 (cur 2
+     random candidates within +-20 of the window centres, each as one colour
+     step and as a whole round (one cooperative launch: 2 sweeps x 4
+     colours, against the plain step loop); 14 and 10 (cur 2
      and 16) at K=64 on slot lists with unused (-1) slots and candidates
      within +-3, many of which miss every slot; kernel 7 (the spiral
      search's argmin, sad and ssd) around predictions within +-48 px; the
      volume kernel (B, C) over a sweep of shapes (bs 8/16/32, r
      0/3/12/16, sad and ssd, band on and off, C's sizes); then B and C timed
      at every level's shapes of the default path (its calls recorded on one
-     batch), with their per-batch sums;
+     batch), with their per-batch sums, and E's and F's rounds of that batch
+     (candidates from real search winners) against the plain step loop, each
+     round timed alone, with their per-batch sums and level-0 single steps;
   4. the main path: ``estimate_flow_batched`` with ``MotionConfig(
      interp_factor=1)`` on 8 seeded-noise 1080p pairs, counting every
      kernel's launches (7, 11-14 and 10: none) and checking the known
@@ -86,10 +90,13 @@ CORE_OPS_PER_S = 67e12     # H100 SXM CUDA-core peak, used for integer operation
 FUSE = 4          # cv_fused of phases 4e, 4f
 COMPACT_K = 64    # cv_compact of phase 4g (ring 3): DESIGN.md's quality-viable point
 # per-batch launches of MotionConfig(interp_factor=1): 4 levels of bs 32,
-# 2 sweeps x 4 colours per round; D at cur 32, E at 16/8/4, F at 2
+# 2 sweeps x 4 colours per round; D at cur 32 (a launch per colour step),
+# E at 16/8/4 and F at 2 (a launch per round)
 WANT_LAUNCHES = {"gather_windows": 8, "pooled_cvs": 4, "deep_pooled_cvs": 4,
-                 "color_step": 32, "color_step_hybrid": 96, "color_step_hybrid_tail": 32,
+                 "color_step": 32, "color_step_hybrid": 0, "color_step_hybrid_tail": 0,
+                 "color_round_hybrid": 12, "color_round_hybrid_tail": 4,
                  "sad_spiral_argmin": 0, "color_step_fused": 0, "color_step_fused_rival": 0,
+                 "color_round_fused": 0, "color_round_fused_rival": 0,
                  "full_block_volume": 0, "compact_tables": 0, "color_step_compact": 0}
 NONE = dict.fromkeys(WANT_LAUNCHES, 0)
 # regularizer="fourcolor": per level one search gather (A) and kernel 7; the
@@ -101,11 +108,11 @@ WANT_FOURCOLOR = NONE | {"gather_windows": 4, "sad_spiral_argmin": 4}
 WANT_SEARCH = NONE | {"gather_windows": 12, "sad_spiral_argmin": 4, "pooled_cvs": 8,
                       "color_step": 160}
 # cv_fused=4: per level C for the main and the rival window, D in rounds
-# 32/16/8, kernel 12 in rounds 4/2 (11 without rival windows)
+# 32/16/8, kernel 12 in rounds 4/2, a launch a round (11 without rival windows)
 WANT_FUSED = NONE | {"gather_windows": 8, "deep_pooled_cvs": 8, "color_step": 96,
-                     "color_step_fused_rival": 64}
+                     "color_round_fused_rival": 8}
 WANT_FUSED_NORIVAL = NONE | {"gather_windows": 4, "deep_pooled_cvs": 4, "color_step": 96,
-                             "color_step_fused": 64}
+                             "color_round_fused": 8}
 # cv_compact=64, rival off: per level 13 and 14, D (row 8) in round 32,
 # kernel 10 in rounds 16/8/4/2
 WANT_COMPACT = NONE | {"gather_windows": 4, "full_block_volume": 4, "compact_tables": 4,
@@ -195,10 +202,10 @@ def _plain_kernels():
         compact_tables=cv_diff.compact_tables_plain,
         color_step=reg_step.color_step_plain,
         color_step_compact=reg_step.color_step_compact_plain,
-        color_step_hybrid=fused_step.color_step_hybrid_plain,
-        color_step_hybrid_tail=fused_step.color_step_hybrid_tail_plain,
-        color_step_fused=fused_step.color_step_fused_plain,
-        color_step_fused_rival=fused_step.color_step_fused_rival_plain,
+        color_round_hybrid=fused_step.color_round_hybrid_plain,
+        color_round_hybrid_tail=fused_step.color_round_hybrid_tail_plain,
+        color_round_fused=fused_step.color_round_fused_plain,
+        color_round_fused_rival=fused_step.color_round_fused_rival_plain,
     ):
         yield
 
@@ -471,7 +478,7 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     del offs
 
     def steps(row, name, source, replaces, kernel, plain, cur, vol_of, kw_of, kind, what,
-              also=None, spread=20, work_of=None):
+              also=None, spread=20, work_of=None, round_kernel=None, round_plain=None):
         """All four colours against the plain version; one colour timed.
         Candidates within +-spread of the window centres."""
         f = bs // cur
@@ -510,6 +517,50 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         record(row, name, source, replaces, err, ms, pms, work,
                f"{what} at cur={cur} (f={f}): four colours compared, (1, 0) timed; B={B}, "
                f"grid {tuple(g0.shape[1:3])}", also)
+        if round_kernel is not None:
+            rounds(row, name, round_kernel, round_plain, plain, g0, vol, kw_of, kind, cur, what)
+
+    def rounds(row, name, kernel, plain, step_plain, g0, vol, kw_of, kind, cur, what):
+        """A whole round (the main path's lambda at cur, its sweeps) in one
+        launch against the plain step loop, frame by frame; the round timed
+        in place; its bound is the sum of its steps' on the states they
+        meet (the plain loop replayed at B=8)."""
+        rkw = dict(cur=cur, h=hp, w=wp, r=ext, lam=16.0 * bs / cur, sweeps=cfg.sweeps_per_round)
+        kw = kw_of(slice(None))
+        gk = g0.clone()
+        kernel(gk, vol, base, **rkw, **kw)
+        err = 0
+        for bi in range(B):
+            sl = slice(bi, bi + 1)
+            gp = g0[sl].clone()
+            plain(gp, None if vol is None else vol[sl], base[sl], **rkw, **kw_of(sl))
+            err = max(err, _max_abs_err(torch, gk[sl], gp))
+        gt = g0.clone()
+        ms = _cuda_ms(torch, lambda: kernel(gt, vol, base, **rkw, **kw), 10)
+        pms = _cuda_ms(torch, lambda: per_frame(lambda bi: plain(
+            g0[bi:bi + 1].clone(), None if vol is None else vol[bi:bi + 1], base[bi:bi + 1],
+            **rkw, **kw_of(slice(bi, bi + 1)))), 1)
+        nbytes = ops = 0
+        gw = g0.clone()
+        rcv_bytes = (vol.element_size() if vol is not None else 0, 0)
+        for mult in fused_step.sweep_lams(rkw["lam"], rkw["sweeps"]):
+            for ci, cj in windowed.COLORS:
+                nb, op = _step_work(torch, gw, base, kw.get("rpm"), kind=kind, cur=cur, h=hp,
+                                    w=wp, r=ext, r2=r2, ci=ci, cj=cj, store_r=kw.get("store_r"),
+                                    cost_bytes=rcv_bytes)
+                nbytes, ops = nbytes + nb, ops + op
+                step_plain(gw, vol, base, ci=ci, cj=cj, cur=cur, h=hp, w=wp, r=ext,
+                           lam_mult=mult, **kw)
+        bound_ms, bound_by = _bound(nbytes, ops)
+        res = results[row]
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        print(f"[kernel] {row} {name} round {what} at cur={cur}: {rkw['sweeps']} sweeps x 4 "
+              f"colours in one launch, max_abs_err {err}, kernel {ms:.4f} ms, plain step loop "
+              f"{pms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {nbytes} B, {ops} ops) "
+              f"({card})")
+        res.setdefault("round", []).append({
+            "cur": cur, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err})
 
     def rival_kw(rcv):
         if rcv is None:
@@ -532,16 +583,21 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     def hybrid_kw(sl):
         return dict(im1=frames[sl], rwin=rwins[sl], rpm=rbase[sl], r2=r2, cost=cfg.cost)
 
-    # E at cur 4 and 16 on the dense main volume; F at cur 2 on the band
+    # E at cur 4 and 16 on the dense main volume; F at cur 2 on the band;
+    # each one colour step and one round.  The rows are named after the
+    # round wrappers, which the main path launches
     for cur in (4, 16):
-        steps("E", "color_step_hybrid", "fused_step.cu", "fused_step.py:870",
+        steps("E", "color_round_hybrid", "fused_step.cu", "fused_step.py:870",
               fused_step.color_step_hybrid, fused_step.color_step_hybrid_plain, cur,
               lambda c: dense[c], hybrid_kw, "E", "main volume + rival recompute",
-              also=["fused_step.py:937"])
-    steps("F", "color_step_hybrid_tail", "fused_step.cu", "fused_step.py:772",
+              also=["fused_step.py:937"], round_kernel=fused_step.color_round_hybrid,
+              round_plain=fused_step.color_round_hybrid_plain)
+    steps("F", "color_round_hybrid_tail", "fused_step.cu", "fused_step.py:772",
           fused_step.color_step_hybrid_tail, fused_step.color_step_hybrid_tail_plain, 2,
           lambda c: vols[c], lambda sl: dict(hybrid_kw(sl), win=wins[sl], store_r=store_r), "F",
-          f"band store_r={store_r} + main-tail and rival recompute", also=["fused_step.py:848"])
+          f"band store_r={store_r} + main-tail and rival recompute", also=["fused_step.py:848"],
+          round_kernel=fused_step.color_round_hybrid_tail,
+          round_plain=fused_step.color_round_hybrid_tail_plain)
     del vols, dense, rdense, rdeep
 
     # 11 and 12: cv_fused's rounds cur <= 4, every candidate recomputed from
@@ -558,15 +614,18 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         return kw_of
 
     for cur in (2, 4):
-        steps("11", "color_step_fused", "fused_step.cu", "fused_step.py:401",
+        steps("11", "color_round_fused", "fused_step.cu", "fused_step.py:401",
               no_volume(fused_step.color_step_fused), no_volume(fused_step.color_step_fused_plain),
               cur, lambda c: None, fused_kw(False), "fused", "main window recompute",
-              also=["fused_step.py:466"])
-        steps("12", "color_step_fused_rival", "fused_step.cu", "fused_step.py:488",
+              also=["fused_step.py:466"], round_kernel=no_volume(fused_step.color_round_fused),
+              round_plain=no_volume(fused_step.color_round_fused_plain))
+        steps("12", "color_round_fused_rival", "fused_step.cu", "fused_step.py:488",
               no_volume(fused_step.color_step_fused_rival),
               no_volume(fused_step.color_step_fused_rival_plain), cur, lambda c: None,
               fused_kw(True), "fused", "main and rival window recompute",
-              also=["fused_step.py:557"])
+              also=["fused_step.py:557"],
+              round_kernel=no_volume(fused_step.color_round_fused_rival),
+              round_plain=no_volume(fused_step.color_round_fused_rival_plain))
 
     # 14 and 10: cv_compact at K = COMPACT_K, the slot lists of winners within
     # +-2 of the centres (25 deltas: unused slots hold -1)
@@ -712,6 +771,75 @@ def _volume_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
     return out
 
 
+def _round_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
+    """E and F on the default path's own rounds: each round one batch makes
+    (recorded by a spy with the grid it met, so the candidates come from
+    real search winners) against the plain step loop, and timed alone with
+    CUDA events; at level 0 also one colour step, (1, 0) at the round's
+    first multiplier, timed the same way.  Returns, by row, the round times
+    by call and their per-batch sum, the level-0 steps and the worst error."""
+    from blockbasedmotionestimation_tpu_torch.kernels import fused_step
+    from blockbasedmotionestimation_tpu_torch.ops import windowed
+
+    calls = []
+
+    def spy(row, fn, plain, step, step_plain):
+        def call(grid, *args, **kw):
+            calls.append((row, fn, plain, step, step_plain, grid.clone(), args, kw))
+            return fn(grid, *args, **kw)
+        call.per_round = True
+        return call
+
+    fs = fused_step
+    with _swapped(windowed,
+                  color_round_hybrid=spy("E", fs.color_round_hybrid, fs.color_round_hybrid_plain,
+                                         fs.color_step_hybrid, fs.color_step_hybrid_plain),
+                  color_round_hybrid_tail=spy("F", fs.color_round_hybrid_tail,
+                                              fs.color_round_hybrid_tail_plain,
+                                              fs.color_step_hybrid_tail,
+                                              fs.color_step_hybrid_tail_plain)):
+        engine.estimate_flow_batched(im1, im2, cfg)
+    h0 = max(kw["h"] for *_, kw in calls)
+    out = {row: {"ms_by_call": [], "per_batch_ms": 0.0, "level0_steps": [], "max_abs_err": 0}
+           for row in ("E", "F")}
+    for row, fn, plain, step, step_plain, g0, args, kw in calls:
+        gk, gp = g0.clone(), g0.clone()
+        fn(gk, *args, **kw)
+        plain(gp, *args, **kw)
+        err = _max_abs_err(torch, gk, gp)
+        gt = g0.clone()
+        ms = _cuda_ms(torch, lambda: fn(gt, *args, **kw), 5)
+        moved = int((gk != g0).any(-1).sum())
+        print(f"[levels] {row} round at h={kw['h']}, cur={kw['cur']}, grid {tuple(g0.shape)}, "
+              f"search-winner candidates ({moved} cells moved): max_abs_err {err} against the "
+              f"plain step loop, {ms:.4f} ms ({card})")
+        res = out[row]
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["ms_by_call"].append(ms)
+        res["per_batch_ms"] += ms
+        if kw["h"] != h0:
+            continue
+        skw = {k: v for k, v in kw.items() if k not in ("lam", "sweeps")}
+        gs, gsp = g0.clone(), g0.clone()
+        step(gs, *args, ci=1, cj=0, lam_mult=kw["lam"], **skw)
+        step_plain(gsp, *args, ci=1, cj=0, lam_mult=kw["lam"], **skw)
+        serr = _max_abs_err(torch, gs, gsp)
+        res["max_abs_err"] = max(res["max_abs_err"], serr)
+        gt = g0.clone()
+        sms = _cuda_ms(torch, lambda: step(gt, *args, ci=1, cj=0, lam_mult=kw["lam"], **skw), 20)
+        print(f"[levels] {row} level-0 step (1, 0) at cur={kw['cur']} on search-winner "
+              f"candidates: max_abs_err {serr}, {sms:.4f} ms ({card})")
+        res["level0_steps"].append({"cur": kw["cur"], "step_ms": sms, "round_ms": ms})
+    del calls
+    print(f"[levels] per batch of {B}: E {out['E']['per_batch_ms']:.4f} ms over "
+          f"{len(out['E']['ms_by_call'])} rounds, F {out['F']['per_batch_ms']:.4f} ms over "
+          f"{len(out['F']['ms_by_call'])} rounds ({card})")
+    bad = [row for row, r in out.items() if r["max_abs_err"] != 0]
+    if bad:
+        raise AssertionError(f"rounds on search winners disagree with the plain loop: {bad}")
+    return out
+
+
 def _drive(torch, engine, cfg, im1, im2, counters: dict, want: dict, tag: str, card: str,
            reps: int = 10) -> dict:
     """Drive one path through ``estimate_flow_batched`` on the B=8 batch of
@@ -841,11 +969,17 @@ def main() -> int:
     for row, timed in _volume_levels(torch, engine, cfg, im1, im2, card).items():
         results[row].update(timed)
     torch.cuda.empty_cache()
+    for row, timed in _round_levels(torch, engine, cfg, im1, im2, card).items():
+        err = max(results[row]["max_abs_err"], timed.pop("max_abs_err"))
+        results[row].update(timed, max_abs_err=err)
+    torch.cuda.empty_cache()
     counters = {f.__name__: f for f in (
         gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs, reg_step.color_step,
         fused_step.color_step_hybrid, fused_step.color_step_hybrid_tail,
+        fused_step.color_round_hybrid, fused_step.color_round_hybrid_tail,
         sad_search.sad_spiral_argmin, fused_step.color_step_fused,
-        fused_step.color_step_fused_rival, cv_diff.full_block_volume, cv_diff.compact_tables,
+        fused_step.color_step_fused_rival, fused_step.color_round_fused,
+        fused_step.color_round_fused_rival, cv_diff.full_block_volume, cv_diff.compact_tables,
         reg_step.color_step_compact)}
     assert sorted(counters) == sorted(WANT_LAUNCHES)
     by_path, by_row = {}, {}

@@ -10,9 +10,13 @@ mode, at the smallest shapes that exercise them (bs 8, small radii, one
 128-parent chunk): exact equality.  The kernels' inputs are laid out as
 ``ops/windowed._pallas_round_pm`` lays them out (chunk-major, parent lanes
 padded to 128); the outputs are laid back into the port's grid.  An
-overflowing compact level (K = 4) and one whose deltas travel further than
-the ring (ring 0) run against JAX's whole interpret-mode level in a fresh
-interpreter, as ``tests/test_torch_hybrid.py`` does.
+overflowing compact level (K = 4), one whose deltas travel further than
+the ring (ring 0) and a B = 2 level of 192 parents a frame (two chunks,
+slot lists across chunk edges, K large enough that no chunk overflows, so
+only the ring excludes) run against JAX's whole interpret-mode level in a
+fresh interpreter, as ``tests/test_torch_hybrid.py`` does.  With
+``search_impl="xla"`` the port's engine runs the compact configuration as
+JAX's XLA level does: the dense result.
 """
 
 import os
@@ -349,41 +353,67 @@ def _compact_pair():
     return im1[None], im2[None], pred[None]
 
 
-def _jax_compact_level(out_path: str, k_slots: int, ring: int) -> None:
-    """JAX's compact level in interpret mode -> out_path."""
+def _multi_chunk_pair():
+    """B = 2 pairs at 96x128 (12x16 parents: chunks of 128 and 64, more
+    than 2 * ring + 1 = 7 parents each way) with their predictions: a
+    two-motion pair predicted per half and a global shift predicted off by
+    one pixel in a strip of parent columns."""
+    rng = np.random.default_rng(78)
+    h, w = 96, 128
+    tex = synth.textured_image(h + 32, w + 32, rng)
+    a2 = tex[16 : 16 + h, 16 : 16 + w]
+    left = tex[16 + 2 : 16 + 2 + h, 16 + 3 : 16 + 3 + w]
+    right = tex[16 - 1 : 16 - 1 + h, 16 - 4 : 16 - 4 + w]
+    a1 = np.where(np.arange(w)[None, :] < 5 * w // 8, left, right).astype(np.uint8)
+    tex = synth.textured_image(h + 32, w + 32, rng)
+    b2 = tex[16 : 16 + h, 16 : 16 + w]
+    b1 = tex[16 + 1 : 16 + 1 + h, 16 - 2 : 16 - 2 + w]
+    pred = np.zeros((2, h // 8, w // 8, 2), np.float32)
+    pred[0, :, : 5 * w // 64] = (3, 2)
+    pred[0, :, 5 * w // 64 :] = (-4, -1)
+    pred[1] = (-2, 1)
+    pred[1, :, 6:9] = (-1, 1)
+    return np.stack([a1, b1]), np.stack([a2, b2]), pred
+
+
+PAIRS = {"one-chunk": _compact_pair, "multi-chunk": _multi_chunk_pair}
+
+
+def _jax_compact_level(out_path: str, k_slots: int, ring: int, pair: str) -> None:
+    """JAX's compact level in interpret mode, frame by frame -> out_path."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     from blockbasedmotionestimation_tpu.ops.windowed import windowed_level
 
-    im1, im2, pred = _compact_pair()
+    im1, im2, pred = PAIRS[pair]()
     fn = jax.jit(lambda a, b, p: windowed_level(
         a, b, p, LEVEL["bs"], LEVEL["ss"], LEVEL["lam0"], LEVEL["sweeps"],
         impl="pallas_interpret", compact=k_slots, compact_ring=ring,
     ))
-    np.save(out_path, np.asarray(fn(im1[0], im2[0], pred[0]))[None])
+    np.save(out_path, np.stack([np.asarray(fn(*x)) for x in zip(im1, im2, pred)]))
 
 
-def _compact_level_against_jax(tmp_path, monkeypatch, k_slots, ring):
+def _compact_level_against_jax(tmp_path, monkeypatch, k_slots, ring, pair="one-chunk"):
     """The port's compact level, JAX's (in a subprocess) and the port's
-    dense level on ``_compact_pair``, plus the level's overflow fraction."""
+    dense level on ``PAIRS[pair]``, plus each frame's overflow fraction."""
     from blockbasedmotionestimation_tpu_torch.ops import windowed as tw
 
     out = str(tmp_path / "compact.npy")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("XLA_FLAGS", None)
     proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), out, str(k_slots), str(ring)], env=env,
+        [sys.executable, os.path.abspath(__file__), out, str(k_slots), str(ring), pair], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     overflow = []
 
     def slots_and_overflow(grid0, base, r, k, rg):
-        overflow.append(float(compact.overflow_fraction(grid0, base, r, k, rg).max()))
+        overflow.extend(compact.overflow_fraction(grid0, base, r, k, rg).tolist())
         return compact.chunk_delta_slots(grid0, base, r, k, rg)
 
     monkeypatch.setattr(tw, "chunk_delta_slots", slots_and_overflow)
-    im1, im2, pred = (torch.as_tensor(x) for x in _compact_pair())
+    im1, im2, pred = (torch.as_tensor(x) for x in PAIRS[pair]())
     args = (im1, im2, pred, LEVEL["bs"], LEVEL["ss"], LEVEL["lam0"], LEVEL["sweeps"])
     got = tw.windowed_level(*args, compact=k_slots, compact_ring=ring)
     dense = tw.windowed_level(*args)
@@ -409,5 +439,43 @@ def test_out_of_ring_compact_level_matches_jax_interpret(tmp_path, monkeypatch):
     assert (got != dense).any()
 
 
+def test_multi_chunk_compact_level_matches_jax_interpret(tmp_path, monkeypatch):
+    # B = 2 frames of 12 x 16 parents: two chunks a frame (the slot lists
+    # of parents near the chunk edge reach into the other chunk's winners),
+    # ring 3 inside a grid wider than 7 parents each way, and K = 24 slots,
+    # which no chunk fills: only the ring excludes
+    got, want, dense, overflow = _compact_level_against_jax(
+        tmp_path, monkeypatch, 24, 3, pair="multi-chunk")
+    assert got.shape == (2, 96, 128, 2)
+    assert overflow == [0.0, 0.0]
+    for b in range(2):
+        np.testing.assert_array_equal(got[b].numpy(), want[b], err_msg=f"frame {b}")
+
+
+def test_xla_search_impl_runs_compact_as_jax_xla(rng):
+    # search_impl="xla": the reference's XLA level ignores cv_compact, and
+    # so does the port's engine; "auto" keeps the compact tables (K = 4
+    # overflows on this pair, so the two differ)
+    from blockbasedmotionestimation_tpu.ops.windowed import windowed_level as jax_level
+    from blockbasedmotionestimation_tpu_torch import MotionConfig
+    from blockbasedmotionestimation_tpu_torch.models import engine
+
+    im1, im2, pred = _compact_pair()
+    want = np.asarray(jax_level(
+        jnp.asarray(im1[0]), jnp.asarray(im2[0]), jnp.asarray(pred[0]), LEVEL["bs"],
+        LEVEL["ss"], LEVEL["lam0"], LEVEL["sweeps"], impl="xla", compact=K_OVER,
+    ))
+    cfg = MotionConfig(block_sizes=(LEVEL["bs"],), search_sizes=(LEVEL["ss"],),
+                       interp_factor=1, sweeps_per_round=LEVEL["sweeps"],
+                       lambda_scale=LEVEL["lam0"] / LEVEL["bs"], rival_window=False,
+                       cv_compact=K_OVER, search_impl="xla")
+    args = [torch.as_tensor(x) for x in (im1, im2, pred)] + [LEVEL["bs"], LEVEL["ss"]]
+    got = engine._run_level(*args, cfg, 0)
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    for impl in ("auto", "pallas"):
+        compact_flow = engine._run_level(*args, cfg.replace(search_impl=impl), 0)
+        assert (compact_flow != got).any(), impl
+
+
 if __name__ == "__main__":
-    _jax_compact_level(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+    _jax_compact_level(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

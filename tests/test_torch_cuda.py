@@ -66,18 +66,19 @@ def test_cuda_kernels_equal_plain(cuda, bs, ext, r2):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("r", [0, 1, 3, 12, 16])
-@pytest.mark.parametrize("bs", [2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("bs", [2, 4, 8, 16, 32, 64, 128])
 def test_cuda_volume_kernel_equals_plain(cuda, bs, r):
     # B, C and 13 (one kernel, templated on bs) against pooled_cvs_plain:
     # sad and ssd, the band at store_r 0 and 4 and none, the emit sets of B
     # (every size), C (deep_curs) and 13 (cur = bs); 8x10 parents a frame,
     # so B's blocks of 4 parents leave a ragged last block in each row, and
     # at B=3, r >= 12 C's delta rows split into groups with a short last one
+    # (bs 128: one parent a block, 4x5 parents a frame)
     rng = np.random.default_rng(100 * bs + r)
-    npy, npx, wc = 8, 10, bs + 2 * r
+    npy, npx, wc = (4, 5, bs + 2 * r) if bs >= 128 else (8, 10, bs + 2 * r)
     emits = {"B": None, "C": cv_diff.deep_curs(bs, min(16, bs // 2)), "13": [bs]}
     for b in (1, 3):
-        if bs >= 8:
+        if 8 <= bs <= 64:
             assert cv_diff.volume_geometry(bs, r, b, npy, npx, True).parents_per_block == 4
         geo = cv_diff.volume_geometry(bs, r, b, npy, npx, False)
         if b == 3 and r >= 12:
@@ -104,12 +105,12 @@ def test_cuda_volume_kernel_equals_plain(cuda, bs, r):
 
 @pytest.mark.requires_cuda
 def test_cuda_volume_kernel_refuses_unbuilt_bs(cuda):
-    # the kernel is built for bs 2 .. 64; a larger block raises, nothing falls back
-    im1 = torch.zeros((1, 128, 128), dtype=torch.uint8, device=cuda)
-    win = torch.zeros((1, 1, 130, 130), dtype=torch.uint8, device=cuda)
+    # the kernel is built for bs 2 .. 128; a larger block raises, nothing falls back
+    im1 = torch.zeros((1, 256, 256), dtype=torch.uint8, device=cuda)
+    win = torch.zeros((1, 1, 258, 258), dtype=torch.uint8, device=cuda)
     before = cv_diff.pooled_cvs.launches
     with pytest.raises(RuntimeError, match="pooled_cvs"):
-        cv_diff.pooled_cvs(im1, win, 128, 1, "sad")
+        cv_diff.pooled_cvs(im1, win, 256, 1, "sad")
     assert cv_diff.pooled_cvs.launches == before
 
 
@@ -305,3 +306,105 @@ def test_cuda_capacity_modes_equal_cpu(cuda):
         on_gpu, _ = engine.estimate_flow_batched(a, b, c, device=cuda)
         on_cpu, _ = engine.estimate_flow_batched(a, b, c, device="cpu")
         assert torch.equal(on_gpu.cpu(), on_cpu), c
+
+
+def _round_inputs(cuda, rng, bs, cur, cost, spread=20):
+    """E/F/11/12 inputs at bs on 4x6 parents, B=2: windows at random
+    offsets, the dense main volume at cur, its band at store_r 3 (any cur:
+    the band is a slice of the dense volume), rival centres within +-12 of
+    the main ones and candidates within +-spread of them."""
+    b, h, w, r, r2, store_r = 2, 4 * bs, 6 * bs, 16, 12, 3
+    npy, npx = h // bs, w // bs
+    im1 = torch.as_tensor(rng.integers(0, 256, size=(b, h, w), dtype=np.uint8), device=cuda)
+    im2 = torch.as_tensor(rng.integers(0, 256, size=(b, h, w), dtype=np.uint8), device=cuda)
+
+    def offs():
+        return (torch.as_tensor(rng.integers(0, h - bs + 1, size=(b, npy * npx)),
+                                dtype=torch.int32, device=cuda),
+                torch.as_tensor(rng.integers(0, w - bs + 1, size=(b, npy * npx)),
+                                dtype=torch.int32, device=cuda))
+
+    win = gather.gather_windows(im2, *offs(), bs, r)
+    rwin = gather.gather_windows(im2, *offs(), bs, r2)
+    dense = cv_diff.pooled_cvs(im1, win, bs, r, cost, emit=[cur])[cur]
+    side, nby, nbx = 2 * r + 1, h // cur, w // cur
+    band = dense.reshape(b, side, side, nby, nbx)[:, :, r - store_r:r + store_r + 1]
+    band = band.reshape(b, side * (2 * store_r + 1), nby, nbx).contiguous()
+    pm = torch.as_tensor(rng.integers(-4, 5, size=(b, npy, npx, 2)), dtype=torch.int32,
+                         device=cuda)
+    rpm = (pm + torch.as_tensor(rng.integers(-12, 13, size=pm.shape), dtype=torch.int32,
+                                device=cuda)).contiguous()
+    f = bs // cur
+    g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
+    g0 = (g0 + torch.as_tensor(rng.integers(-spread, spread + 1, size=g0.shape),
+                               dtype=torch.int32, device=cuda)).contiguous()
+    common = dict(im1=im1, cur=cur, h=h, w=w, r=r, cost=cost)
+    forms = {
+        "E": (fused_step.color_round_hybrid, fused_step.color_step_hybrid_plain, (dense, pm),
+              dict(common, rwin=rwin, rpm=rpm, r2=r2)),
+        "F": (fused_step.color_round_hybrid_tail, fused_step.color_step_hybrid_tail_plain,
+              (band, pm), dict(common, win=win, rwin=rwin, rpm=rpm, r2=r2, store_r=store_r)),
+        "11": (fused_step.color_round_fused, fused_step.color_step_fused_plain, (pm,),
+               dict(common, win=win)),
+        "12": (fused_step.color_round_fused_rival, fused_step.color_step_fused_rival_plain, (pm,),
+               dict(common, win=win, rwin=rwin, rpm=rpm, r2=r2)),
+    }
+    return g0, forms
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cost", ["sad", "ssd"])
+@pytest.mark.parametrize("cur", [2, 4, 16])
+@pytest.mark.parametrize("form", ["E", "F", "11", "12"])
+def test_cuda_round_kernel_equals_plain_step_loop(cuda, form, cur, cost):
+    # one cooperative launch per round, grid barriers between its colour
+    # steps, against the plain steps one by one: sweeps 1, 2 and 3, B=2,
+    # bs 32 (so cur 16 has 2x2 cells a parent), candidates within +-20
+    rng = np.random.default_rng(1000 * cur + len(form) + (cost == "ssd"))
+    g0, forms = _round_inputs(cuda, rng, 32, cur, cost)
+    wrapper, step_plain, args, kw = forms[form]
+    lam = 1.5 * 32 / cur
+    for sweeps in (1, 2, 3):
+        gk, gp = g0.clone(), g0.clone()
+        before = wrapper.launches
+        wrapper(gk, *args, lam=lam, sweeps=sweeps, **kw)
+        assert wrapper.launches == before + 1
+        for mult in fused_step.sweep_lams(lam, sweeps):
+            for ci, cj in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                step_plain(gp, *args, ci=ci, cj=cj, lam_mult=mult, **kw)
+        assert not torch.equal(gp, g0)
+        assert torch.equal(gk, gp), (form, cur, cost, sweeps)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_round_kernel_splits_long_rounds(cuda):
+    # more sweeps than one launch's argument struct holds: two launches,
+    # the same steps in the same order
+    rng = np.random.default_rng(9)
+    g0, forms = _round_inputs(cuda, rng, 32, 4, "sad", spread=6)
+    wrapper, step_plain, args, kw = forms["E"]
+    sweeps = fused_step.MAX_SWEEPS + 1
+    gk, gp = g0.clone(), g0.clone()
+    before = wrapper.launches
+    wrapper(gk, *args, lam=2.0, sweeps=sweeps, **kw)
+    assert wrapper.launches == before + 2
+    fused_step.color_round_hybrid_plain(gp, *args, lam=2.0, sweeps=sweeps, **kw)
+    assert torch.equal(gk, gp)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_bs128_engine_equals_cpu(cuda):
+    # bs 128 end to end on the card (the volume kernel's bs-128 instance, D
+    # at cur 128/64/32, E at 16/8/4, F at 2) against the plain path
+    rng = np.random.default_rng(128)
+    a = rng.integers(0, 256, size=(2, 256, 384), dtype=np.uint8)
+    b = np.roll(a, (5, -9), axis=(1, 2))
+    cfg = MotionConfig(block_sizes=(128,), search_sizes=(160,), interp_factor=1,
+                       rival_radius=8)
+    assert not engine.cuda_refusals(cfg)
+    before = (cv_diff.pooled_cvs.launches, fused_step.color_round_hybrid.launches)
+    on_gpu, _ = engine.estimate_flow_batched(a, b, cfg, device=cuda)
+    assert (cv_diff.pooled_cvs.launches - before[0],
+            fused_step.color_round_hybrid.launches - before[1]) == (1, 3)
+    on_cpu, _ = engine.estimate_flow_batched(a, b, cfg, device="cpu")
+    assert torch.equal(on_gpu.cpu(), on_cpu)

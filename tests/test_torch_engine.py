@@ -158,6 +158,44 @@ def test_configs_outside_the_slice_raise(override):
         teng.estimate_flow_batched(frames, frames, _port(TINY).replace(**override), device="cpu")
 
 
+_BIG = dict(interp_factor=1, block_sizes=(128,), search_sizes=(160,))
+
+
+@pytest.mark.parametrize(
+    "fields,refused",
+    [
+        (dict(interp_factor=1), None),  # the default, every level
+        (_BIG, None),  # bs 128: the volume kernel's bs-128 instance
+        (dict(_BIG, search_sizes=(128 + 2 * 105,)), None),  # its widest window
+        (dict(_BIG, search_sizes=(128 + 2 * 106,)), "the volume kernel needs"),
+        (dict(_BIG, block_sizes=(256,), search_sizes=(288,)), "built for bs 2 .. 128"),
+        (dict(_BIG, search_sizes=(128 + 2 * 168,), regularizer="fourcolor"), None),
+        (dict(_BIG, search_sizes=(128 + 2 * 170,), regularizer="fourcolor"), "kernel 7's window"),
+        (dict(_BIG, search_sizes=(128 + 2 * 170,), regularizer="fourcolor",
+              search_order="raster"), None),  # the raster search is plain torch
+        (dict(_BIG, block_sizes=(64,), search_sizes=(64 + 420,), cv_compact=64,
+              rival_window=False), "kernel 14 needs"),
+        (dict(_BIG, block_sizes=(64,), search_sizes=(64 + 420,), cv_compact=64,
+              rival_window=False, search_impl="xla"), None),  # xla: no compact tables
+    ],
+    ids=["default", "bs128", "bs128-widest", "bs128-too-wide", "bs256", "k7-widest", "k7-too-wide",
+         "raster", "k14-too-wide", "k14-xla"],
+)
+def test_cuda_refusals_name_the_shapes_no_kernel_takes(fields, refused):
+    # check_config refuses, before any work and only on a CUDA device, the
+    # level shapes no kernel can take; the CPU's plain versions take any
+    cfg = tconfig.MotionConfig(**fields)
+    out = teng.cuda_refusals(cfg)
+    teng.check_config(cfg, "cpu")
+    if refused is None:
+        assert out == []
+        teng.check_config(cfg, "cuda")
+        return
+    assert len(out) == 1 and refused in out[0] and out[0].startswith("level 0 (bs=")
+    with pytest.raises(ValueError, match="no CUDA kernel of the port takes level 0"):
+        teng.check_config(cfg, torch.device("cuda", 0))
+
+
 def test_numpy_frames_need_a_device():
     # numpy frames without device= go to CUDA: here, with no CUDA, that
     # raises; it never runs on the CPU and returns

@@ -222,7 +222,7 @@ def test_pooled_cvs_options_are_checked(rng):
 _GRIDS = [(1, 1, 1), (1, 2, 3), (3, 8, 12), (8, 5, 8), (8, 20, 32), (8, 40, 64)]
 
 
-@pytest.mark.parametrize("bs", [2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("bs", [2, 4, 8, 16, 32, 64, 128])
 def test_volume_geometry_fits_the_block(bs):
     # the kernel's launch for every bs it is built for and every r <= 32:
     # shared memory within the H100's 232 448 bytes a block, whole warps of
@@ -434,7 +434,10 @@ def _c_params(src: str, name: str) -> list[str]:
      (sad_search, "bbme_sad_spiral_argmin", "sad_search.cu"),
      (cv_diff, "bbme_compact_tables", "cv_diff.cu"),
      (reg_step, "bbme_color_step_compact", "reg_step.cu"),
-     (fused_step, "bbme_color_step_fused", "fused_step.cu")],
+     (fused_step, "bbme_color_step_fused", "fused_step.cu"),
+     (fused_step, "bbme_color_round_hybrid", "fused_step.cu"),
+     (fused_step, "bbme_color_round_hybrid_tail", "fused_step.cu"),
+     (fused_step, "bbme_color_round_fused", "fused_step.cu")],
 )
 def test_ctypes_argtypes_match_c_signature(module, name, source):
     # the library is built only on a CUDA machine; the declared argument
@@ -449,6 +452,9 @@ def test_ctypes_argtypes_match_c_signature(module, name, source):
         "bbme_compact_tables": "TABLES_ARGTYPES",
         "bbme_color_step_compact": "COMPACT_ARGTYPES",
         "bbme_color_step_fused": "FUSED_ARGTYPES",
+        "bbme_color_round_hybrid": "ROUND_ARGTYPES",
+        "bbme_color_round_hybrid_tail": "ROUND_TAIL_ARGTYPES",
+        "bbme_color_round_fused": "ROUND_FUSED_ARGTYPES",
     }.get(name, "ARGTYPES"))
     assert len(params) == len(argtypes), (params, argtypes)
     for p, t in zip(params, argtypes):
