@@ -1,5 +1,7 @@
-// The colour steps of the sub-block rounds that recompute candidate costs
-// from window pixels instead of reading them all from stored volumes.
+// The colour steps of the windowed regularizer's rounds, a round a launch:
+// the steps that recompute candidate costs from window pixels instead of
+// reading them all from stored volumes, and the steps that read every cost
+// from stored volumes.
 //
 // Replaces blockbasedmotionestimation_tpu/kernels/fused_step.py
 //   windowed_color_step_pm_hybrid (kernel E, rounds cur <= fuse_max): main
@@ -13,9 +15,18 @@
 //     no volume at all, every main-window candidate recomputed against the
 //     main window;
 //   windowed_color_step_pm_fused_rival (kernel 12): kernel 11 plus the rival
-//     window for candidates outside the main one.
-// One template, round_kernel<Form, CUR>, for the four (CUR 2, 4, 8, 16 as
-// the rounds use them, 0 for any other cur).  A launch runs a span of
+//     window for candidates outside the main one;
+// and blockbasedmotionestimation_tpu/kernels/reg_step.py
+//   windowed_color_step_rival (kernel D, rounds at cur = bs) and
+//   windowed_color_step_pm_rival (kernel D', rounds at cur < bs): main
+//     candidates from the main volume at cur, rival candidates (outside the
+//     main window, inside the rival one) from the rival volume at cur;
+//   windowed_color_step (8) and windowed_color_step_pm (9): the same
+//     without rival windows.
+// One template, round_kernel<Form, CUR>, for the eight (CUR 2, 4, 8, 16 as
+// the rounds use them, 0 for any other cur; the stored form kStored serves
+// D, D', 8 and 9, since the cell layout here is the plain grid and the
+// parent of cell (i, j) is (i / f, j / f)).  A launch runs a span of
 // consecutive colour steps of one round: step s has colour COLORS[(step0 +
 // s) % 4] ((0,0), (0,1), (1,0), (1,1)) and multiplier lam[(step0 + s) / 4],
 // so a whole round (step0 = 0, 4 * sweeps steps) is one launch, and a span
@@ -64,6 +75,11 @@
 //   - lambda per sweep comes by value in the argument struct, computed on
 //     the host as today; energies use __fmul_rn/__fadd_rn (built with
 //     --fmad=false) and finish_step's (energy, rank) order.
+// The stored form (D, D', 8, 9) is the same step with the rival cost read
+// from the rival volume instead of recomputed: no window, no frame-1 block,
+// a cell's main and rival reads all issued at once.  Before it, D was one
+// launch a colour step of a one-thread-a-cell kernel (reg_step.cu), each
+// a few microseconds of device work behind ~30 us of host work.
 // What bounds it now (PERF.md): latency.  A block works its tiles one after
 // another (stage, barrier, cells), 2-3 blocks an SM, so a level-0 step
 // takes many times what its bytes need; at the coarse levels a step costs
@@ -91,14 +107,15 @@ constexpr int kMaxSweeps = 8;              // kernels/fused_step.py MAX_SWEEPS
 
 struct RoundArgs {
   int* grid;            // (B, nby, nbx, 2) i32, updated in place
-  const void* cv;       // E: (B, side^2, nby, nbx); F: band (B, side*side_st, nby, nbx); 11/12: null
+  const void* cv;       // E, stored: (B, side^2, nby, nbx); F: band (B, side*side_st, nby, nbx); 11/12: null
+  const void* rcv;      // stored: (B, side2^2, nby, nbx) rival volume, or null (8, 9)
   const uint8_t* im1;   // (B, h, w) frame-1 level image
   const uint8_t* win;   // F, 11, 12: (B, nP, bs + 2r, bs + 2r) main windows
   const uint8_t* rwin;  // (B, nP, bs + 2r2, bs + 2r2) rival windows; 11: null
   const int* pm;        // (B, npy, npx, 2) main window centres
-  const int* rpm;       // (B, npy, npx, 2) rival window centres; 11: null
+  const int* rpm;       // (B, npy, npx, 2) rival window centres; null without rival (11, 8, 9)
   const int* rank_table;
-  int cv16, batch, nby, nbx, f, cur, h, w, r, store_r, r2, ssd;
+  int cv16, rcv16, batch, nby, nbx, f, cur, h, w, r, store_r, r2, ssd;
   int step0, nsteps;    // the span: colour index of its first step, its steps
   float lam[kMaxSweeps];  // lambda x multiplier of each sweep the span touches
 };
@@ -118,7 +135,13 @@ __device__ __forceinline__ uint32_t word_cost(uint32_t a, uint32_t v, uint32_t a
   return sad_all(a, v, acc);
 }
 
-enum Form { kHybrid, kTail, kFused };  // E, F, 11/12
+enum Form { kHybrid, kTail, kFused, kStored };  // E, F, 11/12, D/D'/8/9
+
+// a stored cost: a u16 or i32 volume entry, widened to int
+__device__ __forceinline__ int volume_entry(const void* vol, int is16, size_t o) {
+  return is16 ? static_cast<int>(__ldg(static_cast<const uint16_t*>(vol) + o))
+              : __ldg(static_cast<const int*>(vol) + o);
+}
 
 struct Tiles {
   int mc, nc, tx, per_frame;
@@ -287,10 +310,13 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
   const int pj = j / a.f;
   const int ps = (pi - at.pr0) * kParC + pj - at.pc0;
   const int2 pmv = s_pm[ps];
-  const int2 rpmv = a.rwin != nullptr ? s_rpm[ps] : make_int2(0, 0);
+  const bool rival = a.rpm != nullptr;
+  const int2 rpmv = rival ? s_rpm[ps] : make_int2(0, 0);
   const int cr = kForm == kTail ? a.store_r : a.r;  // stored dx radius
   const Cell c{at.b, i, j};
-  uint32_t usable = 0, stored = 0, in_main = 0;
+  // stored: the main volume (or band) holds the cost; rstored: the rival
+  // volume (kStored); in_main: recomputed against the main window
+  uint32_t usable = 0, stored = 0, in_main = 0, rstored = 0;
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const int ddx = cx[k] - pmv.x;
@@ -298,8 +324,7 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
     const bool in_window = ddx >= -a.r && ddx <= a.r && ddy >= -a.r && ddy <= a.r;
     const int rdx = cx[k] - rpmv.x;
     const int rdy = cy[k] - rpmv.y;
-    const bool in_rival = a.rwin != nullptr && rdx >= -a.r2 && rdx <= a.r2 &&
-                          rdy >= -a.r2 && rdy <= a.r2;
+    const bool in_rival = rival && rdx >= -a.r2 && rdx <= a.r2 && rdy >= -a.r2 && rdy <= a.r2;
     if (((present >> k) & 1) && (in_window || in_rival) &&
         in_image(c, cur, a.h, a.w, cx[k], cy[k])) {
       usable |= 1u << k;
@@ -307,17 +332,36 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
         stored |= 1u << k;
       } else if (in_window) {
         in_main |= 1u << k;
+      } else if (kForm == kStored) {
+        rstored |= 1u << k;
       }
     }
   }
-  // every stored cost at once (a frame's volume holds < 2^31 entries a
-  // delta plane, offsets in 64 bits)
+  // every stored cost at once (a delta plane holds < 2^31 entries; offsets
+  // into a volume in 64 bits: a search-centred cur = 2 volume at B=8 holds
+  // ~5.7 G)
   const int plane = a.nby * a.nbx;
   const int cell = i * a.nbx + j;
   int cost[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) cost[k] = 0;
-  if constexpr (kForm != kFused) {
+  if constexpr (kForm == kStored) {
+    // own window first, then the rival's: u16 or i32 each, widened
+    const int side = 2 * a.r + 1;
+    const int rside = 2 * a.r2 + 1;
+    const size_t frame = static_cast<size_t>(at.b) * side * side * plane + cell;
+    const size_t rframe = static_cast<size_t>(at.b) * rside * rside * plane + cell;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const bool own = (stored >> k) & 1;
+      const int key = own ? (cy[k] - pmv.y + a.r) * side + (cx[k] - pmv.x + a.r)
+                          : (cy[k] - rpmv.y + a.r2) * rside + (cx[k] - rpmv.x + a.r2);
+      if (((stored | rstored) >> k) & 1) {
+        cost[k] = volume_entry(own ? a.cv : a.rcv, own ? a.cv16 : a.rcv16,
+                               (own ? frame : rframe) + static_cast<size_t>(key) * plane);
+      }
+    }
+  } else if constexpr (kForm != kFused) {
     const int side = 2 * a.r + 1;
     const int side_st = kForm == kTail ? 2 * a.store_r + 1 : side;
     const size_t frame = static_cast<size_t>(at.b) * side * side_st * plane + cell;
@@ -337,10 +381,11 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
       }
     }
   }
-  // the recomputes: the main window (F beyond the band, 11/12 always) or
-  // the rival window; at cur >= 4 shared out across the warp
+  // the recomputes (none in the stored form): the main window (F beyond the
+  // band, 11/12 always) or the rival window; at cur >= 4 shared out across
+  // the warp
   const uint32_t redo = usable & ~stored;
-  if (CUR == 2 ? redo != 0 : __any_sync(0xffffffffu, redo != 0)) {
+  if (kForm != kStored && (CUR == 2 ? redo != 0 : __any_sync(0xffffffffu, redo != 0))) {
     const int bs = a.f * cur;
     const int oy = (i - pi * a.f) * cur;  // the sub-block in its parent
     const int ox = (j - pj * a.f) * cur;
@@ -460,6 +505,7 @@ __device__ __forceinline__ void stage(const RoundArgs& a, const TileAt& T, int2 
       mv[m] = __ldcg(grid + gi * a.nbx + gj);
     }
   }
+  const bool rival = a.rpm != nullptr;
   const int npy = a.nby / a.f;
   const int npx = a.nbx / a.f;
   constexpr int kParPer = 2;  // f >= 2: at most 9 x 33 parents; f = 1 loops on
@@ -469,7 +515,7 @@ __device__ __forceinline__ void stage(const RoundArgs& a, const TileAt& T, int2 
     const int e = threadIdx.x + m * kThreads;
     if (e < T.npr * T.npc) {
       pm[m] = parent_of(a.pm, T, e, npy, npx);
-      if (a.rwin != nullptr) rpm[m] = parent_of(a.rpm, T, e, npy, npx);
+      if (rival) rpm[m] = parent_of(a.rpm, T, e, npy, npx);
     }
   }
 #pragma unroll
@@ -483,13 +529,13 @@ __device__ __forceinline__ void stage(const RoundArgs& a, const TileAt& T, int2 
     if (e < T.npr * T.npc) {
       const int slot = (e / T.npc) * kParC + e % T.npc;
       s_pm[slot] = pm[m];
-      if (a.rwin != nullptr) s_rpm[slot] = rpm[m];
+      if (rival) s_rpm[slot] = rpm[m];
     }
   }
   for (int e = threadIdx.x + kParPer * kThreads; e < T.npr * T.npc; e += kThreads) {
     const int slot = (e / T.npc) * kParC + e % T.npc;
     s_pm[slot] = parent_of(a.pm, T, e, npy, npx);
-    if (a.rwin != nullptr) s_rpm[slot] = parent_of(a.rpm, T, e, npy, npx);
+    if (rival) s_rpm[slot] = parent_of(a.rpm, T, e, npy, npx);
   }
 }
 
@@ -559,8 +605,9 @@ int resident_blocks(int* out) {
   return 0;
 }
 
-// Checks shared by every entry point; fills the span.  lams: n_lam values.
-int prepare(RoundArgs& a, int step0, int nsteps, const float* lams, int n_lam) {
+// Checks shared by every entry point; fills the span.  lams: n_lam values;
+// recomputes: the form reads frame-1 blocks (all but the stored one).
+int prepare(RoundArgs& a, bool recomputes, int step0, int nsteps, const float* lams, int n_lam) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (a.f < 1 || a.cur < 2 || (a.cur & (a.cur - 1)) || a.nby % a.f || a.nbx % a.f) return bad;
   if (a.nby != a.h / a.cur || a.nbx != a.w / a.cur || a.r < 0 || a.r2 < 0) return bad;
@@ -570,7 +617,7 @@ int prepare(RoundArgs& a, int step0, int nsteps, const float* lams, int n_lam) {
   }
   // the recompute's frame-1 words: rows aligned to 4 bytes (2 at cur = 2)
   const int align = a.cur >= 4 ? 4 : 2;
-  if (a.w % align || reinterpret_cast<uintptr_t>(a.im1) % align) return bad;
+  if (recomputes && (a.w % align || reinterpret_cast<uintptr_t>(a.im1) % align)) return bad;
   if (step0 < 0 || step0 > 3 || nsteps < 1 || n_lam < 1 || n_lam > kMaxSweeps ||
       (step0 + nsteps - 1) / 4 >= n_lam) {
     return bad;
@@ -605,10 +652,11 @@ int launch_cur(RoundArgs& a, void* stream) {
 }
 
 // One cooperative launch of the span; the kernel is instantiated for cur 2,
-// 4, 8 and 16 (the rounds E, F, 11 and 12 run) and for any other cur.
+// 4, 8 and 16 (the rounds E, F, 11, 12 and D' run) and for any other cur
+// (D's cur = bs rounds at 32 and beyond).
 template <Form kForm>
 int launch(RoundArgs& a, int step0, int nsteps, const float* lams, int n_lam, void* stream) {
-  const int code = prepare(a, step0, nsteps, lams, n_lam);
+  const int code = prepare(a, kForm != kStored, step0, nsteps, lams, n_lam);
   if (code != 0) return code;
   switch (a.cur) {
     case 2: return launch_cur<kForm, 2>(a, stream);
@@ -707,6 +755,25 @@ extern "C" int bbme_color_step_fused(void* grid, const void* im1,
   return launch<kFused>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }
 
+// Kernels D, D' (f = nby / npy > 1), 8 and 9 (rcv, rpm null), one colour
+// step.  grid: (B, nby, nbx, 2) i32, updated in place; cv: (B, side^2, nby,
+// nbx) main volume at cur; rcv: (B, side2^2, nby, nbx) rival volume; cv16 /
+// rcv16: u16 (1) or i32 (0) each; pm / rpm: (B, nby/f, nbx/f, 2) i32
+// window centres; rank_table: (9, 9) i32.
+extern "C" int bbme_color_step(void* grid, const void* cv, int cv16,
+                               const void* rcv, int rcv16, const void* pm,
+                               const void* rpm, const void* rank_table,
+                               int batch, int nby, int nbx, int f, int cur,
+                               int h, int w, int r, int r2, int ci, int cj,
+                               float lam, void* stream) {
+  if ((rcv == nullptr) != (rpm == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  RoundArgs a = args_of(grid, cv, cv16, nullptr, nullptr, nullptr, pm, rpm, rank_table, batch,
+                        nby, nbx, f, cur, h, w, r, -1, r2, 0);
+  a.rcv = rcv;
+  a.rcv16 = rcv16;
+  return launch<kStored>(a, colour_index(ci, cj), 1, &lam, 1, stream);
+}
+
 // The round entry points: nsweeps (1 .. 8) whole sweeps of the four colours,
 // in one cooperative launch; lams (host memory): lambda x (sweep + 1) of
 // each sweep as f32.  Arguments otherwise as the single steps above.
@@ -752,4 +819,19 @@ extern "C" int bbme_color_round_fused(void* grid, const void* im1,
   RoundArgs a = args_of(grid, nullptr, 0, im1, win, rwin, pm, rpm, rank_table, batch, nby, nbx,
                         f, cur, h, w, r, -1, r2, ssd);
   return launch<kFused>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
+}
+
+extern "C" int bbme_color_round_stored(void* grid, const void* cv, int cv16,
+                                       const void* rcv, int rcv16, const void* pm,
+                                       const void* rpm, const void* rank_table,
+                                       int batch, int nby, int nbx, int f, int cur,
+                                       int h, int w, int r, int r2,
+                                       const float* lams, int nsweeps,
+                                       void* stream) {
+  if ((rcv == nullptr) != (rpm == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  RoundArgs a = args_of(grid, cv, cv16, nullptr, nullptr, nullptr, pm, rpm, rank_table, batch,
+                        nby, nbx, f, cur, h, w, r, -1, r2, 0);
+  a.rcv = rcv;
+  a.rcv16 = rcv16;
+  return launch<kStored>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
 }

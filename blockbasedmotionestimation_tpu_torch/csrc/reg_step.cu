@@ -1,24 +1,20 @@
-// One colour step of the windowed regularizer, in place on the MV grid.
+// Kernel 10: one colour step of the cv_compact rounds, in place on the MV
+// grid.
 //
 // Replaces blockbasedmotionestimation_tpu/kernels/reg_step.py
-// windowed_color_step_rival (kernel D, rounds at cur = bs) and
-// windowed_color_step_pm_rival (kernel D', rounds at cur < bs of the
-// dense-rival form), and their non-rival forms windowed_color_step and
-// windowed_color_step_pm: one kernel for every round on stored volumes,
-// since the cell layout here is the plain grid and the parent of cell
-// (i, j) is (i / f, j / f).  Steps 1, 2 and 4-6 are step_common.cuh's,
-// shared with the hybrid steps (fused_step.cu).  Also here: kernel 10,
-// windowed_color_step_pm_compact (the cv_compact rounds cur < bs), the same
-// step with each cost looked up in a K-slot table (color_step_compact_kernel).
+// windowed_color_step_pm_compact (the cv_compact rounds cur < bs): the
+// colour step of kernels D/D'/8/9 with each cost looked up in a K-slot table
+// (color_step_compact_kernel).  D, D', 8 and 9 themselves run a round a
+// cooperative launch in fused_step.cu (round_kernel<kStored>).  Steps 1, 2
+// and 4-6 are step_common.cuh's.
 //
 // One thread per cell (i, j) of colour (ci, cj), i = ci + 2*ii, j = cj + 2*jj:
 //   1. reads its 9 candidate MVs (own + 8 neighbours, the reference's slot
 //      order) from the grid, 0 outside it;
 //   2. takes presence and tie-break rank from the border case (global
 //      extents h/cur, w/cur) and the rank table;
-//   3. picks each candidate's cost from the main volume when the candidate
-//      lies in the parent's window, else from the rival volume when it lies
-//      in the rival window (own window first);
+//   3. finds each candidate's delta from its parent's window centre among
+//      its chunk's K slots and reads the cost of the slot that holds it;
 //   4. masks candidates whose target block leaves the image;
 //   5. energy = cost + lam * smoothness in f32 with separate, correctly
 //      rounded multiply and add (__fmul_rn/__fadd_rn, no FMA), FLT_MAX when
@@ -28,10 +24,8 @@
 // race-free, and one launch per colour reproduces the reference's
 // Gauss-Seidel colour order.
 //
-// Bound: device-memory latency of the 9 data-dependent cost reads per cell
-// (~0.65 M cells per 1080p frame at cur = 2).  Neighbouring threads are
-// neighbouring cells, so on smooth motion their cost reads are neighbouring
-// addresses of one delta plane.
+// Bound: the K x 9 slot compares of each cell, and the latency of its
+// data-dependent table reads.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -41,62 +35,7 @@ namespace {
 
 using namespace bbme_step;
 
-__global__ void color_step_kernel(int* __restrict__ grid,
-                                  const void* __restrict__ cv, int cv16,
-                                  const void* __restrict__ rcv, int rcv16,
-                                  const int* __restrict__ pm,
-                                  const int* __restrict__ rpm,
-                                  const int* __restrict__ rank_table,
-                                  long long total, int nby, int nbx, int f,
-                                  int cur, int h, int w, int r, int r2,
-                                  int ci, int cj, float lam) {
-  const long long idx = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (idx >= total) return;
-  const Cell c = cell_of(idx, nby, nbx, ci, cj);
-  int cx[9], cy[9], rank[9];
-  bool present[9];
-  load_candidates(grid, rank_table, c, nby, nbx, h / cur, w / cur, cx, cy,
-                  rank, present);
-
-  const int npy = nby / f;
-  const int npx = nbx / f;
-  const size_t po = ((c.b * npy + c.i / f) * npx + c.j / f) * 2;
-  const int pmx = pm[po];
-  const int pmy = pm[po + 1];
-  const int rpmx = rpm ? rpm[po] : 0;
-  const int rpmy = rpm ? rpm[po + 1] : 0;
-  const int side = 2 * r + 1;
-  const int side2 = 2 * r2 + 1;
-  const size_t plane = static_cast<size_t>(nby) * nbx;
-  const size_t cell = static_cast<size_t>(c.i) * nbx + c.j;
-
-  int cost[9];
-  bool usable[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int ddx = cx[k] - pmx;
-    const int ddy = cy[k] - pmy;
-    const bool in_window = ddx >= -r && ddx <= r && ddy >= -r && ddy <= r;
-    bool evaluable = in_window;
-    cost[k] = 0;
-    if (in_window) {
-      const size_t key = static_cast<size_t>(ddy + r) * side + (ddx + r);
-      cost[k] = load_cost(cv, cv16, (c.b * side * side + key) * plane + cell);
-    } else if (rcv) {
-      const int rdx = cx[k] - rpmx;
-      const int rdy = cy[k] - rpmy;
-      if (rdx >= -r2 && rdx <= r2 && rdy >= -r2 && rdy <= r2) {
-        const size_t key = static_cast<size_t>(rdy + r2) * side2 + (rdx + r2);
-        cost[k] = load_cost(rcv, rcv16, (c.b * side2 * side2 + key) * plane + cell);
-        evaluable = true;
-      }
-    }
-    usable[k] = present[k] && evaluable && in_image(c, cur, h, w, cx[k], cy[k]);
-  }
-  finish_step(grid, c, nby, nbx, lam, cx, cy, rank, present, cost, usable);
-}
-
-// Kernel 10 (windowed_color_step_pm_compact): the step above with each cost
+// Kernel 10 (windowed_color_step_pm_compact): the stored step with each cost
 // taken from a K-slot table.  The cell's chunk (`chunk` consecutive parents
 // of the frame) lists K volume indices (dy + r, dx + r), -1 unused; each slot
 // is compared with the 9 candidates' deltas from the parent's window centre,
@@ -159,29 +98,6 @@ __global__ void color_step_compact_kernel(int* __restrict__ grid,
 }
 
 }  // namespace
-
-// grid: (B, nby, nbx, 2) i32, updated in place; cv: (B, side^2, nby, nbx);
-// rcv: (B, side2^2, nby, nbx) or null; pm / rpm: (B, nby/f, nbx/f, 2) i32
-// window centres (rpm null without rival); rank_table: (9, 9) i32.
-extern "C" int bbme_color_step(void* grid, const void* cv, int cv16,
-                               const void* rcv, int rcv16, const void* pm,
-                               const void* rpm, const void* rank_table,
-                               int batch, int nby, int nbx, int f, int cur,
-                               int h, int w, int r, int r2, int ci, int cj,
-                               float lam, void* stream) {
-  const long long total = static_cast<long long>(batch) * ((nby - ci + 1) / 2) *
-                          ((nbx - cj + 1) / 2);
-  if (total <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  color_step_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(grid), cv, cv16, rcv, rcv16,
-      static_cast<const int*>(pm), static_cast<const int*>(rpm),
-      static_cast<const int*>(rank_table), total, nby, nbx, f, cur, h, w, r,
-      r2, ci, cj, lam);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // Kernel 10.  grid: (B, nby, nbx, 2) i32, updated in place; table: (B, K,
 // nby, nbx) u16 (table16) or i32; slots: (B, nch, K, 2) i32, one list per

@@ -31,7 +31,8 @@ Layouts (batch written out), beside ``reg_step``'s grid / pm / rpm:
   cv:   (B, side^2, nby, nbx) main volume at cur (E);
   band: (B, side * (2 store_r + 1), nby, nbx) stored cur=2 band (F).
 
-Each kernel has two entry points.  ``color_step_*`` runs one colour step
+Each kernel has two entry points, as ``kernels.reg_step``'s stored steps
+(D, D', 8, 9) have, with which they share the round kernel.  ``color_step_*`` runs one colour step
 (colour (ci, cj), multiplier ``lam_mult``).  ``color_round_*`` runs a whole
 round: ``sweeps`` sweeps of the four colours (``ops.regularize.COLORS``),
 sweep s at multiplier ``lam * (s + 1)``, computed in Python double and
@@ -53,41 +54,14 @@ import torch
 
 from blockbasedmotionestimation_tpu_torch.kernels import _build
 from blockbasedmotionestimation_tpu_torch.kernels import reg_step as rs
-from blockbasedmotionestimation_tpu_torch.ops.regularize import (
-    COLORS,
-    step_candidates,
-    step_commit,
+from blockbasedmotionestimation_tpu_torch.kernels.reg_step import (  # noqa: F401 (re-exported)
+    MAX_SWEEPS,
+    _lam_array,
+    _round_plain,
+    _spans,
+    sweep_lams,
 )
-
-# sweeps one round launch takes (csrc/fused_step.cu kMaxSweeps: the f32
-# multipliers ride by value in the kernel's argument struct)
-MAX_SWEEPS = 8
-
-
-def sweep_lams(lam: float, sweeps: int) -> list[float]:
-    """The multiplier of each sweep of a round, ``lam * (sweep + 1)`` in
-    Python double, as the per-step loop passes it (the wrappers round it
-    to f32 once, on its way to the kernel)."""
-    return [lam * (sweep + 1) for sweep in range(sweeps)]
-
-
-def _lam_array(lams: list[float]):
-    """The f32 multipliers of one launch, as the kernel receives them."""
-    return (ctypes.c_float * len(lams))(*lams)
-
-
-def _spans(sweeps: int) -> list[range]:
-    """The sweeps of each launch of a round: MAX_SWEEPS at a time."""
-    if sweeps < 0:
-        raise ValueError(f"need sweeps >= 0, got {sweeps}")
-    return [range(s0, min(sweeps, s0 + MAX_SWEEPS)) for s0 in range(0, sweeps, MAX_SWEEPS)]
-
-
-def _round_plain(step_plain, grid, *args, lam, sweeps, **kw) -> None:
-    """A round of ``step_plain``: sweeps x the four colours, in place."""
-    for mult in sweep_lams(lam, sweeps):
-        for ci, cj in COLORS:
-            step_plain(grid, *args, ci=ci, cj=cj, lam_mult=mult, **kw)
+from blockbasedmotionestimation_tpu_torch.ops.regularize import step_candidates, step_commit
 
 
 def recompute_costs(
@@ -348,21 +322,6 @@ def _round_kernel(name: str):
     return _build.entry(name, argtypes)
 
 
-def _launch_round(wrapper, entry: str, args: tuple, grid: torch.Tensor, lam: float,
-                  sweeps: int) -> None:
-    """Run a round on the card: one cooperative launch for each span of up
-    to MAX_SWEEPS sweeps, each counted on ``wrapper``; ``args`` are the
-    entry point's arguments before ``lams``."""
-    lams = sweep_lams(lam, sweeps)
-    with torch.cuda.device(grid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for span in _spans(sweeps):
-            part = lams[span.start:span.stop]
-            code = _round_kernel(entry)(*args, _lam_array(part), len(part), stream)
-            _build.check(code, wrapper.__name__)
-            wrapper.launches += 1
-
-
 def color_round_hybrid_plain(grid, cv, pm, *, lam, sweeps, **kw) -> None:
     """A round of kernel E with torch ops: ``sweeps`` x the four colours."""
     _round_plain(color_step_hybrid_plain, grid, cv, pm, lam=lam, sweeps=sweeps, **kw)
@@ -398,7 +357,7 @@ def color_round_hybrid(
                                  r=r, r2=r2, lam=lam, sweeps=sweeps, cost=cost)
         return
     b, nby, nbx, _ = grid.shape
-    _launch_round(color_round_hybrid, "bbme_color_round_hybrid", (
+    rs._launch_round(color_round_hybrid, _round_kernel("bbme_color_round_hybrid"), (
         grid.data_ptr(), cv.data_ptr(), int(cv.dtype == torch.uint16), im1.data_ptr(),
         rwin.data_ptr(), pm.data_ptr(), rpm.data_ptr(),
         rs._rank_table_on(grid.device).data_ptr(),
@@ -434,7 +393,7 @@ def color_round_hybrid_tail(
         )
         return
     b, nby, nbx, _ = grid.shape
-    _launch_round(color_round_hybrid_tail, "bbme_color_round_hybrid_tail", (
+    rs._launch_round(color_round_hybrid_tail, _round_kernel("bbme_color_round_hybrid_tail"), (
         grid.data_ptr(), band.data_ptr(), int(band.dtype == torch.uint16), im1.data_ptr(),
         win.data_ptr(), rwin.data_ptr(), pm.data_ptr(), rpm.data_ptr(),
         rs._rank_table_on(grid.device).data_ptr(),
@@ -581,7 +540,7 @@ def _fused_round(wrapper, grid, pm, im1, win, rwin, rpm, cur, h, w, r, r2, lam, 
                      w=w, r=r, r2=r2, lam=lam, sweeps=sweeps, cost=cost)
         return
     b, nby, nbx, _ = grid.shape
-    _launch_round(wrapper, "bbme_color_round_fused", (
+    rs._launch_round(wrapper, _round_kernel("bbme_color_round_fused"), (
         grid.data_ptr(), im1.data_ptr(), win.data_ptr(),
         rwin.data_ptr() if rwin is not None else None, pm.data_ptr(),
         rpm.data_ptr() if rwin is not None else None,

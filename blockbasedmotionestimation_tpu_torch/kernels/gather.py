@@ -7,7 +7,9 @@ this replaces both ``ops/search.py:_gather_windows`` and its vmap rule, which
 stacked the padded frames vertically.
 
 For a CPU tensor the wrapper runs ``gather_windows_plain``; for a CUDA tensor
-it launches ``csrc/gather.cu``.
+it launches ``csrc/gather.cu``: a block a window, each thread 16, 8 or 4
+bytes of a window row as ``win`` allows (byte stores where ``win % 4 != 0``),
+assembled from the aligned frame words that cover them.
 """
 
 from __future__ import annotations
@@ -68,6 +70,8 @@ def gather_windows(
     for t in (im2, by, bx):
         if not t.is_contiguous():
             raise ValueError("gather_windows needs contiguous tensors")
+    if h * w >= 2**31:
+        raise ValueError(f"a {h}x{w} frame is too large for the kernel's 32-bit indices")
     n_p = by.shape[1]
     win = bs + 2 * ext
     out = torch.empty((b, n_p, win, win), dtype=torch.uint8, device=im2.device)

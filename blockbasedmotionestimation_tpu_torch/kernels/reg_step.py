@@ -1,14 +1,27 @@
-"""One colour step of the windowed regularizer, in place on the MV grid.
+"""The colour steps of the windowed regularizer on stored volumes, in place
+on the MV grid.
 
-Replaces the TPU kernels ``windowed_color_step_rival`` (rounds at cur = bs)
-and ``windowed_color_step_pm_rival`` (rounds at cur < bs of the dense-rival
-form), and without rival windows ``windowed_color_step`` and
-``windowed_color_step_pm``, with one step that serves every round on stored
-volumes; ``color_step_compact`` replaces ``windowed_color_step_pm_compact``
-(kernel 10, ``cv_compact``'s rounds cur < bs), the same step on K-slot
-tables.  ``window_deltas`` and ``select_costs`` are plain pieces the hybrid
-steps (``kernels.fused_step``) share, with ``step_candidates`` and
-``step_commit`` of ``ops.regularize``.
+Replaces the TPU kernels ``windowed_color_step_rival`` (D, rounds at cur =
+bs) and ``windowed_color_step_pm_rival`` (D', rounds at cur < bs of the
+dense-rival form), and without rival windows ``windowed_color_step`` (8)
+and ``windowed_color_step_pm`` (9), with one step that serves every round
+on stored volumes; ``color_step_compact`` replaces
+``windowed_color_step_pm_compact`` (kernel 10, ``cv_compact``'s rounds cur <
+bs), the same step on K-slot tables.  ``window_deltas`` and
+``select_costs`` are plain pieces the hybrid steps (``kernels.fused_step``)
+share, with ``step_candidates`` and ``step_commit`` of ``ops.regularize``.
+
+``color_step`` runs one colour step (colour (ci, cj), multiplier
+``lam_mult``); ``color_round_stored`` runs a whole round: ``sweeps`` sweeps
+of the four colours (``ops.regularize.COLORS``), sweep s at multiplier
+``lam * (s + 1)``, computed in Python double and rounded to f32 as the
+per-step loop rounds it (``sweep_lams``), validated once per round.  On the
+card both launch the stored form of ``csrc/fused_step.cu``'s round kernel
+(``round_kernel<kStored>``): a single step is a span of one colour step, a
+round one cooperative launch with a grid barrier between its steps (up to
+``MAX_SWEEPS`` sweeps a launch; more take several launches).  The round
+helpers here (``sweep_lams``, ``_spans``, ``_launch_round``) serve the
+round wrappers of ``kernels.fused_step`` too.
 
 Layouts (batch written out):
   grid: (B, nby, nbx, 2) int32 MVs (x, y) at sub-block size cur, updated in
@@ -20,8 +33,10 @@ Layouts (batch written out):
         and slots: (B, nch, K, 2) its chunks' slot lists (10).
 
 For CPU tensors the wrappers run ``color_step_plain`` (the XLA branch of the
-reference's ``_rounds_loop`` body, in torch) and ``color_step_compact_plain``;
-for CUDA tensors they launch ``csrc/reg_step.cu``.
+reference's ``_rounds_loop`` body, in torch; a round loops it) and
+``color_step_compact_plain``; for CUDA tensors they launch the round kernel
+(D, D', 8, 9) and ``csrc/reg_step.cu`` (10).  Nothing falls back from one to
+the other.
 """
 
 from __future__ import annotations
@@ -34,7 +49,59 @@ import torch
 from blockbasedmotionestimation_tpu_torch.kernels import _build
 from blockbasedmotionestimation_tpu_torch.ops import regularize as reg
 from blockbasedmotionestimation_tpu_torch.ops.compact import CHUNK
-from blockbasedmotionestimation_tpu_torch.ops.regularize import step_candidates, step_commit
+from blockbasedmotionestimation_tpu_torch.ops.regularize import (
+    COLORS,
+    step_candidates,
+    step_commit,
+)
+
+# sweeps one round launch takes (csrc/fused_step.cu kMaxSweeps: the f32
+# multipliers ride by value in the kernel's argument struct)
+MAX_SWEEPS = 8
+
+
+def sweep_lams(lam: float, sweeps: int) -> list[float]:
+    """The multiplier of each sweep of a round, ``lam * (sweep + 1)`` in
+    Python double, as the per-step loop passes it (the wrappers round it
+    to f32 once, on its way to the kernel)."""
+    return [lam * (sweep + 1) for sweep in range(sweeps)]
+
+
+def _lam_array(lams: list[float]):
+    """The f32 multipliers of one launch, as the kernel receives them."""
+    return (ctypes.c_float * len(lams))(*lams)
+
+
+def _spans(sweeps: int) -> list[range]:
+    """The sweeps of each launch of a round: MAX_SWEEPS at a time."""
+    if sweeps < 0:
+        raise ValueError(f"need sweeps >= 0, got {sweeps}")
+    return [range(s0, min(sweeps, s0 + MAX_SWEEPS)) for s0 in range(0, sweeps, MAX_SWEEPS)]
+
+
+def _round_plain(step_plain, grid, *args, lam, sweeps, **kw) -> None:
+    """A round of ``step_plain``: sweeps x the four colours, in place."""
+    for mult in sweep_lams(lam, sweeps):
+        for ci, cj in COLORS:
+            step_plain(grid, *args, ci=ci, cj=cj, lam_mult=mult, **kw)
+
+
+def _launch_round(wrapper, kernel, args: tuple, grid: torch.Tensor, lam: float,
+                  sweeps: int) -> int:
+    """Run a round on the card: one cooperative launch of ``kernel`` (a C
+    round entry point) for each span of up to MAX_SWEEPS sweeps, each
+    counted on ``wrapper``; ``args`` are the entry point's arguments before
+    ``lams``.  Returns the launches."""
+    lams = sweep_lams(lam, sweeps)
+    spans = _spans(sweeps)
+    with torch.cuda.device(grid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for span in spans:
+            part = lams[span.start:span.stop]
+            code = kernel(*args, _lam_array(part), len(part), stream)
+            _build.check(code, wrapper.__name__)
+            wrapper.launches += 1
+    return len(spans)
 
 
 def select_costs(
@@ -102,15 +169,20 @@ def color_step_plain(
 
 # bbme_color_step(grid, cv, cv16, rcv, rcv16, pm, rpm, rank_table, batch, nby,
 #                 nbx, f, cur, h, w, r, r2, ci, cj, lam, stream)
-ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
-)
+_STORED_HEAD = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+ARGTYPES = _STORED_HEAD + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
+# bbme_color_round_stored(grid, cv, cv16, rcv, rcv16, pm, rpm, rank_table,
+#                         batch, nby, nbx, f, cur, h, w, r, r2, lams, nsweeps,
+#                         stream)
+ROUND_ARGTYPES = _STORED_HEAD + [ctypes.c_int] * 9 + [
+    ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _kernel(per_round: bool = False):
+    if per_round:
+        return _build.entry("bbme_color_round_stored", ROUND_ARGTYPES)
     return _build.entry("bbme_color_step", ARGTYPES)
 
 
@@ -152,6 +224,44 @@ def _check_centres(name, mv, b, nby, nbx, dev):
         raise ValueError(f"{name} on {mv.device}, grid on {dev}")
 
 
+def _stored_args(grid, cv, pm, cur, h, w, r, rcv, rpm, r2, ci, cj) -> tuple:
+    """Validate a stored step's or round's inputs; returns the C entry
+    points' arguments from the grid to r2 (the colour is checked only)."""
+    _check_grid(grid, cur, h, w, ci, cj)
+    b, nby, nbx, _ = grid.shape
+    dev = grid.device
+    _check_volume("cv", cv, b, (2 * r + 1) ** 2, nby, nbx, dev)
+    _check_centres("pm", pm, b, nby, nbx, dev)
+    if (rcv is None) != (rpm is None):
+        raise ValueError("rcv and rpm go together")
+    if rcv is not None:
+        _check_volume("rcv", rcv, b, (2 * r2 + 1) ** 2, nby, nbx, dev)
+        _check_centres("rpm", rpm, b, nby, nbx, dev)
+        if rpm.shape != pm.shape:
+            raise ValueError("rpm and pm must have the same shape")
+    if dev.type != "cuda":
+        return ()
+    tensors = [grid, cv, pm] + ([rcv, rpm] if rcv is not None else [])
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the stored colour steps need contiguous tensors")
+    if nby * nbx * 2 >= 2**31 or h * w >= 2**31:
+        raise ValueError(f"a {h}x{w} frame is too large for the kernel's 32-bit indices")
+    return (
+        grid.data_ptr(), cv.data_ptr(), int(cv.dtype == torch.uint16),
+        rcv.data_ptr() if rcv is not None else None,
+        int(rcv is not None and rcv.dtype == torch.uint16),
+        pm.data_ptr(), rpm.data_ptr() if rpm is not None else None,
+        _rank_table_on(dev).data_ptr(),
+        b, nby, nbx, nby // pm.shape[1], cur, h, w, r, r2,
+    )
+
+
+def _row(rcv, grid, pm) -> str:
+    """The TPU kernel a stored step stands for: D / D' with rival windows
+    at f = 1 / f >= 2, 8 / 9 without."""
+    return ("D", "D'", "8", "9")[2 * (rcv is None) + (grid.shape[1] > pm.shape[1])]
+
+
 def color_step(
     grid: torch.Tensor,
     cv: torch.Tensor,
@@ -169,46 +279,60 @@ def color_step(
     r2: int = 0,
 ) -> None:
     """One colour step, in place; see the module docstring for layouts."""
-    _check_grid(grid, cur, h, w, ci, cj)
-    b, nby, nbx, _ = grid.shape
-    dev = grid.device
-    _check_volume("cv", cv, b, (2 * r + 1) ** 2, nby, nbx, dev)
-    _check_centres("pm", pm, b, nby, nbx, dev)
-    if (rcv is None) != (rpm is None):
-        raise ValueError("rcv and rpm go together")
-    if rcv is not None:
-        _check_volume("rcv", rcv, b, (2 * r2 + 1) ** 2, nby, nbx, dev)
-        _check_centres("rpm", rpm, b, nby, nbx, dev)
-        if rpm.shape != pm.shape:
-            raise ValueError("rpm and pm must have the same shape")
-    kw = dict(cur=cur, h=h, w=w, r=r, ci=ci, cj=cj, lam_mult=lam_mult,
-              rcv=rcv, rpm=rpm, r2=r2)
-    if dev.type == "cpu":
-        color_step_plain(grid, cv, pm, **kw)
+    args = _stored_args(grid, cv, pm, cur, h, w, r, rcv, rpm, r2, ci, cj)
+    if grid.device.type == "cpu":
+        color_step_plain(grid, cv, pm, cur=cur, h=h, w=w, r=r, ci=ci, cj=cj,
+                         lam_mult=lam_mult, rcv=rcv, rpm=rpm, r2=r2)
         return
-    tensors = [grid, cv, pm] + ([rcv, rpm] if rcv is not None else [])
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("color_step needs contiguous tensors")
-    f = nby // pm.shape[1]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _kernel()(
-            grid.data_ptr(), cv.data_ptr(), int(cv.dtype == torch.uint16),
-            rcv.data_ptr() if rcv is not None else None,
-            int(rcv is not None and rcv.dtype == torch.uint16),
-            pm.data_ptr(), rpm.data_ptr() if rpm is not None else None,
-            _rank_table_on(dev).data_ptr(),
-            b, nby, nbx, f, cur, h, w, r, r2, ci, cj, float(lam_mult), stream,
-        )
+        code = _kernel()(*args, ci, cj, float(lam_mult), stream)
     _build.check(code, "color_step")
     color_step.launches += 1
-    color_step.row_launches[("D", "D'", "8", "9")[2 * (rcv is None) + (f > 1)]] += 1
+    color_step.row_launches[_row(rcv, grid, pm)] += 1
 
 
 color_step.launches = 0
 # the TPU kernels this one kernel stands for, counted apart: D / D' with
 # rival windows at f = 1 / f >= 2, 8 / 9 without
 color_step.row_launches = dict.fromkeys(("D", "D'", "8", "9"), 0)
+
+
+def color_round_stored_plain(grid, cv, pm, *, lam, sweeps, **kw) -> None:
+    """A round of D/D'/8/9 with torch ops: ``sweeps`` x the four colours."""
+    _round_plain(color_step_plain, grid, cv, pm, lam=lam, sweeps=sweeps, **kw)
+
+
+def color_round_stored(
+    grid: torch.Tensor,
+    cv: torch.Tensor,
+    pm: torch.Tensor,
+    *,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    lam: float,
+    sweeps: int,
+    rcv: torch.Tensor | None = None,
+    rpm: torch.Tensor | None = None,
+    r2: int = 0,
+) -> None:
+    """D, D', 8 or 9, a whole round in place: ``sweeps`` sweeps of the four
+    colours, sweep s at ``lam * (s + 1)``; see the module docstring."""
+    args = _stored_args(grid, cv, pm, cur, h, w, r, rcv, rpm, r2, 0, 0)
+    if grid.device.type == "cpu":
+        color_round_stored_plain(grid, cv, pm, cur=cur, h=h, w=w, r=r, lam=lam, sweeps=sweeps,
+                                 rcv=rcv, rpm=rpm, r2=r2)
+        return
+    n = _launch_round(color_round_stored, _kernel(True), args, grid, lam, sweeps)
+    color_round_stored.row_launches[_row(rcv, grid, pm)] += n
+
+
+color_round_stored.launches = 0
+color_round_stored.row_launches = dict.fromkeys(("D", "D'", "8", "9"), 0)
+# what ops.windowed.rounds_loop calls once per round, not once per step
+color_round_stored.per_round = color_round_stored_plain.per_round = True
 
 
 # ------------------------------------------------- compact colour step (10)

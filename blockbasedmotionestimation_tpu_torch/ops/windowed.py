@@ -40,6 +40,9 @@ The form follows the reference's dispatch, in its order:
     which also recomputes the main-window candidates beyond that band.
   * otherwise every size of both windows is stored (kernel B) and every
     round runs D/D'.
+The rounds on stored volumes (D, D', 8, 9) run a round a call
+(``reg_step.color_round_stored``), as E, F, 11 and 12 do; kernel 10 runs a
+colour step a call.
 All forms give the same bits (compact: while it excludes nothing).
 """
 
@@ -60,7 +63,10 @@ from blockbasedmotionestimation_tpu_torch.kernels.fused_step import (
     color_round_hybrid,
     color_round_hybrid_tail,
 )
-from blockbasedmotionestimation_tpu_torch.kernels.reg_step import color_step, color_step_compact
+from blockbasedmotionestimation_tpu_torch.kernels.reg_step import (
+    color_round_stored,
+    color_step_compact,
+)
 from blockbasedmotionestimation_tpu_torch.ops.compact import chunk_delta_slots
 from blockbasedmotionestimation_tpu_torch.ops.regularize import COLORS, subdivide
 from blockbasedmotionestimation_tpu_torch.ops.search import block_origins, gather_windows
@@ -144,8 +150,10 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
     pop the round's volumes, so each is freed after its round).  lambda is
     lam0 * (sweep + 1) in the first round and doubles every round; colours
     run (0,0), (0,1), (1,0), (1,1).  A step marked ``per_round`` (the round
-    wrappers of ``kernels.fused_step``) is a whole round: it is called once
-    with ``lam`` and ``sweeps`` and runs the same steps in the same order.
+    wrappers of ``kernels.fused_step`` and ``reg_step.color_round_stored``)
+    is a whole round: it is called once with ``lam`` and ``sweeps`` and runs
+    the same steps in the same order; kernel 10's step is called once a
+    colour step.
     """
     cur, lam = bs, lam0
     grid = grid.contiguous()
@@ -166,12 +174,13 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
 
 
 def _stored_round(cvs, pm, r, rcvs=None, rpm=None, r2=0):
-    """A round on stored volumes, D/D' (or 8/9 without ``rcvs``)."""
+    """A round on stored volumes, D/D' (or 8/9 without ``rcvs``): one call
+    of ``color_round_stored`` a round."""
     def round_of(cur):
         kw = dict(r=r)
         if rcvs is not None:
             kw.update(rcv=rcvs.pop(cur), rpm=rpm, r2=r2)
-        return color_step, (cvs.pop(cur), pm), kw
+        return color_round_stored, (cvs.pop(cur), pm), kw
     return round_of
 
 

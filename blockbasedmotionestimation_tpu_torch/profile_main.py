@@ -19,12 +19,12 @@ prints, beside the card's name and power limit:
   - wall time per pyramid level, each level synchronised before and after;
   - launches and device time of each kernel wrapper and of each stage of a
     level (the block search, the schedule) over one more batch (CUDA events
-    around every call; B, C and 13 share one CUDA kernel, as do E, F, 11
-    and 12, so only the wrappers tell them apart), and the host time per
+    around every call; B, C and 13 share one CUDA kernel, as do D, E, F,
+    11 and 12, so only the wrappers tell them apart), and the host time per
     call of each (host clock around the call, which only enqueues);
-  - the host time per call of the colour-step wrappers that recompute
-    from windows, before and after they took whole rounds: the batch's
-    rounds of E and F (or 11/12) replayed through the round wrapper (one
+  - the host time per call of the colour-step wrappers, before and after
+    they took whole rounds: the batch's
+    rounds of D, E and F (or 11/12) replayed through the round wrapper (one
     call a round) and through the one-step wrapper (one call a colour
     step), host clock per call, the card synchronised only around each
     replay;
@@ -55,7 +55,7 @@ from blockbasedmotionestimation_tpu_torch.models import engine
 
 H, W, B = 1080, 1920, 8
 REPS = 10
-TOP = 16  # kernels listed by device time
+TOP = 24  # kernels listed by device time
 SHIFT_Y, SHIFT_X = 5, 9
 
 
@@ -75,7 +75,7 @@ def _timed_kernels(events: dict):
 
     names = {search: ["_gather", "_sad_argmin"], windowed: [
         "pooled_cvs", "deep_pooled_cvs", "full_block_volume", "compact_tables",
-        "chunk_delta_slots", "color_step", "color_round_hybrid", "color_round_hybrid_tail",
+        "chunk_delta_slots", "color_round_stored", "color_round_hybrid", "color_round_hybrid_tail",
         "color_round_fused", "color_round_fused_rival", "color_step_compact"], engine: [
         "block_search_level", "run_schedule", "windowed_schedule", "windowed_level"]}
     saved = {(m, n): getattr(m, n) for m, ns in names.items() for n in ns}
@@ -109,10 +109,11 @@ def _host_per_call(cfg, im1, im2, card: str) -> None:
     replayed each way (the grid reset to what the round met), the host
     clock around every call and the card synchronised only around each
     replay."""
-    from blockbasedmotionestimation_tpu_torch.kernels import fused_step
+    from blockbasedmotionestimation_tpu_torch.kernels import fused_step, reg_step
     from blockbasedmotionestimation_tpu_torch.ops import windowed
 
-    step_of = {fused_step.color_round_hybrid: fused_step.color_step_hybrid,
+    step_of = {reg_step.color_round_stored: reg_step.color_step,
+               fused_step.color_round_hybrid: fused_step.color_step_hybrid,
                fused_step.color_round_hybrid_tail: fused_step.color_step_hybrid_tail,
                fused_step.color_round_fused: fused_step.color_step_fused,
                fused_step.color_round_fused_rival: fused_step.color_step_fused_rival}
@@ -135,9 +136,10 @@ def _host_per_call(cfg, im1, im2, card: str) -> None:
         for n, fn in saved.items():
             setattr(windowed, n, fn)
     if not calls:
-        print("[host] this path runs no round of E, F, 11 or 12")
+        print("[host] this path runs no round of D, E, F, 11 or 12")
         return
     per = {}
+    by_name = {fn.__name__: step for fn, step in step_of.items()}
     for fn, g0, a, k in calls:
         step = step_of[fn]
         skw = {key: v for key, v in k.items() if key not in ("lam", "sweeps")}
@@ -165,7 +167,7 @@ def _host_per_call(cfg, im1, im2, card: str) -> None:
     for name, (nr, tr, ns, ts) in per.items():
         print(f"[host] {name}: {nr} calls a batch, {tr / nr * 1e6:.1f} us host time per call "
               f"({tr * 1e3:.3f} ms a batch); the same rounds through "
-              f"{step_of[getattr(fused_step, name)].__name__}: {ns} calls, "
+              f"{by_name[name].__name__}: {ns} calls, "
               f"{ts / ns * 1e6:.1f} us per call ({ts * 1e3:.3f} ms a batch) ({card})")
 
 

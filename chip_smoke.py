@@ -9,10 +9,12 @@ Phases (any failure raises and the script exits non-zero):
   3. each kernel against its plain PyTorch version on the same CUDA inputs,
      at the shapes of the 1080p level 0 at B=8, exact equality, with the
      kernel's and the plain version's times and the kernel's bound: A (main
-     and rival windows), B (the stored band at store_r 4, then the dense
+     and rival windows, beside its yardstick, one PyTorch indexing call),
+     B (the stored band at store_r 4, then the dense
      volumes of the dense-rival form), C (rival; main at cv_fused=4), 13
-     (cur = bs alone), D, D', 8 and 9 (D's kernel with and without rival, cur
-     32 and 2), E (cur 4 and 16) and F (cur 2), 11 and 12 (cur 2 and 4), on
+     (cur = bs alone), D, D', 8 and 9 (the round kernel's stored form with
+     and without rival, cur 32 and 2), E (cur 4 and 16) and F (cur 2), 11
+     and 12 (cur 2 and 4), on
      random candidates within +-20 of the window centres, each as one colour
      step and as a whole round (one cooperative launch: 2 sweeps x 4
      colours, against the plain step loop); 14 and 10 (cur 2
@@ -22,7 +24,8 @@ Phases (any failure raises and the script exits non-zero):
      volume kernel (B, C) over a sweep of shapes (bs 8/16/32, r
      0/3/12/16, sad and ssd, band on and off, C's sizes); then B and C timed
      at every level's shapes of the default path (its calls recorded on one
-     batch), with their per-batch sums, and E's and F's rounds of that batch
+     batch), with their per-batch sums, A's 8 calls of that batch each timed
+     alone beside its yardstick, and D's, E's and F's rounds of that batch
      (candidates from real search winners) against the plain step loop, each
      round timed alone, with their per-batch sums and level-0 single steps;
   4. the main path: ``estimate_flow_batched`` with ``MotionConfig(
@@ -67,9 +70,12 @@ A kernel's ``bound_ms`` is the larger of its bytes (each input read once,
 each output written once; for the colour steps only the cost entries and
 window pixels this run's candidates need) over the H100's 3.35 TB/s and its
 integer operations over 67 T/s, the card's CUDA-core (non-tensor) peak in
-its data sheet.  ``library_ms`` is null: no single PyTorch call computes a
-window gather at clipped per-parent offsets, a pooled SAD volume, a table
-of SADs at per-chunk deltas or a colour step.
+its data sheet.  ``library_ms`` is A's yardstick, the advanced-indexing
+call ``im2p[bidx, rows[..., None], cols[..., None, :]]`` on frames padded
+beforehand (the port never calls it), and null for every other row: no
+single PyTorch call computes a pooled SAD volume, a table of SADs at
+per-chunk deltas, a colour step or a per-block SAD argmin over
+data-dependent windows.
 """
 
 from __future__ import annotations
@@ -90,11 +96,11 @@ CORE_OPS_PER_S = 67e12     # H100 SXM CUDA-core peak, used for integer operation
 FUSE = 4          # cv_fused of phases 4e, 4f
 COMPACT_K = 64    # cv_compact of phase 4g (ring 3): DESIGN.md's quality-viable point
 # per-batch launches of MotionConfig(interp_factor=1): 4 levels of bs 32,
-# 2 sweeps x 4 colours per round; D at cur 32 (a launch per colour step),
-# E at 16/8/4 and F at 2 (a launch per round)
+# 2 sweeps x 4 colours per round, a launch per round: D at cur 32, E at
+# 16/8/4 and F at 2
 WANT_LAUNCHES = {"gather_windows": 8, "pooled_cvs": 4, "deep_pooled_cvs": 4,
-                 "color_step": 32, "color_step_hybrid": 0, "color_step_hybrid_tail": 0,
-                 "color_round_hybrid": 12, "color_round_hybrid_tail": 4,
+                 "color_step": 0, "color_round_stored": 4, "color_step_hybrid": 0,
+                 "color_step_hybrid_tail": 0, "color_round_hybrid": 12, "color_round_hybrid_tail": 4,
                  "sad_spiral_argmin": 0, "color_step_fused": 0, "color_step_fused_rival": 0,
                  "color_round_fused": 0, "color_round_fused_rival": 0,
                  "full_block_volume": 0, "compact_tables": 0, "color_step_compact": 0}
@@ -104,19 +110,20 @@ NONE = dict.fromkeys(WANT_LAUNCHES, 0)
 WANT_FOURCOLOR = NONE | {"gather_windows": 4, "sad_spiral_argmin": 4}
 # window_center="search" (rival on): per level the search (A, 7), the main
 # and rival windows (A twice) and their dense volumes (B twice), and 5
-# rounds x 2 sweeps x 4 colours of D
+# rounds of D/D', a launch a round
 WANT_SEARCH = NONE | {"gather_windows": 12, "sad_spiral_argmin": 4, "pooled_cvs": 8,
-                      "color_step": 160}
+                      "color_round_stored": 20}
 # cv_fused=4: per level C for the main and the rival window, D in rounds
-# 32/16/8, kernel 12 in rounds 4/2, a launch a round (11 without rival windows)
-WANT_FUSED = NONE | {"gather_windows": 8, "deep_pooled_cvs": 8, "color_step": 96,
+# 32/16/8, kernel 12 in rounds 4/2, a launch a round (8/9 and 11 without
+# rival windows)
+WANT_FUSED = NONE | {"gather_windows": 8, "deep_pooled_cvs": 8, "color_round_stored": 12,
                      "color_round_fused_rival": 8}
-WANT_FUSED_NORIVAL = NONE | {"gather_windows": 4, "deep_pooled_cvs": 4, "color_step": 96,
+WANT_FUSED_NORIVAL = NONE | {"gather_windows": 4, "deep_pooled_cvs": 4, "color_round_stored": 12,
                              "color_round_fused": 8}
-# cv_compact=64, rival off: per level 13 and 14, D (row 8) in round 32,
-# kernel 10 in rounds 16/8/4/2
+# cv_compact=64, rival off: per level 13 and 14, D (row 8) in round 32 (a
+# launch), kernel 10 in rounds 16/8/4/2 (a launch a colour step)
 WANT_COMPACT = NONE | {"gather_windows": 4, "full_block_volume": 4, "compact_tables": 4,
-                       "color_step": 32, "color_step_compact": 128}
+                       "color_round_stored": 4, "color_step_compact": 128}
 
 
 def _cmd_line(cmd: list[str], pick=None) -> str:
@@ -156,6 +163,19 @@ def _cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _gather_indexing(torch, im2, by, bx, bs: int, ext: int):
+    """Kernel A's yardstick: one PyTorch call on the frames zero-padded
+    beforehand, ``im2p[bidx, rows[..., None], cols[..., None, :]]`` (the
+    port never calls it); returns the call, its index tensors built."""
+    win = bs + 2 * ext
+    im2p = torch.nn.functional.pad(im2, (ext, ext, ext, ext))
+    ar = torch.arange(win, device=im2.device)
+    rows = by.long()[..., None] + ar
+    cols = bx.long()[..., None] + ar
+    bidx = torch.arange(im2.shape[0], device=im2.device)[:, None, None, None]
+    return lambda: im2p[bidx, rows[..., None], cols[..., None, :]]
 
 
 def _max_abs_err(torch, a, b) -> int:
@@ -200,7 +220,7 @@ def _plain_kernels():
         deep_pooled_cvs=cv_diff.deep_pooled_cvs_plain,
         full_block_volume=cv_diff.full_block_volume_plain,
         compact_tables=cv_diff.compact_tables_plain,
-        color_step=reg_step.color_step_plain,
+        color_round_stored=reg_step.color_round_stored_plain,
         color_step_compact=reg_step.color_step_compact_plain,
         color_round_hybrid=fused_step.color_round_hybrid_plain,
         color_round_hybrid_tail=fused_step.color_round_hybrid_tail_plain,
@@ -403,7 +423,8 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         for bi in range(B):
             fn(bi)
 
-    # A: the gather, main then rival windows
+    # A: the gather, main then rival windows; its yardstick, one PyTorch
+    # advanced-indexing call on the frames padded beforehand
     offs = {}
     for tag, e in (("main", ext), ("rival", r2)):
         by = torch.as_tensor(rng.integers(0, hp - bs + 1, size=(B, n_p)), dtype=torch.int32, device=dev)
@@ -412,9 +433,16 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         err = _max_abs_err(torch, k, gather.gather_windows_plain(frames, by, bx, bs, e))
         ms = _cuda_ms(torch, lambda: gather.gather_windows(frames, by, bx, bs, e), 20)
         pms = _cuda_ms(torch, lambda: gather.gather_windows_plain(frames, by, bx, bs, e), 5)
+        index = _gather_indexing(torch, frames, by, bx, bs, e)
+        err = max(err, _max_abs_err(torch, k, index()))
+        lms = _cuda_ms(torch, index, 20)
+        print(f"[kernel] A library: im2p[bidx, rows, cols] on the padded frames, {tag}: "
+              f"{lms:.4f} ms ({card})")
         record("A", "gather_windows", "gather.cu", "gather.py:58", err, ms, pms,
                (_nbytes(frames, by, bx, k), 0), f"{tag} (win {bs + 2 * e}, B={B})",
                also=["gather.py:101"])
+        if results["A"]["library_ms"] is None:  # the main window's, the first shape
+            results["A"]["library_ms"] = lms
         offs[tag] = (k, by, bx)
     wins, rwins = offs["main"][0], offs["rival"][0]
 
@@ -542,7 +570,9 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
             **rkw, **kw_of(slice(bi, bi + 1)))), 1)
         nbytes = ops = 0
         gw = g0.clone()
-        rcv_bytes = (vol.element_size() if vol is not None else 0, 0)
+        rcv = kw.get("rcv")
+        rcv_bytes = (vol.element_size() if vol is not None else 0,
+                     rcv.element_size() if rcv is not None else 0)
         for mult in fused_step.sweep_lams(rkw["lam"], rkw["sweeps"]):
             for ci, cj in windowed.COLORS:
                 nb, op = _step_work(torch, gw, base, kw.get("rpm"), kind=kind, cur=cur, h=hp,
@@ -568,17 +598,21 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         return lambda sl: dict(rcv=rcv[sl], rpm=rbase[sl], r2=r2)
 
     # D: the main path's f=1 round on C's volume; D': the dense-rival form's
-    # cur=2 round; 8 and 9: both without rival windows
+    # cur=2 round; 8 and 9: both without rival windows.  The stored form of
+    # the round kernel, each one colour step and one round; the rows are
+    # named after the round wrapper, which the paths launch
     for row, replaces, cur, rv in (("D", "reg_step.py:773", bs, rdeep),
                                    ("D'", "reg_step.py:680", 2, rdense),
                                    ("8", "reg_step.py:303", bs, None),
                                    ("9", "reg_step.py:213", 2, None)):
         pcall = {"D": "reg_step.py:835", "D'": "reg_step.py:750", "8": "reg_step.py:358",
                  "9": "reg_step.py:283"}[row]
-        steps(row, f"color_step[{row}]", "reg_step.cu", replaces, reg_step.color_step,
+        steps(row, f"color_round_stored[{row}]", "fused_step.cu", replaces, reg_step.color_step,
               reg_step.color_step_plain, cur, lambda c: dense[c],
               rival_kw(None if rv is None else rv[cur]), "D",
-              "rival" if rv is not None else "no rival", also=[pcall])
+              "rival" if rv is not None else "no rival", also=[pcall],
+              round_kernel=reg_step.color_round_stored,
+              round_plain=reg_step.color_round_stored_plain)
 
     def hybrid_kw(sl):
         return dict(im1=frames[sl], rwin=rwins[sl], rpm=rbase[sl], r2=r2, cost=cfg.cost)
@@ -771,14 +805,47 @@ def _volume_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
     return out
 
 
+def _gather_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
+    """A at every level's shapes of the default path: each call one batch
+    makes (recorded by a spy), timed alone with CUDA events, beside its
+    yardstick (``_gather_indexing``) on the same inputs; returns the times
+    by call and their per-batch sums."""
+    from blockbasedmotionestimation_tpu_torch.ops import search
+
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return gather_fn(*args)
+
+    gather_fn = search._gather
+    with _swapped(search, _gather=spy):
+        engine.estimate_flow_batched(im1, im2, cfg)
+    out = {"ms_by_call": [], "per_batch_ms": 0.0, "library_per_batch_ms": 0.0}
+    for args in calls:
+        ms = _cuda_ms(torch, lambda: gather_fn(*args), 10)
+        lms = _cuda_ms(torch, _gather_indexing(torch, *args), 10)
+        frames, by, _, bs, ext = args
+        print(f"[levels] A: level {tuple(frames.shape)}, {tuple(by.shape)} windows of "
+              f"{bs + 2 * ext}^2: {ms:.4f} ms, library {lms:.4f} ms ({card})")
+        out["ms_by_call"].append(ms)
+        out["per_batch_ms"] += ms
+        out["library_per_batch_ms"] += lms
+    del calls
+    print(f"[levels] per batch of {B}: A {out['per_batch_ms']:.4f} ms over "
+          f"{len(out['ms_by_call'])} launches (library {out['library_per_batch_ms']:.4f} ms) "
+          f"({card})")
+    return out
+
+
 def _round_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
-    """E and F on the default path's own rounds: each round one batch makes
+    """D, E and F on the default path's own rounds: each round one batch makes
     (recorded by a spy with the grid it met, so the candidates come from
     real search winners) against the plain step loop, and timed alone with
     CUDA events; at level 0 also one colour step, (1, 0) at the round's
     first multiplier, timed the same way.  Returns, by row, the round times
     by call and their per-batch sum, the level-0 steps and the worst error."""
-    from blockbasedmotionestimation_tpu_torch.kernels import fused_step
+    from blockbasedmotionestimation_tpu_torch.kernels import fused_step, reg_step
     from blockbasedmotionestimation_tpu_torch.ops import windowed
 
     calls = []
@@ -790,8 +857,10 @@ def _round_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
         call.per_round = True
         return call
 
-    fs = fused_step
+    fs, rs = fused_step, reg_step
     with _swapped(windowed,
+                  color_round_stored=spy("D", rs.color_round_stored, rs.color_round_stored_plain,
+                                         rs.color_step, rs.color_step_plain),
                   color_round_hybrid=spy("E", fs.color_round_hybrid, fs.color_round_hybrid_plain,
                                          fs.color_step_hybrid, fs.color_step_hybrid_plain),
                   color_round_hybrid_tail=spy("F", fs.color_round_hybrid_tail,
@@ -801,7 +870,7 @@ def _round_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
         engine.estimate_flow_batched(im1, im2, cfg)
     h0 = max(kw["h"] for *_, kw in calls)
     out = {row: {"ms_by_call": [], "per_batch_ms": 0.0, "level0_steps": [], "max_abs_err": 0}
-           for row in ("E", "F")}
+           for row in ("D", "E", "F")}
     for row, fn, plain, step, step_plain, g0, args, kw in calls:
         gk, gp = g0.clone(), g0.clone()
         fn(gk, *args, **kw)
@@ -831,9 +900,9 @@ def _round_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
               f"candidates: max_abs_err {serr}, {sms:.4f} ms ({card})")
         res["level0_steps"].append({"cur": kw["cur"], "step_ms": sms, "round_ms": ms})
     del calls
-    print(f"[levels] per batch of {B}: E {out['E']['per_batch_ms']:.4f} ms over "
-          f"{len(out['E']['ms_by_call'])} rounds, F {out['F']['per_batch_ms']:.4f} ms over "
-          f"{len(out['F']['ms_by_call'])} rounds ({card})")
+    print(f"[levels] per batch of {B}: " + ", ".join(
+        f"{row} {r['per_batch_ms']:.4f} ms over {len(r['ms_by_call'])} rounds"
+        for row, r in out.items()) + f" ({card})")
     bad = [row for row, r in out.items() if r["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"rounds on search winners disagree with the plain loop: {bad}")
@@ -848,21 +917,22 @@ def _drive(torch, engine, cfg, im1, im2, counters: dict, want: dict, tag: str, c
     at least once); the interior must hold the known flow and every frame
     must equal the plain path on the card.  Prints the launches, the median
     of ``reps`` batches in fields/s and the peak memory; returns the
-    launches by wrapper, the colour step's launches by TPU kernel row
-    (D, D', 8, 9) and the flow."""
+    launches by wrapper, the stored form's launches by TPU kernel row (D,
+    D', 8, 9; rounds and single steps) and the flow."""
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    rows = counters["color_step"].row_launches
-    for row in rows:
-        rows[row] = 0
+    by_row = [counters[name].row_launches for name in ("color_round_stored", "color_step")]
+    for rows in by_row:
+        for row in rows:
+            rows[row] = 0
     t0 = time.time()
     flow, pad = engine.estimate_flow_batched(im1, im2, cfg)
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    rows = dict(rows)
-    print(f"[{tag}] launches: {launches} (expected {want}); color_step by row {rows}")
+    rows = {row: sum(r[row] for r in by_row) for row in by_row[0]}
+    print(f"[{tag}] launches: {launches} (expected {want}); the stored form by row {rows}")
     if any(launches[name] == 0 for name, n in want.items() if n):
         raise AssertionError(f"[{tag}] a kernel of the path was never launched")
     if launches != want:
@@ -969,13 +1039,14 @@ def main() -> int:
     for row, timed in _volume_levels(torch, engine, cfg, im1, im2, card).items():
         results[row].update(timed)
     torch.cuda.empty_cache()
+    results["A"].update(_gather_levels(torch, engine, cfg, im1, im2, card))
     for row, timed in _round_levels(torch, engine, cfg, im1, im2, card).items():
         err = max(results[row]["max_abs_err"], timed.pop("max_abs_err"))
         results[row].update(timed, max_abs_err=err)
     torch.cuda.empty_cache()
     counters = {f.__name__: f for f in (
         gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs, reg_step.color_step,
-        fused_step.color_step_hybrid, fused_step.color_step_hybrid_tail,
+        reg_step.color_round_stored, fused_step.color_step_hybrid, fused_step.color_step_hybrid_tail,
         fused_step.color_round_hybrid, fused_step.color_round_hybrid_tail,
         sad_search.sad_spiral_argmin, fused_step.color_step_fused,
         fused_step.color_step_fused_rival, fused_step.color_round_fused,
@@ -1093,7 +1164,7 @@ def main() -> int:
              "fourcolor": "MotionConfig(interp_factor=1, regularizer='fourcolor')",
              "search": "MotionConfig(interp_factor=1, window_center='search')"}
     for row, res in results.items():
-        counts = by_row if res["name"].startswith("color_step[") else by_path
+        counts = by_row if res["name"].startswith("color_round_stored[") else by_path
         key = row if counts is by_row else res["name"]
         res["launches_by_path"] = {tag: counts[tag][key] for tag in paths}
         tag = next((t for t in paths if res["launches_by_path"][t] > 0), None)

@@ -65,6 +65,36 @@ def test_cuda_kernels_equal_plain(cuda, bs, ext, r2):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("bs,ext", [(2, 1), (4, 3), (4, 4), (8, 4), (8, 8), (8, 16), (32, 12),
+                                    (32, 16)])
+def test_cuda_gather_equals_plain(cuda, bs, ext):
+    # kernel A at win 4, 10, 12, 16, 24, 40, 56 and 64 (every store width:
+    # 16, 8 or 4 bytes, or bytes where win % 4 != 0), B=3, windows at every
+    # corner and edge of the frame and at every column residue mod 16, on
+    # frames whose rows start at every byte alignment (odd widths, and a
+    # view at an offset of 0-3 bytes into its buffer)
+    rng = np.random.default_rng(1000 + 100 * bs + ext)
+    b, n = 3, 64
+    for w_extra, off in ((0, 0), (1, 1), (3, 2), (5, 3)):
+        h, w = 3 * bs + 5, 5 * bs + 16 + w_extra
+        buf = torch.as_tensor(rng.integers(0, 256, size=off + b * h * w, dtype=np.uint8),
+                              device=cuda)
+        im2 = buf[off:].view(b, h, w)
+        assert im2.is_contiguous() and im2.data_ptr() % 4 == off
+        by = rng.integers(0, h - bs + 1, size=(b, n)).astype(np.int32)
+        bx = rng.integers(0, w - bs + 1, size=(b, n)).astype(np.int32)
+        ys, xs = (0, (h - bs) // 2, h - bs), (0, (w - bs) // 2, w - bs)
+        edges = [(y, x) for y in ys for x in xs if (y, x) != (ys[1], xs[1])]
+        by[0, :8], bx[0, :8] = zip(*edges)
+        bx[1, :16] = 5 + np.arange(16)
+        by, bx = (torch.as_tensor(a, device=cuda) for a in (by, bx))
+        before = gather.gather_windows.launches
+        got = gather.gather_windows(im2, by, bx, bs, ext)
+        assert gather.gather_windows.launches == before + 1
+        assert torch.equal(got, gather.gather_windows_plain(im2, by, bx, bs, ext)), (w, off)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("r", [0, 1, 3, 12, 16])
 @pytest.mark.parametrize("bs", [2, 4, 8, 16, 32, 64, 128])
 def test_cuda_volume_kernel_equals_plain(cuda, bs, r):
@@ -408,3 +438,56 @@ def test_cuda_bs128_engine_equals_cpu(cuda):
             fused_step.color_round_hybrid.launches - before[1]) == (1, 3)
     on_cpu, _ = engine.estimate_flow_batched(a, b, cfg, device="cpu")
     assert torch.equal(on_gpu.cpu(), on_cpu)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("widths", ["u16,i32", "i32,u16", "u16,u16", "i32,i32"])
+@pytest.mark.parametrize("cur", [2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("form", ["D", "D'", "8", "9"])
+def test_cuda_stored_round_equals_plain_step_loop(cuda, form, cur, widths):
+    # the stored form of the round kernel (D, D', 8, 9) against the plain
+    # steps one by one: f = 1 (D, 8) and f = 2 (D', 9) on 20x70 parents, B=2
+    # (several tiles a colour), main and rival volumes of the given widths
+    # (random costs, up to 2^24 in i32), rival centres within +-12 of the
+    # main ones and candidates within +-20 of them; sweeps 1, 2, 3 in one
+    # launch and MAX_SWEEPS + 1 in two; and one colour step (a span of one)
+    gen = torch.Generator(device=cuda).manual_seed(100 * cur + len(form) + len(widths))
+    b, npy, npx, r, r2 = 2, 20, 70, 7, 5
+    f = 1 if form in ("D", "8") else 2
+    nby, nbx = npy * f, npx * f
+    h, w = nby * cur, nbx * cur
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=cuda, dtype=torch.int64).to(dtype)
+
+    def volume(side, width):
+        if width == "u16":
+            return ints(0, 2**16, (b, side * side, nby, nbx), torch.uint16)
+        return ints(0, 2**24, (b, side * side, nby, nbx))
+
+    cv_w, rcv_w = widths.split(",")
+    cv = volume(2 * r + 1, cv_w)
+    pm = ints(-4, 5, (b, npy, npx, 2))
+    kw = dict(cur=cur, h=h, w=w, r=r)
+    if form in ("D", "D'"):
+        rpm = (pm + ints(-12, 13, pm.shape)).contiguous()
+        kw.update(rcv=volume(2 * r2 + 1, rcv_w), rpm=rpm, r2=r2)
+    g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
+    g0 = (g0 + ints(-20, 21, g0.shape)).contiguous()
+    lam = 1.5 * 32 / cur
+    rows = reg_step.color_round_stored.row_launches
+    for sweeps in (1, 2, 3, fused_step.MAX_SWEEPS + 1):
+        gk, gp = g0.clone(), g0.clone()
+        before = (reg_step.color_round_stored.launches, rows[form])
+        reg_step.color_round_stored(gk, cv, pm, lam=lam, sweeps=sweeps, **kw)
+        n = len(fused_step._spans(sweeps))
+        assert (reg_step.color_round_stored.launches, rows[form]) == (before[0] + n, before[1] + n)
+        reg_step.color_round_stored_plain(gp, cv, pm, lam=lam, sweeps=sweeps, **kw)
+        assert not torch.equal(gp, g0)
+        assert torch.equal(gk, gp), (form, cur, widths, sweeps)
+    gk, gp = g0.clone(), g0.clone()
+    before = reg_step.color_step.row_launches[form]
+    reg_step.color_step(gk, cv, pm, ci=1, cj=0, lam_mult=lam, **kw)
+    assert reg_step.color_step.row_launches[form] == before + 1
+    reg_step.color_step_plain(gp, cv, pm, ci=1, cj=0, lam_mult=lam, **kw)
+    assert torch.equal(gk, gp)

@@ -42,14 +42,22 @@ def _frames(rng, b, h, w):
 
 # ---------------------------------------------------------------- gather (A)
 
-@pytest.mark.parametrize("bs,ext", [(8, 4), (8, 8), (4, 2)])
+@pytest.mark.parametrize("bs,ext", [(8, 4), (8, 8), (4, 2), (4, 3), (4, 4), (8, 16), (32, 12),
+                                    (32, 16)])
 def test_gather_matches_jax_batched(rng, bs, ext):
+    # win 16, 24, 8, 10, 12, 40, 56 and 64: every store width of the kernel
+    # (16, 8 or 4 bytes, or bytes where win % 4 != 0); windows at every
+    # corner and edge of the frame (zero-padded reads) and at every column
+    # residue mod 16 (a row's chunk starts at any byte)
     b, h, w = 3, 40, 56
     im = _frames(rng, b, h, w)
-    n = 11
+    n = 20
     by = rng.integers(0, h - bs + 1, size=(b, n)).astype(np.int32)
     bx = rng.integers(0, w - bs + 1, size=(b, n)).astype(np.int32)
-    by[0, :2], bx[0, :2] = (0, h - bs), (w - bs, 0)  # corners: zero-padded reads
+    ys, xs = (0, (h - bs) // 2, h - bs), (0, (w - bs) // 2, w - bs)
+    edges = [(y, x) for y in ys for x in xs if (y, x) != (ys[1], xs[1])]
+    by[0, :8], bx[0, :8] = zip(*edges)
+    bx[1, :16] = 3 + np.arange(16)
     want = np.asarray(
         jax.vmap(lambda i, y, x: _gather_windows(i, y, x, bs, ext))(
             jnp.asarray(im), jnp.asarray(by), jnp.asarray(bx)
@@ -428,7 +436,7 @@ def _c_params(src: str, name: str) -> list[str]:
     "module,name,source",
     [(gather, "bbme_gather_windows", "gather.cu"),
      (cv_diff, "bbme_pooled_cvs", "cv_diff.cu"),
-     (reg_step, "bbme_color_step", "reg_step.cu"),
+     (reg_step, "bbme_color_step", "fused_step.cu"),
      (fused_step, "bbme_color_step_hybrid", "fused_step.cu"),
      (fused_step, "bbme_color_step_hybrid_tail", "fused_step.cu"),
      (sad_search, "bbme_sad_spiral_argmin", "sad_search.cu"),
@@ -437,7 +445,8 @@ def _c_params(src: str, name: str) -> list[str]:
      (fused_step, "bbme_color_step_fused", "fused_step.cu"),
      (fused_step, "bbme_color_round_hybrid", "fused_step.cu"),
      (fused_step, "bbme_color_round_hybrid_tail", "fused_step.cu"),
-     (fused_step, "bbme_color_round_fused", "fused_step.cu")],
+     (fused_step, "bbme_color_round_fused", "fused_step.cu"),
+     (reg_step, "bbme_color_round_stored", "fused_step.cu")],
 )
 def test_ctypes_argtypes_match_c_signature(module, name, source):
     # the library is built only on a CUDA machine; the declared argument
@@ -455,6 +464,7 @@ def test_ctypes_argtypes_match_c_signature(module, name, source):
         "bbme_color_round_hybrid": "ROUND_ARGTYPES",
         "bbme_color_round_hybrid_tail": "ROUND_TAIL_ARGTYPES",
         "bbme_color_round_fused": "ROUND_FUSED_ARGTYPES",
+        "bbme_color_round_stored": "ROUND_ARGTYPES",
     }.get(name, "ARGTYPES"))
     assert len(params) == len(argtypes), (params, argtypes)
     for p, t in zip(params, argtypes):

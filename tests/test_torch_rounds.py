@@ -1,9 +1,10 @@
-"""The round form of kernels E, F, 11 and 12 on the CPU.
+"""The round form of kernels E, F, 11, 12 and D, D', 8, 9 on the CPU.
 
-``kernels.fused_step.color_round_*`` run a whole round (``sweeps`` sweeps
-of the four colours) in one call: on the card one cooperative launch with a
-grid barrier between colour steps (``tests/test_torch_cuda.py`` holds it to
-the plain step loop there), on the CPU the plain steps in the same order.
+``kernels.fused_step.color_round_*`` and ``kernels.reg_step.
+color_round_stored`` run a whole round (``sweeps`` sweeps of the four
+colours) in one call: on the card one cooperative launch with a grid
+barrier between colour steps (``tests/test_torch_cuda.py`` holds it to the
+plain step loop there), on the CPU the plain steps in the same order.
 Here: the round wrappers equal the per-step wrappers called colour by
 colour, the f32 multipliers a launch receives are those the per-step loop
 rounds, rounds longer than one launch split into spans, and
@@ -20,35 +21,64 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step
+from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, reg_step
 from blockbasedmotionestimation_tpu_torch.ops import windowed
 from blockbasedmotionestimation_tpu_torch.ops.regularize import COLORS
 
-BS, H, W, R, R2, STORE_R = 8, 32, 48, 5, 3, 2
+BS, R, R2, STORE_R = 8, 5, 3, 2
+STORED = ("D", "D'", "8", "9")  # reg_step's stored forms: rival at f = 1 / f > 1, then none
 
 
-def _inputs(rng, cur, cost):
-    """Seeded numpy inputs at bs 8 on 4x6 parents, B=2: windows, the dense
-    main volume at cur, its band (every dy row, |dx| <= STORE_R), window
+def _bs_of(form: str, cur: int) -> int:
+    """The block size a case runs at: D and 8 are the rounds at cur = bs
+    (f = 1), D' and 9 those below it (f >= 2); the other forms at BS, or
+    cur where it is larger."""
+    if form in ("D", "8"):
+        return cur
+    if form in ("D'", "9"):
+        return max(BS, 2 * cur)
+    return max(BS, cur)
+
+
+def _other_width(vol):
+    """The volume in the other of the stored widths (u16 <-> i32) where its
+    values allow, so that the main and rival volumes of a case differ."""
+    if vol.dtype == torch.uint16:
+        return vol.to(torch.int32)
+    return vol.to(torch.uint16) if int(vol.max()) < 2**16 else vol
+
+
+def _inputs(rng, cur, cost, bs=BS):
+    """Seeded numpy inputs at bs on 4x6 parents, B=2: windows, the dense
+    main volume at cur, its band (every dy row, |dx| <= STORE_R), the rival
+    window's volume at cur (in the other width where it fits), window
     centres and candidates within +-9 of them (in band, in the tail, rival
     only, unevaluable and off the frame's edge)."""
-    b, npy, npx = 2, H // BS, W // BS
-    im1 = torch.as_tensor(rng.integers(0, 256, size=(b, H, W), dtype=np.uint8))
-    win = torch.as_tensor(rng.integers(0, 256, size=(b, npy * npx, BS + 2 * R, BS + 2 * R),
+    b, npy, npx = 2, 4, 6
+    h, w = npy * bs, npx * bs
+    im1 = torch.as_tensor(rng.integers(0, 256, size=(b, h, w), dtype=np.uint8))
+    win = torch.as_tensor(rng.integers(0, 256, size=(b, npy * npx, bs + 2 * R, bs + 2 * R),
                                        dtype=np.uint8))
-    rwin = torch.as_tensor(rng.integers(0, 256, size=(b, npy * npx, BS + 2 * R2, BS + 2 * R2),
+    rwin = torch.as_tensor(rng.integers(0, 256, size=(b, npy * npx, bs + 2 * R2, bs + 2 * R2),
                                         dtype=np.uint8))
-    dense = cv_diff.pooled_cvs(im1, win, BS, R, cost, emit=[cur])[cur]
-    side, nby, nbx = 2 * R + 1, H // cur, W // cur
+    dense = cv_diff.pooled_cvs(im1, win, bs, R, cost, emit=[cur])[cur]
+    rdense = _other_width(cv_diff.pooled_cvs(im1, rwin, bs, R2, cost, emit=[cur])[cur])
+    side, nby, nbx = 2 * R + 1, h // cur, w // cur
     band = dense.reshape(b, side, side, nby, nbx)[:, :, R - STORE_R:R + STORE_R + 1]
     band = band.reshape(b, side * (2 * STORE_R + 1), nby, nbx).contiguous()
     pm = torch.as_tensor(rng.integers(-3, 4, size=(b, npy, npx, 2)), dtype=torch.int32)
     rpm = pm + torch.as_tensor(rng.integers(-6, 7, size=pm.shape), dtype=torch.int32)
-    f = BS // cur
+    f = bs // cur
     g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
     g0 = g0 + torch.as_tensor(rng.integers(-9, 10, size=g0.shape), dtype=torch.int32)
-    common = dict(im1=im1, cur=cur, h=H, w=W, r=R, cost=cost)
+    common = dict(im1=im1, cur=cur, h=h, w=w, r=R, cost=cost)
+    stored = dict(cur=cur, h=h, w=w, r=R)
+    rival = dict(stored, rcv=rdense, rpm=rpm, r2=R2)
+    steps = (reg_step.color_round_stored, reg_step.color_step)
     return g0, {
+        # the stored forms: D / D' or 8 / 9 by f, whatever the key
+        "D": steps + ((dense, pm), rival), "D'": steps + ((dense, pm), rival),
+        "8": steps + ((dense, pm), stored), "9": steps + ((dense, pm), stored),
         "E": (fused_step.color_round_hybrid, fused_step.color_step_hybrid, (dense, pm),
               dict(common, rwin=rwin, rpm=rpm, r2=R2)),
         "F": (fused_step.color_round_hybrid_tail, fused_step.color_step_hybrid_tail, (band, pm),
@@ -61,16 +91,22 @@ def _inputs(rng, cur, cost):
 
 
 @pytest.mark.parametrize("cost", ["sad", "ssd"])
-@pytest.mark.parametrize("cur", [2, 4])
-@pytest.mark.parametrize("form", ["E", "F", "11", "12"])
+@pytest.mark.parametrize("cur", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("form", ["E", "F", "11", "12", *STORED])
 def test_round_wrappers_equal_the_step_loop(form, cur, cost):
+    # the stored forms: sad volumes are u16 up to bs 16 and i32 above, ssd
+    # ones i32; each case's rival volume is in the other width where it fits
     rng = np.random.default_rng(10 * cur + len(form) + (cost == "ssd"))
-    g0, forms = _inputs(rng, cur, cost)
+    bs = _bs_of(form, cur)
+    g0, forms = _inputs(rng, cur, cost, bs)
     round_fn, step_fn, args, kw = forms[form]
     assert round_fn.per_round and not getattr(step_fn, "per_round", False)
+    if form in STORED:
+        assert reg_step._row(kw.get("rcv"), g0, args[1]) == form
     lam = 3.0 * BS / cur
     launches = round_fn.launches
-    for sweeps in (1, 2, 3):
+    # a round longer than one launch takes (two spans on the card)
+    for sweeps in (1, 2, 3) + ((fused_step.MAX_SWEEPS + 1,) if form in STORED else ()):
         got, want = g0.clone(), g0.clone()
         round_fn(got, *args, lam=lam, sweeps=sweeps, **kw)
         for sweep in range(sweeps):
@@ -85,20 +121,26 @@ def test_round_wrappers_validate_once_per_round(monkeypatch):
     rng = np.random.default_rng(5)
     g0, forms = _inputs(rng, 4, "sad")
     calls = []
-    checked = fused_step._checked
 
-    def counting(*a, **k):
-        calls.append(1)
-        return checked(*a, **k)
+    def counting(fn):
+        def call(*a, **k):
+            calls.append(1)
+            return fn(*a, **k)
+        return call
 
-    monkeypatch.setattr(fused_step, "_checked", counting)
+    monkeypatch.setattr(fused_step, "_checked", counting(fused_step._checked))
+    monkeypatch.setattr(reg_step, "_stored_args", counting(reg_step._stored_args))
     for round_fn, _, args, kw in forms.values():
         calls.clear()
         round_fn(g0.clone(), *args, lam=2.0, sweeps=3, **kw)
         assert len(calls) == 1, round_fn.__name__
-    with pytest.raises(ValueError):  # a volume of another radius, caught once up front
-        round_fn, _, (dense, pm), kw = forms["E"]
-        round_fn(g0.clone(), dense[:, :9], pm, lam=2.0, sweeps=2, **kw)
+    for form in ("E", "D'"):  # a volume of another radius, caught once up front
+        with pytest.raises(ValueError):
+            round_fn, _, (dense, pm), kw = forms[form]
+            round_fn(g0.clone(), dense[:, :9], pm, lam=2.0, sweeps=2, **kw)
+    round_fn, _, args, kw = forms["D'"]
+    with pytest.raises(ValueError):  # rival centres without a rival volume
+        round_fn(g0.clone(), *args, lam=2.0, sweeps=2, **dict(kw, rcv=None))
 
 
 def test_sweep_multipliers_are_f32_of_the_double_products():
@@ -153,3 +195,33 @@ def test_rounds_loop_calls_a_round_callable_once_per_round():
             for c, lam in ((16, 8.0), (8, 16.0)) for s in range(2) for ci, cj in COLORS]
     want += [("round", "t", 4, 32.0, 2), ("round", "t", 2, 64.0, 2)]
     assert calls == want
+
+
+@pytest.mark.parametrize("rival", [True, False])
+def test_rounds_loop_calls_the_stored_round_once_per_round(monkeypatch, rival):
+    # the search-centred schedule stores every volume, so each of its
+    # rounds (cur 8, 4, 2) is one call of the stored round wrapper with the
+    # round's lambda and sweeps, and no colour step is called on its own
+    from blockbasedmotionestimation_tpu_torch.ops.windowed import windowed_schedule
+
+    calls, steps = [], []
+
+    def spy(grid, cv, pm, **kw):
+        calls.append((kw["cur"], kw["lam"], kw["sweeps"], "rcv" in kw))
+        return reg_step.color_round_stored(grid, cv, pm, **kw)
+
+    spy.per_round = True
+
+    def step(*a, **k):
+        steps.append(1)
+        return reg_step.color_step(*a, **k)
+
+    monkeypatch.setattr(windowed, "color_round_stored", spy)
+    monkeypatch.setattr(reg_step, "color_step", step)
+    rng = np.random.default_rng(3)
+    im = torch.as_tensor(rng.integers(0, 256, size=(1, 32, 48), dtype=np.uint8))
+    grid0 = torch.as_tensor(rng.integers(-2, 3, size=(1, 4, 6, 2)), dtype=torch.int32)
+    out = windowed_schedule(im, torch.roll(im, 1, 2), grid0, 8, 16, 1.0, 2, rival=rival)
+    assert out.shape == (1, 32, 48, 2)
+    assert calls == [(8, 1.0, 2, rival), (4, 2.0, 2, rival), (2, 4.0, 2, rival)]
+    assert not steps
