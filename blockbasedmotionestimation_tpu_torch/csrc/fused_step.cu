@@ -22,17 +22,20 @@
 //     candidates from the main volume at cur, rival candidates (outside the
 //     main window, inside the rival one) from the rival volume at cur;
 //   windowed_color_step (8) and windowed_color_step_pm (9): the same
-//     without rival windows.
-// One template, round_kernel<Form, CUR>, for the eight (CUR 2, 4, 8, 16 as
+//     without rival windows;
+//   windowed_color_step_pm_compact (kernel 10, cv_compact's rounds cur <
+//     bs): the stored step without rival windows, each cost taken from a
+//     K-slot table at the slot of the cell's chunk that holds its delta.
+// One template, round_kernel<Form, CUR>, for the nine (CUR 2, 4, 8, 16 as
 // the rounds use them, 0 for any other cur; the stored form kStored serves
 // D, D', 8 and 9, since the cell layout here is the plain grid and the
-// parent of cell (i, j) is (i / f, j / f)).  A launch runs a span of
-// consecutive colour steps of one round: step s has colour COLORS[(step0 +
-// s) % 4] ((0,0), (0,1), (1,0), (1,1)) and multiplier lam[(step0 + s) / 4],
-// so a whole round (step0 = 0, 4 * sweeps steps) is one launch, and a span
-// of one step is a single colour step.  Each step updates the MV grid in
-// place; all 8 neighbours of a cell have another colour, so a step's writes
-// never meet its own reads.
+// parent of cell (i, j) is (i / f, j / f); kCompact serves 10).  A launch
+// runs a span of consecutive colour steps of one round: step s has colour
+// COLORS[(step0 + s) % 4] ((0,0), (0,1), (1,0), (1,1)) and multiplier
+// lam[(step0 + s) / 4], so a whole round (step0 = 0, 4 * sweeps steps) is
+// one launch, and a span of one step is a single colour step.  Each step
+// updates the MV grid in place; all 8 neighbours of a cell have another
+// colour, so a step's writes never meet its own reads.
 //
 // A recomputed cost is the cur x cur SAD (or SSD) of the cell's frame-1
 // sub-block against the window the volumes were built from, at the
@@ -74,27 +77,67 @@
 //     cells with rival recomputes set the time of E at cur 16 and 8);
 //   - lambda per sweep comes by value in the argument struct, computed on
 //     the host as today; energies use __fmul_rn/__fadd_rn (built with
-//     --fmad=false) and finish_step's (energy, rank) order.
+//     --fmad=false) and the reference's (energy, rank) order.
 // The stored form (D, D', 8, 9) is the same step with the rival cost read
 // from the rival volume instead of recomputed: no window, no frame-1 block,
 // a cell's main and rival reads all issued at once.  Before it, D was one
-// launch a colour step of a one-thread-a-cell kernel (reg_step.cu), each
-// a few microseconds of device work behind ~30 us of host work.
+// launch a colour step of a one-thread-a-cell kernel, each a few
+// microseconds of device work behind ~30 us of host work.
+// The compact form (kernel 10) is the stored form without rival windows,
+// each cost's plane looked up: a chunk's K slots hold distinct deltas, so
+// the map smap (ops/compact.py slot_map: (B, nch, side^2) u16, the slot
+// of each delta key (dy + r) * side + (dx + r), 0xFFFF where none; built
+// once a level, ~350 KB at the 1080p level 0, L2-resident) turns each
+// candidate's delta into its slot with one read, and the table entry of
+// that slot is the cost: a cell issues its 9 map reads at once, then its
+// table reads at once.  A candidate in no slot (or outside the window) is
+// excluded, and if the cell's own MV is in none, every candidate is (the
+// reference's incumbent-safety guard: the all-FLT_MAX tie goes to rank 0,
+// the own MV).  Before it, kernel 10 was one launch a colour step of a
+// one-thread-a-cell kernel that compared each of its 9 candidates with all
+// K slots of its chunk (576 compares a cell at K = 64).
 // What bounds it now (PERF.md): latency.  A block works its tiles one after
 // another (stage, barrier, cells), 2-3 blocks an SM, so a level-0 step
 // takes many times what its bytes need; at the coarse levels a step costs
 // a few microseconds whatever its size (staging, cells and grid barrier in
 // turn).
+#include <cfloat>
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "step_common.cuh"
-
 namespace {
 
 namespace cg = cooperative_groups;
-using namespace bbme_step;
+
+// the reference's slot order: own MV first, then the 8 neighbours
+__constant__ int kSlotDy[9] = {0, 0, 0, 1, -1, -1, -1, 1, 1};
+__constant__ int kSlotDx[9] = {0, -1, 1, 1, -1, 1, 0, 0, -1};
+constexpr int kBigRank = 127;  // a rank-table entry that marks an absent slot
+
+// The border case of cell (i, j) of an nby x nbx grid: the row of the rank
+// table (the reference's _finish_step tie-break ranks).
+__device__ __forceinline__ int border_case(int i, int j, int nby, int nbx) {
+  const bool rows_in = i > 0 && i < nby - 1;
+  const bool cols_in = j > 0 && j < nbx - 1;
+  if (rows_in && cols_in) return 0;     // interior
+  if (i == 0 && cols_in) return 1;      // top row
+  if (i == nby - 1 && cols_in) return 2;  // bottom row
+  if (j == 0 && rows_in) return 3;      // left col
+  if (j == nbx - 1 && rows_in) return 4;  // right col
+  if (i == 0 && j == 0) return 5;       // top-left
+  if (i == 0) return 6;                 // top-right
+  if (j == 0) return 7;                 // bottom-left
+  return 8;                             // bottom-right
+}
+
+// Whether candidate (cx, cy) of cell (i, j) keeps its cur x cur target
+// block in the h x w frame.
+__device__ __forceinline__ bool in_image(int i, int j, int cur, int h, int w, int cx, int cy) {
+  const int tx = j * cur + cx;
+  const int ty = i * cur + cy;
+  return tx >= 0 && tx <= w - cur && ty >= 0 && ty <= h - cur;
+}
 
 constexpr int kTileW = 32;                 // cells of a tile row: one warp
 constexpr int kTileR = 8;                  // rows of a tile: the block's warps
@@ -107,7 +150,8 @@ constexpr int kMaxSweeps = 8;              // kernels/fused_step.py MAX_SWEEPS
 
 struct RoundArgs {
   int* grid;            // (B, nby, nbx, 2) i32, updated in place
-  const void* cv;       // E, stored: (B, side^2, nby, nbx); F: band (B, side*side_st, nby, nbx); 11/12: null
+  const void* cv;       // E, stored: (B, side^2, nby, nbx); F: band (B, side*side_st, nby, nbx);
+                        // compact: table (B, K, nby, nbx); 11/12: null
   const void* rcv;      // stored: (B, side2^2, nby, nbx) rival volume, or null (8, 9)
   const uint8_t* im1;   // (B, h, w) frame-1 level image
   const uint8_t* win;   // F, 11, 12: (B, nP, bs + 2r, bs + 2r) main windows
@@ -115,7 +159,9 @@ struct RoundArgs {
   const int* pm;        // (B, npy, npx, 2) main window centres
   const int* rpm;       // (B, npy, npx, 2) rival window centres; null without rival (11, 8, 9)
   const int* rank_table;
+  const uint16_t* smap;  // compact: (B, nch, side^2) slot of each delta key, 0xFFFF none
   int cv16, rcv16, batch, nby, nbx, f, cur, h, w, r, store_r, r2, ssd;
+  int k_slots, nch, chunk;  // compact: K, chunks a frame, parents a chunk
   int step0, nsteps;    // the span: colour index of its first step, its steps
   float lam[kMaxSweeps];  // lambda x multiplier of each sweep the span touches
 };
@@ -135,7 +181,11 @@ __device__ __forceinline__ uint32_t word_cost(uint32_t a, uint32_t v, uint32_t a
   return sad_all(a, v, acc);
 }
 
-enum Form { kHybrid, kTail, kFused, kStored };  // E, F, 11/12, D/D'/8/9
+enum Form { kHybrid, kTail, kFused, kStored, kCompact };  // E, F, 11/12, D/D'/8/9, 10
+constexpr uint32_t kNoSlot = 0xffffu;  // a delta key no slot of the chunk holds
+
+// whether a form recomputes costs from window pixels (reads frame 1)
+__host__ __device__ constexpr bool recomputes(Form f) { return f != kStored && f != kCompact; }
 
 // a stored cost: a u16 or i32 volume entry, widened to int
 __device__ __forceinline__ int volume_entry(const void* vol, int is16, size_t o) {
@@ -281,9 +331,11 @@ struct CellAt {
 
 // One cell's colour step: the 9 candidates from the staged halo, every
 // stored cost loaded at once, then the recomputes, then the reference's
-// _finish_step (step_common.cuh finish_step's arithmetic and order, with
-// presence and usability as bit masks and the winner tracked as it is
-// found).
+// _finish_step (presence, the border-case tie-break ranks, the in-image
+// mask, energy = cost + lam * smoothness in f32 with separate, correctly
+// rounded multiply and add, FLT_MAX where not usable, the lexicographic
+// (energy, rank) winner), with presence and usability as bit masks and the
+// winner tracked as it is found.
 template <Form kForm, int CUR>
 __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHaloC],
                                           const int2* s_pm, const int2* s_rpm,
@@ -313,12 +365,51 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
   const bool rival = a.rpm != nullptr;
   const int2 rpmv = rival ? s_rpm[ps] : make_int2(0, 0);
   const int cr = kForm == kTail ? a.store_r : a.r;  // stored dx radius
-  const Cell c{at.b, i, j};
   // stored: the main volume (or band) holds the cost; rstored: the rival
   // volume (kStored); in_main: recomputed against the main window
   uint32_t usable = 0, stored = 0, in_main = 0, rstored = 0;
+  // a delta plane holds < 2^31 entries; offsets into a volume in 64 bits (a
+  // search-centred cur = 2 volume at B=8 holds ~5.7 G)
+  const int plane = a.nby * a.nbx;
+  const int cell = i * a.nbx + j;
+  int cost[9];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) {
+  for (int k = 0; k < 9; ++k) cost[k] = 0;
+  if constexpr (kForm == kCompact) {
+    // each candidate's slot in its chunk's list (kNoSlot where none), every
+    // map read at once, then the table entry of each usable one's slot
+    const int side = 2 * a.r + 1;
+    const int p = pi * (a.nbx / a.f) + pj;  // the parent in its frame
+    const uint16_t* map =
+        a.smap + (static_cast<size_t>(at.b) * a.nch + p / a.chunk) * (side * side);
+    uint32_t slot[9], covered = 0;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const int ddx = cx[k] - pmv.x;
+      const int ddy = cy[k] - pmv.y;
+      const bool in_window = ddx >= -a.r && ddx <= a.r && ddy >= -a.r && ddy <= a.r;
+      slot[k] = valid && in_window ? __ldg(map + (ddy + a.r) * side + ddx + a.r) : kNoSlot;
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) covered |= static_cast<uint32_t>(slot[k] != kNoSlot) << k;
+    if (!(covered & 1)) covered = 0;  // the own MV in no slot: every candidate excluded
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if (((present & covered) >> k) & 1 && in_image(i, j, cur, a.h, a.w, cx[k], cy[k])) {
+        usable |= 1u << k;
+      }
+    }
+    stored = usable;
+    const size_t frame = static_cast<size_t>(at.b) * a.k_slots;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if ((usable >> k) & 1) {
+        cost[k] = volume_entry(a.cv, a.cv16, (frame + slot[k]) * plane + cell);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 9 && kForm != kCompact; ++k) {
     const int ddx = cx[k] - pmv.x;
     const int ddy = cy[k] - pmv.y;
     const bool in_window = ddx >= -a.r && ddx <= a.r && ddy >= -a.r && ddy <= a.r;
@@ -326,7 +417,7 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
     const int rdy = cy[k] - rpmv.y;
     const bool in_rival = rival && rdx >= -a.r2 && rdx <= a.r2 && rdy >= -a.r2 && rdy <= a.r2;
     if (((present >> k) & 1) && (in_window || in_rival) &&
-        in_image(c, cur, a.h, a.w, cx[k], cy[k])) {
+        in_image(i, j, cur, a.h, a.w, cx[k], cy[k])) {
       usable |= 1u << k;
       if (kForm != kFused && in_window && ddx >= -cr && ddx <= cr) {
         stored |= 1u << k;
@@ -337,14 +428,7 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
       }
     }
   }
-  // every stored cost at once (a delta plane holds < 2^31 entries; offsets
-  // into a volume in 64 bits: a search-centred cur = 2 volume at B=8 holds
-  // ~5.7 G)
-  const int plane = a.nby * a.nbx;
-  const int cell = i * a.nbx + j;
-  int cost[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) cost[k] = 0;
+  // every stored cost at once
   if constexpr (kForm == kStored) {
     // own window first, then the rival's: u16 or i32 each, widened
     const int side = 2 * a.r + 1;
@@ -361,7 +445,7 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
                                (own ? frame : rframe) + static_cast<size_t>(key) * plane);
       }
     }
-  } else if constexpr (kForm != kFused) {
+  } else if constexpr (kForm != kFused && kForm != kCompact) {
     const int side = 2 * a.r + 1;
     const int side_st = kForm == kTail ? 2 * a.store_r + 1 : side;
     const size_t frame = static_cast<size_t>(at.b) * side * side_st * plane + cell;
@@ -381,11 +465,11 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
       }
     }
   }
-  // the recomputes (none in the stored form): the main window (F beyond the
-  // band, 11/12 always) or the rival window; at cur >= 4 shared out across
-  // the warp
+  // the recomputes (none in the stored and compact forms): the main window
+  // (F beyond the band, 11/12 always) or the rival window; at cur >= 4
+  // shared out across the warp
   const uint32_t redo = usable & ~stored;
-  if (kForm != kStored && (CUR == 2 ? redo != 0 : __any_sync(0xffffffffu, redo != 0))) {
+  if (recomputes(kForm) && (CUR == 2 ? redo != 0 : __any_sync(0xffffffffu, redo != 0))) {
     const int bs = a.f * cur;
     const int oy = (i - pi * a.f) * cur;  // the sub-block in its parent
     const int ox = (j - pj * a.f) * cur;
@@ -606,8 +690,9 @@ int resident_blocks(int* out) {
 }
 
 // Checks shared by every entry point; fills the span.  lams: n_lam values;
-// recomputes: the form reads frame-1 blocks (all but the stored one).
-int prepare(RoundArgs& a, bool recomputes, int step0, int nsteps, const float* lams, int n_lam) {
+// reads_im1: the form reads frame-1 blocks (all but the stored and compact
+// ones).
+int prepare(RoundArgs& a, bool reads_im1, int step0, int nsteps, const float* lams, int n_lam) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (a.f < 1 || a.cur < 2 || (a.cur & (a.cur - 1)) || a.nby % a.f || a.nbx % a.f) return bad;
   if (a.nby != a.h / a.cur || a.nbx != a.w / a.cur || a.r < 0 || a.r2 < 0) return bad;
@@ -617,7 +702,7 @@ int prepare(RoundArgs& a, bool recomputes, int step0, int nsteps, const float* l
   }
   // the recompute's frame-1 words: rows aligned to 4 bytes (2 at cur = 2)
   const int align = a.cur >= 4 ? 4 : 2;
-  if (recomputes && (a.w % align || reinterpret_cast<uintptr_t>(a.im1) % align)) return bad;
+  if (reads_im1 && (a.w % align || reinterpret_cast<uintptr_t>(a.im1) % align)) return bad;
   if (step0 < 0 || step0 > 3 || nsteps < 1 || n_lam < 1 || n_lam > kMaxSweeps ||
       (step0 + nsteps - 1) / 4 >= n_lam) {
     return bad;
@@ -656,7 +741,7 @@ int launch_cur(RoundArgs& a, void* stream) {
 // (D's cur = bs rounds at 32 and beyond).
 template <Form kForm>
 int launch(RoundArgs& a, int step0, int nsteps, const float* lams, int n_lam, void* stream) {
-  const int code = prepare(a, kForm != kStored, step0, nsteps, lams, n_lam);
+  const int code = prepare(a, recomputes(kForm), step0, nsteps, lams, n_lam);
   if (code != 0) return code;
   switch (a.cur) {
     case 2: return launch_cur<kForm, 2>(a, stream);
@@ -697,6 +782,19 @@ RoundArgs args_of(void* grid, const void* cv, int cv16, const void* im1, const v
 
 int colour_index(int ci, int cj) {
   return (ci == 0 || ci == 1) && (cj == 0 || cj == 1) ? 2 * ci + cj : -1;
+}
+
+// The compact form's arguments (kernel 10): the table in cv, the slot map,
+// K slots a chunk of `chunk` parents, nch chunks a frame; 0 or an error.
+int compact_args(RoundArgs& a, const void* smap, int k_slots, int nch, int chunk) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (a.f < 1 || chunk < 1 || k_slots < 1 || k_slots >= static_cast<int>(kNoSlot)) return bad;
+  if (nch != ((a.nby / a.f) * (a.nbx / a.f) + chunk - 1) / chunk) return bad;
+  a.smap = static_cast<const uint16_t*>(smap);
+  a.k_slots = k_slots;
+  a.nch = nch;
+  a.chunk = chunk;
+  return 0;
 }
 
 }  // namespace
@@ -774,6 +872,25 @@ extern "C" int bbme_color_step(void* grid, const void* cv, int cv16,
   return launch<kStored>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }
 
+// Kernel 10, one colour step.  grid: (B, nby, nbx, 2) i32, updated in
+// place; table: (B, K, nby, nbx) u16 (table16) or i32 compact table at cur;
+// smap: (B, nch, (2r + 1)^2) u16, the slot of each delta key in the list of
+// each chunk of `chunk` parents (0xFFFF: none); pm: (B, nby/f, nbx/f, 2)
+// i32 window centres; rank_table: (9, 9) i32.
+extern "C" int bbme_color_step_compact(void* grid, const void* table,
+                                       int table16, const void* smap,
+                                       const void* pm, const void* rank_table,
+                                       int batch, int nby, int nbx, int f,
+                                       int cur, int h, int w, int r,
+                                       int k_slots, int nch, int chunk, int ci,
+                                       int cj, float lam, void* stream) {
+  RoundArgs a = args_of(grid, table, table16, nullptr, nullptr, nullptr, pm, nullptr,
+                        rank_table, batch, nby, nbx, f, cur, h, w, r, -1, 0, 0);
+  const int code = compact_args(a, smap, k_slots, nch, chunk);
+  if (code != 0) return code;
+  return launch<kCompact>(a, colour_index(ci, cj), 1, &lam, 1, stream);
+}
+
 // The round entry points: nsweeps (1 .. 8) whole sweeps of the four colours,
 // in one cooperative launch; lams (host memory): lambda x (sweep + 1) of
 // each sweep as f32.  Arguments otherwise as the single steps above.
@@ -834,4 +951,19 @@ extern "C" int bbme_color_round_stored(void* grid, const void* cv, int cv16,
   a.rcv = rcv;
   a.rcv16 = rcv16;
   return launch<kStored>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
+}
+
+extern "C" int bbme_color_round_compact(void* grid, const void* table,
+                                        int table16, const void* smap,
+                                        const void* pm, const void* rank_table,
+                                        int batch, int nby, int nbx, int f,
+                                        int cur, int h, int w, int r,
+                                        int k_slots, int nch, int chunk,
+                                        const float* lams, int nsweeps,
+                                        void* stream) {
+  RoundArgs a = args_of(grid, table, table16, nullptr, nullptr, nullptr, pm, nullptr,
+                        rank_table, batch, nby, nbx, f, cur, h, w, r, -1, 0, 0);
+  const int code = compact_args(a, smap, k_slots, nch, chunk);
+  if (code != 0) return code;
+  return launch<kCompact>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
 }

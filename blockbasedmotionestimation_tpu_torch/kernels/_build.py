@@ -38,7 +38,7 @@ def _sources() -> list[Path]:
     return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -70,7 +70,7 @@ def build() -> Path:
     tmp = out.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
     srcs = [s for s in _sources() if s.suffix == ".cu"]
     objs = [out.with_name(f"{s.stem}.{os.getpid()}.o") for s in srcs]
-    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(srcs, objs)]
+    cmds = [[nvcc_path(), *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(srcs, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c in cmds]
     log, failed = [], []
@@ -80,7 +80,7 @@ def build() -> Path:
         if proc.returncode != 0:
             failed.append(f"{cmd[-3]} ({proc.returncode}):\n{text}")
     if not failed:
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+        cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
                "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         log.append(" ".join(cmd) + "\n" + proc.stdout)

@@ -5,7 +5,8 @@ Replaces the TPU kernels ``windowed_color_step_rival`` (D, rounds at cur =
 bs) and ``windowed_color_step_pm_rival`` (D', rounds at cur < bs of the
 dense-rival form), and without rival windows ``windowed_color_step`` (8)
 and ``windowed_color_step_pm`` (9), with one step that serves every round
-on stored volumes; ``color_step_compact`` replaces
+on stored volumes; ``color_round_compact`` (a round) and
+``color_step_compact`` (a colour step) replace
 ``windowed_color_step_pm_compact`` (kernel 10, ``cv_compact``'s rounds cur <
 bs), the same step on K-slot tables.  ``window_deltas`` and
 ``select_costs`` are plain pieces the hybrid steps (``kernels.fused_step``)
@@ -19,7 +20,9 @@ per-step loop rounds it (``sweep_lams``), validated once per round.  On the
 card both launch the stored form of ``csrc/fused_step.cu``'s round kernel
 (``round_kernel<kStored>``): a single step is a span of one colour step, a
 round one cooperative launch with a grid barrier between its steps (up to
-``MAX_SWEEPS`` sweeps a launch; more take several launches).  The round
+``MAX_SWEEPS`` sweeps a launch; more take several launches).  Kernel 10's
+wrappers launch its compact form (``round_kernel<kCompact>``) the same way,
+each candidate's slot looked up in ``ops.compact.slot_map``.  The round
 helpers here (``sweep_lams``, ``_spans``, ``_launch_round``) serve the
 round wrappers of ``kernels.fused_step`` too.
 
@@ -29,14 +32,15 @@ Layouts (batch written out):
   cv:   (B, side^2, nby, nbx) main-window volume at cur (``kernels.cv_diff``);
   pm:   (B, npy, npx, 2) int32 main-window centre MVs of the parents;
   rcv / rpm / r2: the rival window's volume, centres and radius, or None;
-  table: (B, K, nby, nbx) compact table at cur (``cv_diff.compact_tables``)
-        and slots: (B, nch, K, 2) its chunks' slot lists (10).
+  table: (B, K, nby, nbx) compact table at cur (``cv_diff.compact_tables``),
+        slots: (B, nch, K, 2) its chunks' slot lists and smap: (B, nch,
+        side^2) uint16 their ``ops.compact.slot_map`` (10).
 
 For CPU tensors the wrappers run ``color_step_plain`` (the XLA branch of the
 reference's ``_rounds_loop`` body, in torch; a round loops it) and
-``color_step_compact_plain``; for CUDA tensors they launch the round kernel
-(D, D', 8, 9) and ``csrc/reg_step.cu`` (10).  Nothing falls back from one to
-the other.
+``color_step_compact_plain`` (the slot-compare formulation, which the map
+lookup on the card is held to); for CUDA tensors they launch the round
+kernel.  Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -354,9 +358,10 @@ def color_step_compact_plain(
     """Kernel 10 with torch ops: update colour (ci, cj) of ``grid`` in place.
 
     A candidate's cost is the table entry of the slot of its cell's chunk
-    that holds its delta (rebased on the parent's window centre); a
-    candidate in no slot is excluded, and a cell whose own MV is in no slot
-    keeps it (every candidate excluded: rank decides, own MV first)."""
+    that holds its delta (rebased on the parent's window centre), found by
+    comparing the delta with every slot; a candidate
+    in no slot is excluded, and a cell whose own MV is in no slot keeps it
+    (every candidate excluded: rank decides, own MV first)."""
     f = grid.shape[1] // pm.shape[1]
     npx = pm.shape[2]
     cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj)
@@ -379,18 +384,68 @@ def color_step_compact_plain(
     step_commit(grid, ci, cj, cands, costs, covered, present, in_img, rank, lam_mult)
 
 
-# bbme_color_step_compact(grid, table, table16, slots, pm, rank_table, batch,
+def color_round_compact_plain(grid, table, pm, slots, *, lam, sweeps, smap=None, **kw) -> None:
+    """A round of kernel 10 with torch ops: ``sweeps`` x the four colours.
+    The plain step finds slots by comparison, so the kernel's ``smap`` is
+    dropped here."""
+    _round_plain(color_step_compact_plain, grid, table, pm, slots, lam=lam, sweeps=sweeps, **kw)
+
+
+# bbme_color_step_compact(grid, table, table16, smap, pm, rank_table, batch,
 #                         nby, nbx, f, cur, h, w, r, k_slots, nch, chunk, ci, cj,
 #                         lam, stream)
-COMPACT_ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
-)
+_COMPACT_HEAD = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+COMPACT_ARGTYPES = _COMPACT_HEAD + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
+# bbme_color_round_compact(grid, table, table16, smap, pm, rank_table, batch,
+#                          nby, nbx, f, cur, h, w, r, k_slots, nch, chunk, lams,
+#                          nsweeps, stream)
+ROUND_COMPACT_ARGTYPES = _COMPACT_HEAD + [ctypes.c_int] * 11 + [
+    ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
-def _compact_kernel():
+def _compact_kernel(per_round: bool = False):
+    if per_round:
+        return _build.entry("bbme_color_round_compact", ROUND_COMPACT_ARGTYPES)
     return _build.entry("bbme_color_step_compact", COMPACT_ARGTYPES)
+
+
+def _compact_args(grid, table, pm, slots, smap, cur, h, w, r, ci, cj) -> tuple:
+    """Validate a compact step's or round's inputs; returns the C entry
+    points' arguments from the grid to the chunk (the colour is checked
+    only).  On the card ``smap`` is required (the caller keeps it alive
+    through the launch)."""
+    _check_grid(grid, cur, h, w, ci, cj)
+    b, nby, nbx, _ = grid.shape
+    dev = grid.device
+    _check_centres("pm", pm, b, nby, nbx, dev)
+    n_p = pm.shape[1] * pm.shape[2]
+    nch = -(-n_p // CHUNK)
+    if slots.dtype != torch.int32 or slots.dim() != 4 or tuple(slots.shape[:2]) != (b, nch) \
+            or slots.shape[3] != 2 or slots.device != dev:
+        raise ValueError(f"slots must be ({b}, {nch}, K, 2) int32 on {dev}, got "
+                         f"{slots.dtype} {tuple(slots.shape)} on {slots.device}")
+    k_slots = slots.shape[2]
+    _check_volume("table", table, b, k_slots, nby, nbx, dev)
+    side = 2 * r + 1
+    if smap is not None and (smap.dtype != torch.uint16
+                             or tuple(smap.shape) != (b, nch, side * side) or smap.device != dev):
+        raise ValueError(f"smap must be ({b}, {nch}, {side * side}) uint16 on {dev}, got "
+                         f"{smap.dtype} {tuple(smap.shape)} on {smap.device}")
+    if dev.type != "cuda":
+        return ()
+    if smap is None:
+        raise ValueError("on the card the compact colour steps need smap, the level's "
+                         "ops.compact.slot_map(slots, r)")
+    if not all(t.is_contiguous() for t in (grid, table, pm, smap)):
+        raise ValueError("the compact colour steps need contiguous tensors")
+    if nby * nbx * 2 >= 2**31 or h * w >= 2**31:
+        raise ValueError(f"a {h}x{w} frame is too large for the kernel's 32-bit indices")
+    return (
+        grid.data_ptr(), table.data_ptr(), int(table.dtype == torch.uint16), smap.data_ptr(),
+        pm.data_ptr(), _rank_table_on(dev).data_ptr(),
+        b, nby, nbx, nby // pm.shape[1], cur, h, w, r, k_slots, nch, CHUNK,
+    )
 
 
 def color_step_compact(
@@ -406,38 +461,52 @@ def color_step_compact(
     ci: int,
     cj: int,
     lam_mult: float,
+    smap: torch.Tensor | None = None,
 ) -> None:
-    """Kernel 10: one colour step on a K-slot table, in place.  table:
-    (B, K, nby, nbx) (``cv_diff.compact_tables`` at cur); slots: the level's
-    (B, nch, K, 2) ``ops.compact.chunk_delta_slots``."""
-    _check_grid(grid, cur, h, w, ci, cj)
-    b, nby, nbx, _ = grid.shape
-    dev = grid.device
-    _check_centres("pm", pm, b, nby, nbx, dev)
-    n_p = pm.shape[1] * pm.shape[2]
-    nch = -(-n_p // CHUNK)
-    if slots.dtype != torch.int32 or slots.dim() != 4 or tuple(slots.shape[:2]) != (b, nch) \
-            or slots.shape[3] != 2 or slots.device != dev:
-        raise ValueError(f"slots must be ({b}, {nch}, K, 2) int32 on {dev}, got "
-                         f"{slots.dtype} {tuple(slots.shape)} on {slots.device}")
-    k_slots = slots.shape[2]
-    _check_volume("table", table, b, k_slots, nby, nbx, dev)
-    kw = dict(cur=cur, h=h, w=w, r=r, ci=ci, cj=cj, lam_mult=lam_mult)
-    if dev.type == "cpu":
-        color_step_compact_plain(grid, table, pm, slots, **kw)
+    """Kernel 10: one colour step on a K-slot table, in place (on the card a
+    span of one step of the round kernel's compact form).  table: (B, K,
+    nby, nbx) (``cv_diff.compact_tables`` at cur); slots: the level's (B,
+    nch, K, 2) ``ops.compact.chunk_delta_slots``; smap: its ``slot_map``,
+    required on the card (the CPU's plain version compares with the slots)."""
+    args = _compact_args(grid, table, pm, slots, smap, cur, h, w, r, ci, cj)
+    if grid.device.type == "cpu":
+        color_step_compact_plain(grid, table, pm, slots, cur=cur, h=h, w=w, r=r, ci=ci, cj=cj,
+                                 lam_mult=lam_mult)
         return
-    if not all(t.is_contiguous() for t in (grid, table, pm, slots)):
-        raise ValueError("color_step_compact needs contiguous tensors")
-    with torch.cuda.device(dev):
+    with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _compact_kernel()(
-            grid.data_ptr(), table.data_ptr(), int(table.dtype == torch.uint16),
-            slots.data_ptr(), pm.data_ptr(), _rank_table_on(dev).data_ptr(),
-            b, nby, nbx, nby // pm.shape[1], cur, h, w, r, k_slots, nch, CHUNK, ci,
-            cj, float(lam_mult), stream,
-        )
+        code = _compact_kernel()(*args, ci, cj, float(lam_mult), stream)
     _build.check(code, "color_step_compact")
     color_step_compact.launches += 1
 
 
 color_step_compact.launches = 0
+
+
+def color_round_compact(
+    grid: torch.Tensor,
+    table: torch.Tensor,
+    pm: torch.Tensor,
+    slots: torch.Tensor,
+    *,
+    cur: int,
+    h: int,
+    w: int,
+    r: int,
+    lam: float,
+    sweeps: int,
+    smap: torch.Tensor | None = None,
+) -> None:
+    """Kernel 10, a whole round in place: ``sweeps`` sweeps of the four
+    colours, sweep s at ``lam * (s + 1)``; arguments as
+    ``color_step_compact``."""
+    args = _compact_args(grid, table, pm, slots, smap, cur, h, w, r, 0, 0)
+    if grid.device.type == "cpu":
+        color_round_compact_plain(grid, table, pm, slots, cur=cur, h=h, w=w, r=r, lam=lam,
+                                  sweeps=sweeps)
+        return
+    _launch_round(color_round_compact, _compact_kernel(True), args, grid, lam, sweeps)
+
+
+color_round_compact.launches = 0
+color_round_compact.per_round = color_round_compact_plain.per_round = True

@@ -8,9 +8,10 @@ reference's spiral walk.  The batch dimension is written out.
 
 For a CPU tensor the wrapper runs ``sad_spiral_argmin_plain``, the
 reference's XLA formulation (a scan over the offsets in spiral order with a
-strict-< update); for a CUDA tensor it launches ``csrc/sad_search.cu``,
-which visits the offsets in raster order with (cost, spiral rank) compares.
-The two formulations check each other.
+strict-< update); for a CUDA tensor it launches ``csrc/sad_search.cu``
+(a thread block a block, a thread a delta row and a run of 4 dx, four
+pixels an instruction), which visits the offsets in no set order with
+(cost, spiral rank) compares.  The two formulations check each other.
 """
 
 from __future__ import annotations
@@ -88,8 +89,12 @@ SMEM_LIMIT = 227 * 1024
 
 
 def smem_bytes(bs: int, ext: int) -> int:
-    """Shared bytes of one block of the kernel: the window and the block."""
-    return (bs + 2 * ext) ** 2 + bs * bs
+    """The fewest shared bytes a block of the kernel takes: the window's rows
+    in whole words, then the block's at a 16-byte boundary (bs = 2: a word a
+    row), and the 192 bytes of its reduction (``csrc/sad_search.cu``
+    ``smem_of``; where a word more a row fits, the kernel takes it)."""
+    win = bs + 2 * ext
+    return -(-win * -(-win // 4) * 4 // 16) * 16 + bs * max(1, bs // 4) * 4 + 192
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,7 +146,8 @@ def sad_spiral_argmin(
     if im1.device.type != "cuda":
         raise ValueError(f"unsupported device {im1.device}")
     if smem_bytes(bs, ext) > SMEM_LIMIT:
-        raise ValueError(f"window {win}^2 + block {bs}^2 bytes exceed a thread block's shared memory")
+        raise ValueError(f"window {win}^2 and block {bs}^2 take {smem_bytes(bs, ext)} bytes, "
+                         f"over a thread block's shared memory")
     for t in (im1, windows, cy, cx):
         if not t.is_contiguous():
             raise ValueError("sad_spiral_argmin needs contiguous tensors")

@@ -21,6 +21,8 @@ slot lists.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 CHUNK = 128
@@ -75,6 +77,34 @@ def chunk_delta_slots(
     return torch.stack(
         [torch.where(key >= 0, key // side, -1), torch.where(key >= 0, key % side, -1)], dim=-1
     ).contiguous()
+
+
+NO_SLOT = 0xFFFF  # slot_map's entry for a delta key no slot holds
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_index(k_slots: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(k_slots, dtype=torch.int32, device=device)
+
+
+def slot_map(slots: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, nch, side^2) uint16: for each chunk and delta key (dy + r) * side
+    + (dx + r), the index of the slot of ``slots`` ((B, nch, K, 2), as
+    ``chunk_delta_slots`` returns) that holds it, or NO_SLOT.  A chunk's
+    slots are distinct, so the map is well defined; uint16 holds K up to
+    side^2 (1089 at S = 16).  Kernel 10 looks its candidates up here instead
+    of comparing them with every slot.  Built once a level, in few ops (the
+    path is host-bound): an unused slot's (-1, -1) gives the key -side - 1,
+    which the modulus sends to a spare entry past the map's end."""
+    b, nch, k_slots, _ = slots.shape
+    side = 2 * r + 1
+    if k_slots >= NO_SLOT:
+        raise ValueError(f"K={k_slots} slots do not fit a uint16 map")
+    key = torch.add(slots[..., 1], slots[..., 0], alpha=side).long()
+    key.remainder_(side * side + side + 1)  # in [0, side^2]: side^2 is the spare
+    out = torch.full((b, nch, side * side + 1), NO_SLOT, dtype=torch.int32, device=slots.device)
+    out.scatter_(2, key, _slot_index(k_slots, slots.device).expand(b, nch, -1))
+    return out[..., : side * side].to(torch.uint16)
 
 
 def overflow_fraction(

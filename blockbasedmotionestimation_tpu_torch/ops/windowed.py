@@ -21,7 +21,8 @@ The form follows the reference's dispatch, in its order:
     (``ops.compact.chunk_delta_slots``) and K-slot tables of every cur < bs
     (kernel 14, ``cv_diff.compact_tables``); the f = 1 round runs D without
     rival on the volume, every other round kernel 10
-    (``reg_step.color_step_compact``).  Candidates outside the slots are
+    (``reg_step.color_round_compact``, each candidate's slot looked up in
+    the level's ``ops.compact.slot_map``).  Candidates outside the slots are
     excluded: exact unless a chunk has more than K distinct deltas or a
     value travels further than ``compact_ring`` parents in the rounds.
   * ``fuse`` (``cv_fused``), bs % 8 == 0: with fuse_eff = min(fuse, bs/2),
@@ -40,9 +41,9 @@ The form follows the reference's dispatch, in its order:
     which also recomputes the main-window candidates beyond that band.
   * otherwise every size of both windows is stored (kernel B) and every
     round runs D/D'.
-The rounds on stored volumes (D, D', 8, 9) run a round a call
-(``reg_step.color_round_stored``), as E, F, 11 and 12 do; kernel 10 runs a
-colour step a call.
+Every round is one call of a round wrapper (``reg_step.color_round_stored``
+for D, D', 8 and 9, ``reg_step.color_round_compact`` for 10,
+``kernels.fused_step.color_round_*`` for E, F, 11 and 12).
 All forms give the same bits (compact: while it excludes nothing).
 """
 
@@ -64,11 +65,11 @@ from blockbasedmotionestimation_tpu_torch.kernels.fused_step import (
     color_round_hybrid_tail,
 )
 from blockbasedmotionestimation_tpu_torch.kernels.reg_step import (
+    color_round_compact,
     color_round_stored,
-    color_step_compact,
 )
-from blockbasedmotionestimation_tpu_torch.ops.compact import chunk_delta_slots
-from blockbasedmotionestimation_tpu_torch.ops.regularize import COLORS, subdivide
+from blockbasedmotionestimation_tpu_torch.ops.compact import chunk_delta_slots, slot_map
+from blockbasedmotionestimation_tpu_torch.ops.regularize import subdivide
 from blockbasedmotionestimation_tpu_torch.ops.search import block_origins, gather_windows
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent, spiral_offsets
 
@@ -145,27 +146,22 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
     """The subdivision rounds, cur = bs, bs/2, ..., 2.
 
     grid: (B, npy, npx, 2) int32 search winners; returns the stride-1
-    (B, h, w, 2) int32 grid.  ``round_of(cur)`` gives the round's colour
-    step, its positional arguments after the grid and its keywords (it may
-    pop the round's volumes, so each is freed after its round).  lambda is
-    lam0 * (sweep + 1) in the first round and doubles every round; colours
-    run (0,0), (0,1), (1,0), (1,1).  A step marked ``per_round`` (the round
-    wrappers of ``kernels.fused_step`` and ``reg_step.color_round_stored``)
-    is a whole round: it is called once with ``lam`` and ``sweeps`` and runs
-    the same steps in the same order; kernel 10's step is called once a
-    colour step.
+    (B, h, w, 2) int32 grid.  ``round_of(cur)`` gives the round's wrapper,
+    its positional arguments after the grid and its keywords (it may pop
+    the round's volumes, so each is freed after its round).  The wrapper
+    is a whole round, marked ``per_round`` (``reg_step.color_round_*``,
+    ``kernels.fused_step.color_round_*``): it is called once with ``lam``
+    and ``sweeps`` and runs sweep s at lam * (s + 1), colours (0,0),
+    (0,1), (1,0), (1,1).  lambda is lam0 in the first round and doubles
+    every round.
     """
     cur, lam = bs, lam0
     grid = grid.contiguous()
     while cur > 1:
         step, args, kw = round_of(cur)
-        if getattr(step, "per_round", False):
-            step(grid, *args, cur=cur, h=h, w=w, lam=lam, sweeps=sweeps_per_round, **kw)
-        else:
-            for sweep in range(sweeps_per_round):
-                for ci, cj in COLORS:
-                    step(grid, *args, cur=cur, h=h, w=w, ci=ci, cj=cj,
-                         lam_mult=lam * (sweep + 1), **kw)
+        if not getattr(step, "per_round", False):
+            raise TypeError(f"{step!r} is not a round wrapper (per_round)")
+        step(grid, *args, cur=cur, h=h, w=w, lam=lam, sweeps=sweeps_per_round, **kw)
         del args, kw  # free the round's volumes before the next round
         grid = subdivide(grid).contiguous()
         cur >>= 1
@@ -244,6 +240,7 @@ def windowed_level(
 
     if use_compact:
         slots = chunk_delta_slots(grid0, base_mv, ext, compact, compact_ring)
+        smap = slot_map(slots, ext)
         tables = compact_tables(im1, windows, slots, bs, ext, cost)
         windows = None
         dense = _stored_round(cvs, base_mv, ext)
@@ -251,7 +248,8 @@ def windowed_level(
         def round_of(cur):
             if cur == bs:
                 return dense(cur)
-            return color_step_compact, (tables.pop(cur), base_mv, slots), dict(r=ext)
+            return (color_round_compact, (tables.pop(cur), base_mv, slots),
+                    dict(r=ext, smap=smap))
 
         return rounds_loop(grid0, bs, h, w, lam0, sweeps_per_round, round_of)
 

@@ -6,6 +6,7 @@
     python -m blockbasedmotionestimation_tpu_torch.profile_main --cv-fused 4
     python -m blockbasedmotionestimation_tpu_torch.profile_main --cv-compact 64 --no-rival
     python -m blockbasedmotionestimation_tpu_torch.profile_main --volume-launches
+    python -m blockbasedmotionestimation_tpu_torch.profile_main --sass
 
 Runs ``estimate_flow_batched`` with ``MotionConfig(interp_factor=1)`` (or
 the regularizer / window centre / capacity mode given; ``--no-rival`` sets
@@ -24,7 +25,7 @@ prints, beside the card's name and power limit:
     call of each (host clock around the call, which only enqueues);
   - the host time per call of the colour-step wrappers, before and after
     they took whole rounds: the batch's
-    rounds of D, E and F (or 11/12) replayed through the round wrapper (one
+    rounds of D, E and F (or 11/12, or 10) replayed through the round wrapper (one
     call a round) and through the one-step wrapper (one call a colour
     step), host clock per call, the card synchronised only around each
     replay;
@@ -36,16 +37,24 @@ level-0 B=8 shapes (B with the band, C on the rival window, 13) at other
 launch geometries than ``kernels/cv_diff.volume_geometry``'s: 1, 2, 4 or 8
 parents a block with every delta row, and 1 parent at 3 or 1 rows.
 
+``--sass`` instead prints the instructions of kernel 7's innermost loop
+(bs 32, sad and ssd: the loop over block rows, from a backward branch's
+target to the branch) by opcode, from ``cuobjdump -sass`` of the built
+library, and the pixel-deltas one pass of it scores.
+
 Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -75,8 +84,9 @@ def _timed_kernels(events: dict):
 
     names = {search: ["_gather", "_sad_argmin"], windowed: [
         "pooled_cvs", "deep_pooled_cvs", "full_block_volume", "compact_tables",
-        "chunk_delta_slots", "color_round_stored", "color_round_hybrid", "color_round_hybrid_tail",
-        "color_round_fused", "color_round_fused_rival", "color_step_compact"], engine: [
+        "chunk_delta_slots", "slot_map", "color_round_stored", "color_round_hybrid",
+        "color_round_hybrid_tail", "color_round_fused", "color_round_fused_rival",
+        "color_round_compact"], engine: [
         "block_search_level", "run_schedule", "windowed_schedule", "windowed_level"]}
     saved = {(m, n): getattr(m, n) for m, ns in names.items() for n in ns}
 
@@ -111,8 +121,10 @@ def _host_per_call(cfg, im1, im2, card: str) -> None:
     replay."""
     from blockbasedmotionestimation_tpu_torch.kernels import fused_step, reg_step
     from blockbasedmotionestimation_tpu_torch.ops import windowed
+    from blockbasedmotionestimation_tpu_torch.ops.regularize import COLORS
 
     step_of = {reg_step.color_round_stored: reg_step.color_step,
+               reg_step.color_round_compact: reg_step.color_step_compact,
                fused_step.color_round_hybrid: fused_step.color_step_hybrid,
                fused_step.color_round_hybrid_tail: fused_step.color_step_hybrid_tail,
                fused_step.color_round_fused: fused_step.color_step_fused,
@@ -136,7 +148,7 @@ def _host_per_call(cfg, im1, im2, card: str) -> None:
         for n, fn in saved.items():
             setattr(windowed, n, fn)
     if not calls:
-        print("[host] this path runs no round of D, E, F, 11 or 12")
+        print("[host] this path runs no round of D, E, F, 11, 12 or 10")
         return
     per = {}
     by_name = {fn.__name__: step for fn, step in step_of.items()}
@@ -153,7 +165,7 @@ def _host_per_call(cfg, im1, im2, card: str) -> None:
         torch.cuda.synchronize()
         n, t_steps = 0, 0.0
         for mult in fused_step.sweep_lams(k["lam"], k["sweeps"]):
-            for ci, cj in windowed.COLORS:
+            for ci, cj in COLORS:
                 t0 = time.perf_counter()
                 step(g, *a, ci=ci, cj=cj, lam_mult=mult, **skw)
                 t_steps += time.perf_counter() - t0
@@ -221,6 +233,49 @@ def _volume_launches(cfg, dev, card: str) -> None:
               + "; ".join(times) + f" ({card})")
 
 
+def _sass_loops() -> None:
+    """--sass: kernel 7's innermost loop (bs 32) by opcode, from cuobjdump;
+    functions are matched on their names demangled by cu++filt.  Raises if
+    either cost's kernel, or a loop of VABSDIFF4 in it, is not found."""
+    from blockbasedmotionestimation_tpu_torch.kernels import _build
+
+    bin_dir = Path(_build.nvcc_path()).parent
+    sass = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = sass.split("Function : ")[1:]
+    names = subprocess.run([str(bin_dir / "cu++filt")], input="\n".join(f.split()[0] for f in funcs),
+                           capture_output=True, text=True, check=True).stdout.splitlines()
+    found = {}
+    for name, text in zip(names, funcs):
+        # cu++filt writes the arguments as <(int)32, (bool)1>, c++filt as <32, true>
+        m = re.search(r"\bsad_spiral_argmin_kernel<(?:\(int\))?32, (?:\(bool\))?(true|false|1|0)>",
+                      name)
+        if m is not None:
+            found["ssd" if m.group(1) in ("true", "1") else "sad"] = text
+    if sorted(found) != ["sad", "ssd"]:
+        seen = [n for n in names if "sad_spiral_argmin_kernel" in n]
+        raise RuntimeError(f"--sass: sad_spiral_argmin_kernel<32, false/true> not found in "
+                           f"the library (found {sorted(found)}; kernel 7's names: {seen})")
+    for cost, text in sorted(found.items()):
+        ins = [(int(a, 16), op, rest) for a, op, rest in
+               re.findall(r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", text)]
+        loops = []  # (first, last) address of each backward branch's loop
+        for at, op, rest in ins:
+            target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if target is not None and int(target.group(1), 16) < at:
+                loops.append((int(target.group(1), 16), at))
+        bodies = [[o for a, o, _ in ins if lo <= a <= hi] for lo, hi in loops]
+        bodies = [b for b in bodies if any(o.startswith("VABSDIFF4") for o in b)]
+        if not bodies:
+            raise RuntimeError(f"--sass: no loop of VABSDIFF4 in the {cost} kernel's "
+                               f"{len(ins)} instructions")
+        body = min(bodies, key=len)
+        # a VABSDIFF4 (sad; with an IDP for ssd) scores 4 pixels of one dx
+        n = 4 * sum(o.startswith("VABSDIFF4") for o in body)
+        print(f"[sass] {cost}: {len(body)} instructions a pass, {n} pixel-deltas, "
+              f"{len(body) / n:.3f} a pixel-delta: {dict(collections.Counter(body).most_common())}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # exact is sequential over the blocks: for small frames, not for 1080p
@@ -231,6 +286,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cv-compact", type=int, default=None, metavar="K")
     ap.add_argument("--no-rival", action="store_true")
     ap.add_argument("--volume-launches", action="store_true")
+    ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main: no CUDA device", file=sys.stderr)
@@ -248,6 +304,9 @@ def main(argv=None) -> int:
     im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
     if args.volume_launches:
         _volume_launches(cfg, dev, card)
+        return 0
+    if args.sass:
+        _sass_loops()
         return 0
     print(f"[profile] card: {card}; 1080p, B={B}, MotionConfig(interp_factor=1, "
           f"regularizer={cfg.regularizer!r}, window_center={cfg.window_center!r}, "

@@ -18,7 +18,8 @@ Phases (any failure raises and the script exits non-zero):
      random candidates within +-20 of the window centres, each as one colour
      step and as a whole round (one cooperative launch: 2 sweeps x 4
      colours, against the plain step loop); 14 and 10 (cur 2
-     and 16) at K=64 on slot lists with unused (-1) slots and candidates
+     and 16, a colour step and a whole round, the round kernel's compact
+     form) at K=64 on slot lists with unused (-1) slots and candidates
      within +-3, many of which miss every slot; kernel 7 (the spiral
      search's argmin, sad and ssd) around predictions within +-48 px; the
      volume kernel (B, C) over a sweep of shapes (bs 8/16/32, r
@@ -47,7 +48,8 @@ Phases (any failure raises and the script exits non-zero):
      12): the default's flow;
   4f. ``cv_fused=4, rival_window=False`` (C, D as 8 and 9, kernel 11): the
      rival-off default's flow;
-  4g. ``cv_compact=64, rival_window=False`` (13, 14, D as 8, kernel 10):
+  4g. ``cv_compact=64, rival_window=False`` (13, 14, D as 8, kernel 10, a
+     launch a round each):
      overflow_fraction per level, and the rival-off default's flow where no
      chunk overflows; then ``cv_compact=1089`` (every delta of the window:
      no chunk overflows) at ring 3, and with a ring spanning the frame,
@@ -70,7 +72,12 @@ A kernel's ``bound_ms`` is the larger of its bytes (each input read once,
 each output written once; for the colour steps only the cost entries and
 window pixels this run's candidates need) over the H100's 3.35 TB/s and its
 integer operations over 67 T/s, the card's CUDA-core (non-tensor) peak in
-its data sheet.  ``library_ms`` is A's yardstick, the advanced-indexing
+its data sheet.  Kernel 7 does its work in packed instructions (a
+VABSDIFF4 scores four pixel-deltas; SSD adds a dp4a), so its operations are
+those instructions over the card's issue rate, 33.5 T thread-instructions
+a second (the 67 T float32 rate counts an FMA as two); its scalar count,
+3 operations a pixel-delta over 67 T/s, is printed beside it as
+``bound_scalar_ms``.  ``library_ms`` is A's yardstick, the advanced-indexing
 call ``im2p[bidx, rows[..., None], cols[..., None, :]]`` on frames padded
 beforehand (the port never calls it), and null for every other row: no
 single PyTorch call computes a pooled SAD volume, a table of SADs at
@@ -93,6 +100,10 @@ H, W, B = 1080, 1920, 8
 SHIFT_Y, SHIFT_X = 5, 9  # frame 2 = frame 1 moved by (-5, -9): flow (u, v) = (-9, -5)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CORE_OPS_PER_S = 67e12     # H100 SXM CUDA-core peak, used for integer operations
+# the most thread-instructions an H100 SXM issues a second: 132 SMs x 4
+# schedulers x 32 lanes x 1.98 GHz, half of the float32 rate above (an FMA
+# counts two); kernel 7's packed VABSDIFF4 and dp4a are counted against it
+INSTR_PER_S = CORE_OPS_PER_S / 2
 FUSE = 4          # cv_fused of phases 4e, 4f
 COMPACT_K = 64    # cv_compact of phase 4g (ring 3): DESIGN.md's quality-viable point
 # per-batch launches of MotionConfig(interp_factor=1): 4 levels of bs 32,
@@ -103,7 +114,8 @@ WANT_LAUNCHES = {"gather_windows": 8, "pooled_cvs": 4, "deep_pooled_cvs": 4,
                  "color_step_hybrid_tail": 0, "color_round_hybrid": 12, "color_round_hybrid_tail": 4,
                  "sad_spiral_argmin": 0, "color_step_fused": 0, "color_step_fused_rival": 0,
                  "color_round_fused": 0, "color_round_fused_rival": 0,
-                 "full_block_volume": 0, "compact_tables": 0, "color_step_compact": 0}
+                 "full_block_volume": 0, "compact_tables": 0, "color_step_compact": 0,
+                 "color_round_compact": 0}
 NONE = dict.fromkeys(WANT_LAUNCHES, 0)
 # regularizer="fourcolor": per level one search gather (A) and kernel 7; the
 # colour steps are plain torch
@@ -121,9 +133,9 @@ WANT_FUSED = NONE | {"gather_windows": 8, "deep_pooled_cvs": 8, "color_round_sto
 WANT_FUSED_NORIVAL = NONE | {"gather_windows": 4, "deep_pooled_cvs": 4, "color_round_stored": 12,
                              "color_round_fused": 8}
 # cv_compact=64, rival off: per level 13 and 14, D (row 8) in round 32 (a
-# launch), kernel 10 in rounds 16/8/4/2 (a launch a colour step)
+# launch), kernel 10 in rounds 16/8/4/2 (a launch a round)
 WANT_COMPACT = NONE | {"gather_windows": 4, "full_block_volume": 4, "compact_tables": 4,
-                       "color_round_stored": 4, "color_step_compact": 128}
+                       "color_round_stored": 4, "color_round_compact": 16}
 
 
 def _cmd_line(cmd: list[str], pick=None) -> str:
@@ -221,7 +233,7 @@ def _plain_kernels():
         full_block_volume=cv_diff.full_block_volume_plain,
         compact_tables=cv_diff.compact_tables_plain,
         color_round_stored=reg_step.color_round_stored_plain,
-        color_step_compact=reg_step.color_step_compact_plain,
+        color_round_compact=reg_step.color_round_compact_plain,
         color_round_hybrid=fused_step.color_round_hybrid_plain,
         color_round_hybrid_tail=fused_step.color_round_hybrid_tail_plain,
         color_round_fused=fused_step.color_round_fused_plain,
@@ -269,10 +281,11 @@ def _same_as_plain(torch, engine, cfg, im1, im2, flow, tag: str) -> None:
     print(f"[{tag}] all {im1.shape[0]} frames through the plain versions on the card == kernel path")
 
 
-def _bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time (ms) the card could take, and what bounds it."""
+def _bound(nbytes: float, ops: float, rate: float = CORE_OPS_PER_S) -> tuple[float, str]:
+    """Least time (ms) the card could take, and what bounds it; ``ops`` at
+    ``rate`` a second."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CORE_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -336,36 +349,39 @@ def _first_distinct(torch, cands, usable):
 
 
 def _compact_step_work(torch, g, pm, slots, table, *, cur, h, w, r, ci, cj):
-    """(bytes, ops) of one compact colour step (kernel 10) on these inputs:
-    the grid read and its colour written, the centres and slot lists, a
-    table entry for each cell's distinct usable covered candidate, the two
-    compares of each candidate with each used slot of its chunk, and the
-    smoothness terms."""
+    """(bytes, ops, sector bytes) of one compact colour step (kernel 10) on
+    these inputs: the grid read and its colour written, the centres and the
+    slot map (where each candidate finds its slot), a table entry for each
+    cell's distinct usable covered candidate, and the smoothness terms; the
+    sector bytes count each table entry's 32-byte sector instead, once per
+    distinct sector (what a random read fetches)."""
     from blockbasedmotionestimation_tpu_torch.kernels import reg_step as rs
-    from blockbasedmotionestimation_tpu_torch.ops import regularize
-    from blockbasedmotionestimation_tpu_torch.ops.compact import CHUNK
+    from blockbasedmotionestimation_tpu_torch.ops import compact, regularize
 
     cands, _, present, in_img = regularize.step_candidates(g, cur, h, w, ci, cj)
     f = g.shape[1] // pm.shape[1]
     ddy, ddx, in_win = rs.window_deltas(cands, pm, f, ci, cj, r)
     b, m, n = cands.shape[:3]
     side = 2 * r + 1
-    nch = slots.shape[1]
-    used = slots[..., 0] >= 0  # (B, nch, K)
-    held = torch.zeros((b, nch, side * side + 1), dtype=torch.bool, device=g.device)
-    held.scatter_(2, torch.where(used, slots[..., 0] * side + slots[..., 1], side * side).long(),
-                  True)
-    rows = torch.arange(ci, ci + 2 * m, 2, device=g.device) // f
-    cols = torch.arange(cj, cj + 2 * n, 2, device=g.device) // f
-    ch = ((rows[:, None] * pm.shape[2] + cols[None, :]) // CHUNK)  # (m, n)
+    smap = compact.slot_map(slots, r)
+    none = torch.full_like(smap[..., :1], compact.NO_SLOT, dtype=torch.int32)
+    wide = torch.cat([smap.to(torch.int32), none], -1)  # key side^2: outside the window
+    rows = torch.arange(ci, ci + 2 * m, 2, device=g.device)
+    cols = torch.arange(cj, cj + 2 * n, 2, device=g.device)
+    ch = ((rows[:, None] // f * pm.shape[2] + cols[None, :] // f) // compact.CHUNK)  # (m, n)
     key = torch.where(in_win, (ddy + r) * side + (ddx + r), side * side)
-    covered = torch.gather(held[:, ch.reshape(-1)].reshape(b, m, n, -1), 3, key.long())
+    slot = torch.gather(wide[:, ch.reshape(-1)].reshape(b, m, n, -1), 3, key.long())
+    covered = slot != compact.NO_SLOT
     covered &= covered[..., :1]
     first = _first_distinct(torch, cands, present & in_img & covered)
     cells = b * m * n
-    compares = 9 * 2 * int(used.sum(-1)[:, ch.reshape(-1)].sum())
-    nbytes = (_nbytes(g, pm, slots) + cells * 8 + int(first.sum()) * table.element_size())
-    return nbytes, cells * 9 * 9 * 3 + compares
+    other = _nbytes(g, pm, smap) + cells * 8
+    nbytes = other + int(first.sum()) * table.element_size()
+    nby, nbx = g.shape[1:3]
+    fb, fi, fj, fk = first.nonzero(as_tuple=True)
+    addr = ((fb * slots.shape[2] + slot[fb, fi, fj, fk]) * nby + rows[fi]) * nbx + cols[fj]
+    sectors = int(torch.unique(addr * table.element_size() // 32).numel())
+    return nbytes, cells * 9 * 9 * 3, other + 32 * sectors
 
 
 def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> dict:
@@ -387,7 +403,8 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     )
     from blockbasedmotionestimation_tpu_torch.ops import compact
     from blockbasedmotionestimation_tpu_torch.ops import pad as pad_ops
-    from blockbasedmotionestimation_tpu_torch.ops import search, windowed
+    from blockbasedmotionestimation_tpu_torch.ops import search
+    from blockbasedmotionestimation_tpu_torch.ops.regularize import COLORS
     from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
 
     p = pad_ops.compute_padding(H, W, cfg)
@@ -401,11 +418,21 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     frames = torch.as_tensor(rng.integers(0, 256, size=(B, hp, wp), dtype=np.uint8), device=dev)
     results = {}
 
-    def record(row, name, source, replaces, err, ms, plain_ms, work, what, also=None):
-        bound_ms, bound_by = _bound(*work)
+    def record(row, name, source, replaces, err, ms, plain_ms, work, what, also=None,
+               rate=CORE_OPS_PER_S, scalar_ops=None):
+        """work: (bytes, ops), or (bytes, ops, bytes counting whole 32-byte
+        sectors of random reads), which adds a second bound; ops at
+        ``rate`` a second.  scalar_ops: the same work in scalar operations
+        at CORE_OPS_PER_S, a second figure for packed work."""
+        bound_ms, bound_by = _bound(*work[:2], rate)
+        also_bound = "" if len(work) < 3 else (
+            f"; {_bound(work[2], 0)[0]:.4f} ms counting whole sectors ({work[2]} B)")
+        if scalar_ops is not None:
+            also_bound = (f"; {_bound(work[0], scalar_ops)[0]:.4f} ms counting {scalar_ops} "
+                          f"scalar ops")
         print(f"[kernel] {row} {name} {what}: max_abs_err {err}, kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {work[0]} B, {work[1]} "
-              f"ops) ({card})")
+              f"ops at {rate:.3g}/s{also_bound}) ({card})")
         if row in results:
             results[row]["max_abs_err"] = max(err, results[row]["max_abs_err"])
             return
@@ -418,6 +445,10 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         }
         if also:
             results[row]["also_replaces"] = [f"blockbasedmotionestimation_tpu/kernels/{a}" for a in also]
+        if len(work) > 2:
+            results[row]["bound_sectors_ms"] = _bound(work[2], 0)[0]
+        if scalar_ops is not None:
+            results[row]["bound_scalar_ms"] = _bound(work[0], scalar_ops)[0]
 
     def per_frame(fn):
         for bi in range(B):
@@ -516,13 +547,13 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         common = dict(cur=cur, h=hp, w=wp, r=ext, lam_mult=16.0 * bs / cur)
         vol = vol_of(cur)
         gk = g0.clone()
-        for ci, cj in windowed.COLORS:
+        for ci, cj in COLORS:
             kernel(gk, vol, base, ci=ci, cj=cj, **common, **kw_of(slice(None)))
         err = 0
         for bi in range(B):
             gp = g0[bi:bi + 1].clone()
             sl = slice(bi, bi + 1)
-            for ci, cj in windowed.COLORS:
+            for ci, cj in COLORS:
                 plain(gp, None if vol is None else vol[sl], base[sl], ci=ci, cj=cj, **common,
                       **kw_of(sl))
             err = max(err, _max_abs_err(torch, gk[sl], gp))
@@ -534,25 +565,26 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         pms = _cuda_ms(torch, lambda: per_frame(lambda bi: plain(
             g0[bi:bi + 1].clone(), None if vol is None else vol[bi:bi + 1], base[bi:bi + 1],
             ci=1, cj=0, **common, **kw_of(slice(bi, bi + 1)))), 1)
-        if work_of is not None:
-            work = work_of(g0, vol, kw)
-        else:
+        def work_at(g, ci, cj):  # the work of colour (ci, cj) on grid g
+            if work_of is not None:
+                return work_of(g, vol, kw, ci, cj)
             rcv = kw.get("rcv")
-            work = _step_work(torch, g0, base, kw.get("rpm"), kind=kind, cur=cur, h=hp, w=wp,
-                              r=ext, r2=r2, ci=1, cj=0, store_r=kw.get("store_r"),
+            return _step_work(torch, g, base, kw.get("rpm"), kind=kind, cur=cur, h=hp, w=wp,
+                              r=ext, r2=r2, ci=ci, cj=cj, store_r=kw.get("store_r"),
                               cost_bytes=(vol.element_size() if vol is not None else 0,
                                           rcv.element_size() if rcv is not None else 0))
-        record(row, name, source, replaces, err, ms, pms, work,
+
+        record(row, name, source, replaces, err, ms, pms, work_at(g0, 1, 0),
                f"{what} at cur={cur} (f={f}): four colours compared, (1, 0) timed; B={B}, "
                f"grid {tuple(g0.shape[1:3])}", also)
         if round_kernel is not None:
-            rounds(row, name, round_kernel, round_plain, plain, g0, vol, kw_of, kind, cur, what)
+            rounds(row, name, round_kernel, round_plain, plain, g0, vol, kw_of, work_at, cur, what)
 
-    def rounds(row, name, kernel, plain, step_plain, g0, vol, kw_of, kind, cur, what):
+    def rounds(row, name, kernel, plain, step_plain, g0, vol, kw_of, work_at, cur, what):
         """A whole round (the main path's lambda at cur, its sweeps) in one
         launch against the plain step loop, frame by frame; the round timed
-        in place; its bound is the sum of its steps' on the states they
-        meet (the plain loop replayed at B=8)."""
+        in place; its bound is the sum of its steps' (``work_at``) on the
+        states they meet (the plain loop replayed at B=8)."""
         rkw = dict(cur=cur, h=hp, w=wp, r=ext, lam=16.0 * bs / cur, sweeps=cfg.sweeps_per_round)
         kw = kw_of(slice(None))
         gk = g0.clone()
@@ -568,29 +600,28 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         pms = _cuda_ms(torch, lambda: per_frame(lambda bi: plain(
             g0[bi:bi + 1].clone(), None if vol is None else vol[bi:bi + 1], base[bi:bi + 1],
             **rkw, **kw_of(slice(bi, bi + 1)))), 1)
-        nbytes = ops = 0
+        work = None
         gw = g0.clone()
-        rcv = kw.get("rcv")
-        rcv_bytes = (vol.element_size() if vol is not None else 0,
-                     rcv.element_size() if rcv is not None else 0)
         for mult in fused_step.sweep_lams(rkw["lam"], rkw["sweeps"]):
-            for ci, cj in windowed.COLORS:
-                nb, op = _step_work(torch, gw, base, kw.get("rpm"), kind=kind, cur=cur, h=hp,
-                                    w=wp, r=ext, r2=r2, ci=ci, cj=cj, store_r=kw.get("store_r"),
-                                    cost_bytes=rcv_bytes)
-                nbytes, ops = nbytes + nb, ops + op
+            for ci, cj in COLORS:
+                step = work_at(gw, ci, cj)
+                work = step if work is None else tuple(a + b for a, b in zip(work, step))
                 step_plain(gw, vol, base, ci=ci, cj=cj, cur=cur, h=hp, w=wp, r=ext,
                            lam_mult=mult, **kw)
-        bound_ms, bound_by = _bound(nbytes, ops)
+        bound_ms, bound_by = _bound(*work[:2])
         res = results[row]
         res["max_abs_err"] = max(res["max_abs_err"], err)
+        out = {"cur": cur, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": err}
+        sectors = ""
+        if len(work) > 2:
+            out["bound_sectors_ms"] = _bound(work[2], 0)[0]
+            sectors = f"; {out['bound_sectors_ms']:.4f} ms counting whole sectors ({work[2]} B)"
         print(f"[kernel] {row} {name} round {what} at cur={cur}: {rkw['sweeps']} sweeps x 4 "
               f"colours in one launch, max_abs_err {err}, kernel {ms:.4f} ms, plain step loop "
-              f"{pms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {nbytes} B, {ops} ops) "
-              f"({card})")
-        res.setdefault("round", []).append({
-            "cur": cur, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err})
+              f"{pms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {work[0]} B, {work[1]} ops"
+              f"{sectors}) ({card})")
+        res.setdefault("round", []).append(out)
 
     def rival_kw(rcv):
         if rcv is None:
@@ -688,16 +719,25 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
            also=["cv_diff.py:649"])
 
     def compact_work(cur):
-        return lambda g0, vol, kw: _compact_step_work(torch, g0, base, slots, vol, cur=cur, h=hp,
-                                                      w=wp, r=ext, ci=1, cj=0)
+        return lambda g, vol, kw, ci, cj: _compact_step_work(
+            torch, g, base, slots, vol, cur=cur, h=hp, w=wp, r=ext, ci=ci, cj=cj)
+
+    # 10: the round kernel's compact form, a colour step (a span of one) and
+    # a whole round, on the level's slot map (built once, as the level does)
+    smap = compact.slot_map(slots, ext)
+
+    def compact_step_plain(*args, smap, **kw):  # the plain step reads the slot lists only
+        reg_step.color_step_compact_plain(*args, **kw)
 
     for cur in (2, 16):
-        steps("10", "color_step_compact", "reg_step.cu", "reg_step.py:441",
-              reg_step.color_step_compact, reg_step.color_step_compact_plain, cur,
-              lambda c: tables[c], lambda sl: dict(slots=slots[sl]), "compact",
+        steps("10", "color_round_compact", "fused_step.cu", "reg_step.py:441",
+              reg_step.color_step_compact, compact_step_plain, cur,
+              lambda c: tables[c], lambda sl: dict(slots=slots[sl], smap=smap[sl]), "compact",
               f"K={COMPACT_K} slots, candidates within +-3 (many miss every slot)",
-              also=["reg_step.py:500"], spread=3, work_of=compact_work(cur))
-    del tables, slots, winners
+              also=["reg_step.py:500"], spread=3, work_of=compact_work(cur),
+              round_kernel=reg_step.color_round_compact,
+              round_plain=reg_step.color_round_compact_plain)
+    del tables, slots, smap, winners
 
     # 7: the spiral search's argmin around the centres block_search_level
     # passes (origin + a prediction within +-48 px; the origin where that
@@ -729,12 +769,14 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         err = max(_max_abs_err(torch, got[0], want[0]), _max_abs_err(torch, got[1], want[1]))
         ms = _cuda_ms(torch, lambda: sad_search.sad_spiral_argmin(*args, cost), 5)
         pms = _cuda_ms(torch, lambda: sad_search.sad_spiral_argmin_plain(*args, cost), 1)
-        work = (_nbytes(im1_7, wins7, cy, cx, rank, *got), 3 * pairs * bs * bs)
+        # a VABSDIFF4 a word of 4 pixel-deltas (sad), and a dp4a more (ssd)
+        packed = pairs * bs * bs // 4 * (2 if cost == "ssd" else 1)
+        work = (_nbytes(im1_7, wins7, cy, cx, rank, *got), packed)
         record("7", "sad_spiral_argmin", "sad_search.cu", "sad_search.py:105", err, ms, pms, work,
                f"{cost}: S={s7}, {B * npy * npx} blocks, win {bs + 2 * s7}, centres within "
                f"+-48 px ({int((~ok).sum())} left the frame: origin), {pairs} in-frame "
                f"(block, offset) pairs of {B * npy * npx * (2 * s7 + 1) ** 2}",
-               also=["sad_search.py:149"])
+               also=["sad_search.py:149"], rate=INSTR_PER_S, scalar_ops=3 * pairs * bs * bs)
     bad = [row for row, r in results.items() if r["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -1012,7 +1054,7 @@ def main() -> int:
     print(f"[env] card: {card}")
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"triton {'present' if importlib.util.find_spec('triton') else 'absent'}")
-    print(f"[env] nvcc: {_cmd_line([_build._nvcc(), '--version'], pick='release')}")
+    print(f"[env] nvcc: {_cmd_line([_build.nvcc_path(), '--version'], pick='release')}")
 
     # 2. build
     t0 = time.time()
@@ -1051,7 +1093,7 @@ def main() -> int:
         sad_search.sad_spiral_argmin, fused_step.color_step_fused,
         fused_step.color_step_fused_rival, fused_step.color_round_fused,
         fused_step.color_round_fused_rival, cv_diff.full_block_volume, cv_diff.compact_tables,
-        reg_step.color_step_compact)}
+        reg_step.color_step_compact, reg_step.color_round_compact)}
     assert sorted(counters) == sorted(WANT_LAUNCHES)
     by_path, by_row = {}, {}
     by_path["main"], by_row["main"], main_flow = _drive(

@@ -306,6 +306,55 @@ def test_compact_step_matches_kernel_interpret(rng, cur):
     assert missed.any() and (~missed).any()
 
 
+@pytest.mark.parametrize("cur", [2, 4])
+def test_compact_round_matches_kernel_interpret(rng, cur):
+    # a whole round of kernel 10 (2 sweeps x 4 colours, sweep s at lam *
+    # (s + 1), lam = lam0 * bs / cur as rounds_loop doubles it) on the CPU
+    # against JAX's interpret-mode step applied step by step on the grid it
+    # updates; slot lists with -1 slots, candidates that miss every slot,
+    # among them cells whose own MV misses (the incumbent-safety guard)
+    f, k_slots, sweeps = BS // cur, 6, 2
+    lam = 1.5 * (BS // cur)
+    pm, _ = _centres(rng)
+    pmf = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
+    g0 = (pmf + torch.as_tensor(rng.integers(-2, 3, size=pmf.shape), dtype=torch.int32)).contiguous()
+    side = 2 * R + 1
+    d = (g0 - pmf + R).reshape(-1, 2).numpy()
+    keys, counts = np.unique(d[:, 1] * side + d[:, 0], return_counts=True)
+    top = keys[np.argsort(-counts, kind="stable")[:4]]
+    sl = np.full((1, 1, k_slots, 2), -1, np.int32)
+    sl[0, 0, [0, 2, 3, 5]] = np.stack([top // side, top % side], -1)
+    slots = torch.as_tensor(sl)
+    table = torch.as_tensor(rng.integers(0, 9000, size=(1, k_slots, H // cur, W // cur)),
+                            dtype=torch.uint16)
+    own = (g0 - pmf + R)[0].numpy()
+    missed = ~np.isin(own[..., 1] * side + own[..., 0], top)
+    assert missed.any() and (~missed).any()
+    want = g0.clone()
+    for sweep in range(sweeps):
+        for ci, cj in COLORS:
+            kin = _step_inputs(want, pm, cur, ci, cj)
+            ref = jrs.windowed_color_step_pm_compact(
+                kin["scalars"], jnp.asarray(sl[0]), jnp.float32(lam * (sweep + 1)),
+                jnp.asarray(_table_pm(table[0].numpy(), f)), kin["cands_pm"], kin["pm_lane"],
+                kin["present_pm"], kin["rank_pm"], kin["oy_cell"], kin["ox_cell"], k_slots, R,
+                cur, H, W, interpret=True,
+            )
+            want[0, ci::2, cj::2] = torch.as_tensor(np.array(_winners(ref, f)))
+    assert not torch.equal(want, g0)
+    launches = reg_step.color_round_compact.launches
+    smap = compact.slot_map(slots, R)
+    for m in (None, smap):
+        got = g0.clone()
+        reg_step.color_round_compact(got, table, pm, slots, cur=cur, h=H, w=W, r=R, lam=lam,
+                                     sweeps=sweeps, smap=m)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert reg_step.color_round_compact.launches == launches  # CPU tensors: no launch
+    with pytest.raises(ValueError, match="smap"):  # a map of another radius
+        reg_step.color_round_compact(g0.clone(), table, pm, slots, cur=cur, h=H, w=W, r=R,
+                                     lam=lam, sweeps=sweeps, smap=compact.slot_map(slots, R - 1))
+
+
 # --------------------------------------------------------- ops/compact
 
 def test_chunk_delta_slots_match_jax(rng):
@@ -330,6 +379,31 @@ def test_chunk_delta_slots_match_jax(rng):
         assert float(frac[b]) == jf
     assert float(frac[0]) == 0.0 and float(frac[1]) > 0.0
     assert (got[0] == -1).any() and not torch.equal(got[0], got[1])
+
+
+@pytest.mark.parametrize("k_slots", [6, (2 * 4 + 1) ** 2])
+def test_slot_map_inverts_the_slot_lists(rng, k_slots):
+    # for every chunk and delta key, map[key] == k exactly when slots[k]
+    # holds that key (else NO_SLOT): 11 x 13 parents (two chunks, the second
+    # ragged) of B = 2 frames, K = 6 (chunks overflow) and K = side^2 (every
+    # delta of the window has a slot), and one chunk with every slot unused
+    r, ring, npy, npx = 4, 2, 11, 13
+    side = 2 * r + 1
+    base = rng.integers(-3, 4, size=(2, npy, npx, 2)).astype(np.int32)
+    win = base + rng.integers(-r - 1, r + 2, size=base.shape).astype(np.int32)
+    slots = compact.chunk_delta_slots(torch.as_tensor(win), torch.as_tensor(base), r, k_slots,
+                                      ring)
+    slots[1, 1] = -1
+    got = compact.slot_map(slots, r)
+    assert got.dtype == torch.uint16 and tuple(got.shape) == (2, 2, side * side)
+    sl = slots.numpy()
+    used = sl[..., 0] >= 0
+    assert used.any() and (~used[0]).any() == (k_slots == side * side) and not used[1, 1].any()
+    holds = ((sl[..., 0, None] * side + sl[..., 1, None] == np.arange(side * side))
+             & used[..., None])  # (B, nch, K, side^2): slot k holds key
+    at = got.numpy().astype(np.int64)[:, :, None, :] == np.arange(k_slots)[None, None, :, None]
+    np.testing.assert_array_equal(at, holds)
+    np.testing.assert_array_equal(got.numpy() == compact.NO_SLOT, ~holds.any(axis=2))
 
 
 # ------------------- compact levels that exclude deltas the dense volumes hold

@@ -213,13 +213,26 @@ def test_cuda_engine_equals_cpu(cuda):
         assert torch.equal(on_gpu.cpu(), on_cpu)
 
 
+def _at_offset(a: np.ndarray, off: int, cuda) -> torch.Tensor:
+    """``a`` on the card as a contiguous view ``off`` bytes into its buffer."""
+    buf = torch.empty(a.size + off, dtype=torch.uint8, device=cuda)
+    view = buf[off:].view(a.shape)
+    view.copy_(torch.as_tensor(a, device=cuda))
+    return view
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("bs,ss", [(32, 64), (8, 24), (4, 12)])
+@pytest.mark.parametrize("bs,ss", [(32, 64), (8, 24), (4, 12), (4, 10), (2, 6), (2, 8), (16, 48),
+                                   (64, 96), (8, 20)])
 def test_cuda_sad_spiral_argmin_equals_plain(cuda, bs, ss):
-    # kernel 7: centres near and past the frame's edges mask offsets (some
-    # blocks every offset); block 5 and its window are constant, so every
-    # unmasked offset costs the same and the spiral rank decides
-    rng = np.random.default_rng(ss)
+    # kernel 7 at bs 2..64 and windows of 6..96 bytes (win % 16 == 0, win %
+    # 4 == 0 and neither), sad and ssd: centres near and past the frame's
+    # edges mask offsets; blocks 0 and 1 have every offset masked (every
+    # row, every column: they keep the centre); block 5 and its window are
+    # constant, so every unmasked offset costs the same and the spiral rank
+    # decides; frames and windows also at a 1-byte offset into their
+    # buffers (the word and byte staging paths)
+    rng = np.random.default_rng(100 * bs + ss)
     b, h, w = 2, 4 * bs, 6 * bs
     ext = spiral_extent(ss - bs)
     win, nblk = bs + 2 * ext, 24
@@ -229,13 +242,18 @@ def test_cuda_sad_spiral_argmin_equals_plain(cuda, bs, ss):
     wins[:, 5] = 9
     cy = rng.integers(-ext - 2, h - bs + ext + 3, size=(b, nblk)).astype(np.int32)
     cx = rng.integers(-ext - 2, w - bs + ext + 3, size=(b, nblk)).astype(np.int32)
-    args = [torch.as_tensor(a, device=cuda) for a in (im1, wins, cy, cx)]
-    for cost in ("sad", "ssd"):
-        before = sad_search.sad_spiral_argmin.launches
-        got = sad_search.sad_spiral_argmin(*args, bs, ss, cost)
-        assert sad_search.sad_spiral_argmin.launches == before + 1
-        want = sad_search.sad_spiral_argmin_plain(*args, bs, ss, cost)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), cost
+    cy[:, 0] = -ext - 3
+    cx[:, 1] = w - bs + ext + 3
+    centres = [torch.as_tensor(a, device=cuda) for a in (cy, cx)]
+    for off in (0, 1):
+        args = [_at_offset(im1, off, cuda), _at_offset(wins, off, cuda)] + centres
+        for cost in ("sad", "ssd"):
+            before = sad_search.sad_spiral_argmin.launches
+            got = sad_search.sad_spiral_argmin(*args, bs, ss, cost)
+            assert sad_search.sad_spiral_argmin.launches == before + 1
+            want = sad_search.sad_spiral_argmin_plain(*args, bs, ss, cost)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (cost, off)
+            assert (got[0][:, :2] == ext).all() and (got[1][:, :2] == ext).all()
 
 
 @pytest.mark.requires_cuda
@@ -293,6 +311,7 @@ def test_cuda_capacity_kernels_equal_plain(cuda, bs, ext, r2):
             slots[:, :, 1::7] = -1  # unused slots among the used ones
             tk = cv_diff.compact_tables(im1, win, slots, bs, ext, cost)
             tp = cv_diff.compact_tables_plain(im1, win, slots, bs, ext, cost)
+            smap = compact.slot_map(slots, ext)
             assert sorted(tk) == sorted(tp) == cv_diff.table_curs(bs)
             for cur in tk:
                 assert tk[cur].dtype == tp[cur].dtype and torch.equal(tk[cur], tp[cur]), (cost, cur)
@@ -303,7 +322,8 @@ def test_cuda_capacity_kernels_equal_plain(cuda, bs, ext, r2):
                 kw = dict(cur=cur, h=h, w=w, r=ext, lam_mult=3.0 * f)
                 for ci, cj in ((0, 0), (0, 1), (1, 0), (1, 1)):
                     gk, gp = g0.clone(), g0.clone()
-                    reg_step.color_step_compact(gk, tk[cur], pm, slots, ci=ci, cj=cj, **kw)
+                    reg_step.color_step_compact(gk, tk[cur], pm, slots, ci=ci, cj=cj, smap=smap,
+                                                **kw)
                     reg_step.color_step_compact_plain(gp, tk[cur], pm, slots, ci=ci, cj=cj, **kw)
                     assert torch.equal(gk, gp), ("10", cost, k_slots, cur, ci, cj)
                     if k_slots == 8:
@@ -491,3 +511,79 @@ def test_cuda_stored_round_equals_plain_step_loop(cuda, form, cur, widths):
     assert reg_step.color_step.row_launches[form] == before + 1
     reg_step.color_step_plain(gp, cv, pm, ci=1, cj=0, lam_mult=lam, **kw)
     assert torch.equal(gk, gp)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("width", ["u16", "i32"])
+@pytest.mark.parametrize("k_slots", [6, 64, "side^2"])
+@pytest.mark.parametrize("cur", [2, 4, 8, 16])
+def test_cuda_compact_round_equals_plain_step_loop(cuda, cur, k_slots, width):
+    # kernel 10, the round kernel's compact form (each candidate's slot
+    # looked up in ops.compact.slot_map), against the plain steps (the slot
+    # compares) one by one: B=2 frames of 13x40 parents at f = 2 (5 chunks
+    # a frame, the last ragged; a 26x80 grid, so the tiles of a colour are
+    # ragged both ways), candidates within +-2 of the centres, slot lists
+    # of each chunk drawn from the more frequent candidate deltas (some
+    # missing in each chunk, so some candidates miss every slot, own MVs
+    # among them) at random slots, a fifth of the slots unused (-1), K = 6,
+    # 64 and side^2; random tables (u16, or i32 up to 2^24); sweeps 1, 2, 3
+    # in one launch and MAX_SWEEPS + 1 in two; and one colour step (a span
+    # of one, its map built inside)
+    from blockbasedmotionestimation_tpu_torch.ops import compact
+
+    seed = 1000 * cur + len(str(k_slots)) + len(width)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    b, npy, npx, r, f = 2, 13, 40, 7, 2
+    side = 2 * r + 1
+    k = side * side if k_slots == "side^2" else k_slots
+    nby, nbx = npy * f, npx * f
+    h, w = nby * cur, nbx * cur
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=cuda, dtype=torch.int64).to(dtype)
+
+    pm = ints(-4, 5, (b, npy, npx, 2))
+    pmf = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
+    g0 = (pmf + ints(-2, 3, pmf.shape)).contiguous()
+    d = (g0 - pmf + r).reshape(-1, 2).cpu().numpy()
+    keys, counts = np.unique(d[:, 1] * side + d[:, 0], return_counts=True)
+    pref = list(keys[np.argsort(-counts, kind="stable")])
+    pref += list(rng.permutation(np.setdiff1d(np.arange(side * side), keys)))
+    nch = -(-npy * npx // compact.CHUNK)
+    n_used = k - max(1, k // 5)
+    sl = np.full((b, nch, k, 2), -1, np.int32)
+    for bi in range(b):
+        for c in range(nch):
+            chosen = rng.choice(np.array(pref[:n_used + 3]), size=n_used, replace=False)
+            at = rng.choice(k, size=n_used, replace=False)
+            sl[bi, c, at] = np.stack([chosen // side, chosen % side], -1)
+    slots = torch.as_tensor(sl, device=cuda)
+    if width == "u16":
+        table = ints(0, 2**16, (b, k, nby, nbx), torch.uint16)
+    else:
+        table = ints(0, 2**24, (b, k, nby, nbx))
+    smap = compact.slot_map(slots, r)
+    kw = dict(cur=cur, h=h, w=w, r=r)
+    lam = 1.5 * 32 / cur
+    for sweeps in (1, 2, 3, fused_step.MAX_SWEEPS + 1):
+        gk, gp = g0.clone(), g0.clone()
+        before = reg_step.color_round_compact.launches
+        reg_step.color_round_compact(gk, table, pm, slots, lam=lam, sweeps=sweeps, smap=smap, **kw)
+        n = len(fused_step._spans(sweeps))
+        assert reg_step.color_round_compact.launches == before + n
+        reg_step.color_round_compact_plain(gp, table, pm, slots, lam=lam, sweeps=sweeps, **kw)
+        assert not torch.equal(gp, g0)
+        assert torch.equal(gk, gp), (cur, k, width, sweeps)
+    gk, gp = g0.clone(), g0.clone()
+    before = reg_step.color_step_compact.launches
+    reg_step.color_step_compact(gk, table, pm, slots, ci=1, cj=0, lam_mult=lam, smap=smap, **kw)
+    assert reg_step.color_step_compact.launches == before + 1
+    reg_step.color_step_compact_plain(gp, table, pm, slots, ci=1, cj=0, lam_mult=lam, **kw)
+    assert torch.equal(gk, gp)
+    # on the card the map is required: no launch without it
+    with pytest.raises(ValueError, match="smap"):
+        reg_step.color_step_compact(gk, table, pm, slots, ci=1, cj=0, lam_mult=lam, **kw)
+    with pytest.raises(ValueError, match="smap"):
+        reg_step.color_round_compact(gk, table, pm, slots, lam=lam, sweeps=1, **kw)
+    assert reg_step.color_step_compact.launches == before + 1

@@ -441,12 +441,13 @@ def _c_params(src: str, name: str) -> list[str]:
      (fused_step, "bbme_color_step_hybrid_tail", "fused_step.cu"),
      (sad_search, "bbme_sad_spiral_argmin", "sad_search.cu"),
      (cv_diff, "bbme_compact_tables", "cv_diff.cu"),
-     (reg_step, "bbme_color_step_compact", "reg_step.cu"),
+     (reg_step, "bbme_color_step_compact", "fused_step.cu"),
      (fused_step, "bbme_color_step_fused", "fused_step.cu"),
      (fused_step, "bbme_color_round_hybrid", "fused_step.cu"),
      (fused_step, "bbme_color_round_hybrid_tail", "fused_step.cu"),
      (fused_step, "bbme_color_round_fused", "fused_step.cu"),
-     (reg_step, "bbme_color_round_stored", "fused_step.cu")],
+     (reg_step, "bbme_color_round_stored", "fused_step.cu"),
+     (reg_step, "bbme_color_round_compact", "fused_step.cu")],
 )
 def test_ctypes_argtypes_match_c_signature(module, name, source):
     # the library is built only on a CUDA machine; the declared argument
@@ -465,6 +466,7 @@ def test_ctypes_argtypes_match_c_signature(module, name, source):
         "bbme_color_round_hybrid_tail": "ROUND_TAIL_ARGTYPES",
         "bbme_color_round_fused": "ROUND_FUSED_ARGTYPES",
         "bbme_color_round_stored": "ROUND_ARGTYPES",
+        "bbme_color_round_compact": "ROUND_COMPACT_ARGTYPES",
     }.get(name, "ARGTYPES"))
     assert len(params) == len(argtypes), (params, argtypes)
     for p, t in zip(params, argtypes):

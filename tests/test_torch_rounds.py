@@ -173,28 +173,29 @@ def test_rounds_split_into_spans_of_max_sweeps():
 
 
 def test_rounds_loop_calls_a_round_callable_once_per_round():
-    # a round callable (per_round) is called once per round with lam and
-    # sweeps; a step is called once per colour step with lam * (sweep + 1)
+    # every round is one call of a round callable (per_round) with the
+    # round's lambda (doubling every round) and sweeps; a one-step callable
+    # (not per_round) is refused before it runs
     calls = []
-
-    def step(grid, tag, *, cur, h, w, ci, cj, lam_mult):
-        calls.append(("step", tag, cur, ci, cj, lam_mult))
 
     def round_fn(grid, tag, *, cur, h, w, lam, sweeps):
         calls.append(("round", tag, cur, lam, sweeps))
 
     round_fn.per_round = True
 
-    def round_of(cur):
-        return (round_fn if cur <= 4 else step), ("t",), {}
+    def step(grid, tag, *, cur, h, w, ci, cj, lam_mult):
+        calls.append(("step", tag, cur, ci, cj, lam_mult))
 
     grid = torch.zeros((1, 2, 3, 2), dtype=torch.int32)
-    out = windowed.rounds_loop(grid, 16, 32, 48, 8.0, 2, round_of)
+    out = windowed.rounds_loop(grid, 16, 32, 48, 8.0, 2, lambda cur: (round_fn, ("t",), {}))
     assert out.shape == (1, 32, 48, 2)
-    want = [("step", "t", c, ci, cj, lam * (s + 1))
-            for c, lam in ((16, 8.0), (8, 16.0)) for s in range(2) for ci, cj in COLORS]
-    want += [("round", "t", 4, 32.0, 2), ("round", "t", 2, 64.0, 2)]
-    assert calls == want
+    assert calls == [("round", "t", c, lam, 2)
+                     for c, lam in ((16, 8.0), (8, 16.0), (4, 32.0), (2, 64.0))]
+    calls.clear()
+    with pytest.raises(TypeError, match="per_round"):
+        windowed.rounds_loop(grid, 16, 32, 48, 8.0, 2,
+                             lambda cur: (round_fn if cur <= 4 else step, ("t",), {}))
+    assert calls == []
 
 
 @pytest.mark.parametrize("rival", [True, False])
