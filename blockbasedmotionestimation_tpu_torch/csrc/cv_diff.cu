@@ -67,13 +67,22 @@
 // and 13's, 87 for ssd.  The bs-32 loop of C and 13 holds 64 VABSDIFF4 among
 // 748 instructions, B's 64 VABSDIFF4 and 156 IDP among 1100 (PERF.md).
 //
-// Also here: kernel 14, compact_tables (cv_diff.py compact_tables, the
-// cv_compact mode): the pooled costs at only the K slot deltas of each
-// parent's 128-parent chunk, for cur = 2 .. bs/2.  One thread block per
-// (frame, parent) loops over the K slots.  Its work is K * bs^2 diffs per
-// parent (K = 64: ~6% of B's 1089 deltas at bs 32, r 16) and K * 4/3 * (bs/2)^2
-// table entries; the table writes (16-bit, ~1 GB at the 1080p level 0, B=8,
-// K=64) bound it.
+// Also here: kernel 14, compact_tables (replaces blockbasedmotionestimation_tpu/
+// kernels/cv_diff.py compact_tables, the cv_compact mode): the pooled costs at
+// only the K slot deltas of each parent's 128-parent chunk, for cur = 2 ..
+// bs/2, as (B, K, h/cur, w/cur) tables.  Its work is small (K * bs^2 diffs
+// a parent: at the 1080p level 0, B=8, K=64, 1.34 G, ~0.02 ms at four
+// pixels an instruction); its table writes bound it (~0.89 GB of uint16 at
+// that level, 0.2974 ms at 3.35 TB/s).  The previous design (a block per
+// parent looping over the slots, byte-wise diffs with runtime divisions, a
+// shared-memory pass and a barrier per pooled size, scalar 2-byte stores)
+// ran it at 3.2546 ms on the H100 (PERF.md).  This one is the volume
+// kernel's, per slot instead of per delta: templated on bs (4 .. 128) and
+// the cost, a block of pp neighbouring parents of a row (each window read
+// once, into aligned words at an odd pitch), a thread a (parent, slot,
+// cur=2 row), the window words at the slot's dx funnel-shifted out of two
+// aligned words, byte-packed diffs, pooling in registers with no barrier
+// after the staging, and row runs stored as vectors (compact_tables_kernel).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -180,6 +189,96 @@ __device__ __forceinline__ void store_cells(void* base, size_t off, const int (&
 #pragma unroll
     for (int q = 0; q < N; ++q) wds[q] = static_cast<uint32_t>(v[q]);
     store_words(static_cast<int*>(base) + off, wds, n);
+  }
+}
+
+// the diffs of patch word a against window word v (four pixels), added to
+// acc: the cur=4 half-cell j (kSad4), else the two cur=2 cells 2j and 2j+1,
+// the byte |d| summed in pairs by dp4a (ssd: |d| times itself, d^2 = |d|^2)
+template <int MODE, int NACC>
+__device__ __forceinline__ void add_word(uint32_t (&acc)[NACC], int j, uint32_t a, uint32_t v) {
+  if constexpr (MODE == kSad4) {
+    acc[j] = sad_all(a, v, acc[j]);
+  } else if constexpr (MODE == kSad2) {
+    const uint32_t ad = __vabsdiffu4(a, v);
+    acc[2 * j] = __dp4a(ad, 0x00000101u, acc[2 * j]);
+    if constexpr (NACC > 1) acc[2 * j + 1] = __dp4a(ad, 0x01010000u, acc[2 * j + 1]);
+  } else {
+    const uint32_t ad = __vabsdiffu4(a, v);
+    acc[2 * j] = __dp4a(ad, ad & 0x0000ffffu, acc[2 * j]);
+    if constexpr (NACC > 1) acc[2 * j + 1] = __dp4a(ad, ad & 0xffff0000u, acc[2 * j + 1]);
+  }
+}
+
+// 2x2 pooling in registers, from size 1 << l to size 2 << l (nf = F2 >> l
+// cells a row): the horizontal pair sums hs in the thread (pair_sums), then
+// the vertical pair across lanes sy ^ 2^(l-1) (lane_pairs).  With sad at
+// cur <= 16 two cells ride in one word pk (each < 2^16: the uint16 stored
+// layout), so one shuffle moves two cells and the word is stored as it is.
+template <int F2>
+__host__ __device__ constexpr int half_cells() { return F2 / 2 > 0 ? F2 / 2 : 1; }
+
+template <int MODE>
+__device__ __forceinline__ bool packed_size(int l, int nf) {
+  return MODE != kSsd && (2 << l) <= 16 && nf >= 2;
+}
+
+template <int F2, int MODE, int H>
+__device__ __forceinline__ void pair_sums(int l, bool prev_packed, const int (&v)[F2],
+                                          const uint32_t (&pk)[H], int (&hs)[H]) {
+  const int nf = F2 >> l;
+#pragma unroll
+  for (int q = 0; q < F2 / 2; ++q) {
+    if (q < nf) {
+      if (MODE == kSad4 && l == 1) {
+        hs[q] = v[q];
+      } else if (prev_packed) {
+        hs[q] = static_cast<int>(__dp2a_lo(pk[q], 0x0101u, 0u));
+      } else {
+        hs[q] = v[2 * q] + v[2 * q + 1];
+      }
+    }
+  }
+}
+
+// every lane of the warp must call it (the shuffles take them all)
+template <int F2, int H>
+__device__ __forceinline__ void lane_pairs(bool packed, int nf, int mask, const int (&hs)[H],
+                                           int (&v)[F2], uint32_t (&pk)[H]) {
+  if (packed) {
+#pragma unroll
+    for (int q = 0; q < F2 / 4; ++q) {
+      if (q < nf / 2) {
+        pk[q] = __byte_perm(hs[2 * q], hs[2 * q + 1], 0x5410);
+        pk[q] += __shfl_xor_sync(0xffffffffu, pk[q], mask);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < F2 / 2; ++q) {
+      if (q < nf) v[q] = hs[q] + __shfl_xor_sync(0xffffffffu, hs[q], mask);
+    }
+  }
+}
+
+// element offset of the run of nf cells a parent (py, px) adds to its row
+// sub-row `sub` of plane `plane` of a (npy * nf, npx * nf) pooled layout
+__device__ __forceinline__ size_t run_offset(size_t plane, int npy, int npx, int nf, int py,
+                                             int sub, int px) {
+  const size_t ncol = static_cast<size_t>(npx) * nf;
+  return plane * static_cast<size_t>(npy) * nf * ncol +
+         static_cast<size_t>(py * nf + sub) * ncol + static_cast<size_t>(px) * nf;
+}
+
+// a size's run: the packed words pk (uint16 cells), else the cells v
+template <int F2, int H>
+__device__ __forceinline__ void store_run(void* base, size_t off, bool packed,
+                                          const uint32_t (&pk)[H], const int (&v)[F2], int nf,
+                                          bool is16) {
+  if (packed) {
+    store_words(static_cast<uint16_t*>(base) + off, pk, nf / 2);
+  } else {
+    store_cells(base, off, v, nf, is16);
   }
 }
 
@@ -327,23 +426,7 @@ pooled_cvs_kernel(const uint8_t* __restrict__ im1, const uint8_t* __restrict__ w
 #pragma unroll
       for (int i = 0; i < NDX; ++i) {
 #pragma unroll
-        for (int j = 0; j < NW; ++j) {
-          const uint32_t a = pw[u][j];
-          const uint32_t v = wv[i + j];
-          if constexpr (MODE == kSad4) {
-            acc[i][j] = sad_all(a, v, acc[i][j]);
-          } else if constexpr (MODE == kSad2) {
-            const uint32_t ad = __vabsdiffu4(a, v);
-            acc[i][2 * j] = __dp4a(ad, 0x00000101u, acc[i][2 * j]);
-            if constexpr (F2 > 1) acc[i][2 * j + 1] = __dp4a(ad, 0x01010000u, acc[i][2 * j + 1]);
-          } else {
-            const uint32_t ad = __vabsdiffu4(a, v);
-            acc[i][2 * j] = __dp4a(ad, ad & 0x0000ffffu, acc[i][2 * j]);
-            if constexpr (F2 > 1) {
-              acc[i][2 * j + 1] = __dp4a(ad, ad & 0xffff0000u, acc[i][2 * j + 1]);
-            }
-          }
-        }
+        for (int j = 0; j < NW; ++j) add_word<MODE>(acc[i], j, pw[u][j], wv[i + j]);
       }
     }
 
@@ -361,48 +444,25 @@ pooled_cvs_kernel(const uint8_t* __restrict__ im1, const uint8_t* __restrict__ w
 #pragma unroll
         for (int q = 0; q < F2; ++q) v[q] = static_cast<int>(acc[i][q]);
         if ((emit_mask & 1) && ok && dx >= lo && dx < lo + side_st) {
-          const int f = F2;
-          const size_t ncol = static_cast<size_t>(npx) * f;
-          const size_t plane = static_cast<size_t>(npy) * f * ncol;
-          const size_t o = (static_cast<size_t>(b) * side * side_st +
-                            static_cast<size_t>(dy) * side_st + (dx - lo)) * plane +
-                           static_cast<size_t>(py * f + sy) * ncol + static_cast<size_t>(px) * f;
-          store_cells(outs.p[0], o, v, F2, MODE != kSsd);
+          const size_t plane = static_cast<size_t>(b) * side * side_st +
+                               static_cast<size_t>(dy) * side_st + (dx - lo);
+          store_cells(outs.p[0], run_offset(plane, npy, npx, F2, py, sy, px), v, F2,
+                      MODE != kSsd);
         }
       }
-      // each coarser size: the horizontal pair sums h, then the vertical pair
-      // across lanes sy ^ 2^(l-1).  With sad at cur <= 16 two cells ride in
-      // one word (each < 2^16: the uint16 stored layout), so one shuffle
-      // moves two cells and the word is stored as it is.
-      uint32_t pk[F2 / 2 > 0 ? F2 / 2 : 1];
+      constexpr int H = half_cells<F2>();
+      uint32_t pk[H];
       bool prev_packed = false;
 #pragma unroll
       for (int l = 1; l < S::kLevels; ++l) {
         const int nf = F2 >> l;  // cells per row at cur = 2 << l
-        const bool packed = MODE != kSsd && (2 << l) <= 16 && nf >= 2;
-        int hs[F2 / 2 > 0 ? F2 / 2 : 1];
-#pragma unroll
-        for (int q = 0; q < F2 / 2; ++q) {
-          if (q < nf) {
-            if (MODE == kSad4 && l == 1) {
-              hs[q] = v[q];
-            } else if (prev_packed) {
-              hs[q] = static_cast<int>(__dp2a_lo(pk[q], 0x0101u, 0u));
-            } else {
-              hs[q] = v[2 * q] + v[2 * q + 1];
-            }
-          }
-        }
+        const bool packed = packed_size<MODE>(l, nf);
+        int hs[H];
+        pair_sums<F2, MODE>(l, prev_packed, v, pk, hs);
         const int mask = 1 << (l - 1);
-        if (packed) {
-#pragma unroll
-          for (int q = 0; q < F2 / 4; ++q) {
-            if (q < nf / 2) {
-              pk[q] = __byte_perm(hs[2 * q], hs[2 * q + 1], 0x5410);
-              pk[q] += __shfl_xor_sync(0xffffffffu, pk[q], mask);
-            }
-          }
-        } else if (mask >= 32) {
+        if (packed || mask < 32) {
+          lane_pairs(packed, nf, mask, hs, v, pk);
+        } else {
           // bs >= 128: lanes sy and sy ^ 32 are in two warps; the one cell
           // (nf = 1) goes through shared memory, one slot per group of F2
           // lanes.  Every thread of the block runs every iteration, so the
@@ -412,24 +472,12 @@ pooled_cvs_kernel(const uint8_t* __restrict__ im1, const uint8_t* __restrict__ w
           if (sy == 32) xchg[threadIdx.x / F2] = hs[0];
           __syncthreads();
           v[0] = sy == 0 ? hs[0] + xchg[threadIdx.x / F2] : hs[0];
-        } else {
-#pragma unroll
-          for (int q = 0; q < F2 / 2; ++q) {
-            if (q < nf) v[q] = hs[q] + __shfl_xor_sync(0xffffffffu, hs[q], mask);
-          }
         }
         if (((emit_mask >> l) & 1) && ok && (sy & ((1 << l) - 1)) == 0) {
-          const int f = nf;
-          const size_t ncol = static_cast<size_t>(npx) * f;
-          const size_t plane = static_cast<size_t>(npy) * f * ncol;
-          const size_t o = (static_cast<size_t>(b) * side * side + static_cast<size_t>(dy) * side + dx) *
-                               plane +
-                           static_cast<size_t>(py * f + (sy >> l)) * ncol + static_cast<size_t>(px) * f;
-          if (packed) {
-            store_words(static_cast<uint16_t*>(outs.p[l]) + o, pk, nf / 2);
-          } else {
-            store_cells(outs.p[l], o, v, nf, MODE != kSsd && (2 << l) <= 16);
-          }
+          const size_t plane = static_cast<size_t>(b) * side * side +
+                               static_cast<size_t>(dy) * side + dx;
+          store_run(outs.p[l], run_offset(plane, npy, npx, nf, py, sy >> l, px), packed, pk, v,
+                    nf, MODE != kSsd && (2 << l) <= 16);
         }
         prev_packed = packed;
       }
@@ -477,105 +525,277 @@ int launch_bs(const void* im1, const void* windows, const CvOuts& o, int emit_ma
 
 // ------------------------------------------------------- compact tables (14)
 
-__device__ __forceinline__ void store_cost(void* base, bool is16, size_t o, int v) {
-  if (is16) {
-    static_cast<uint16_t*>(base)[o] = static_cast<uint16_t>(v);
-  } else {
-    static_cast<int*>(base)[o] = v;
+// Shared memory of one kernel-14 block of pp parents: each parent's window
+// as aligned words, its ws rows stored even rows first, then odd rows, at
+// an odd pitch of at least (ws + 3) / 4 + 1 words (a row's words and the
+// word past them, the funnel shift's high word), windows win_words apart
+// with win_words = f2 (mod 32) below f2 = 32, so the f2 sy lanes of each of
+// a warp's 32 / f2 parents read 32 distinct banks.
+// kernels/cv_diff.py compact_smem mirrors it.
+struct CompactLayout {
+  int pitch, half, win_words, bytes;
+};
+
+__host__ __device__ inline CompactLayout compact_layout(int f2, int ws, int pp) {
+  CompactLayout l;
+  l.pitch = (ws + 3) / 4 + 1;
+  if (l.pitch % 2 == 0) ++l.pitch;
+  l.half = (ws + 1) / 2;
+  l.win_words = ws * l.pitch;
+  if (f2 < 32) l.win_words += ((f2 - l.win_words) % 32 + 32) % 32;
+  l.bytes = 4 * pp * l.win_words;
+  return l;
+}
+
+// A parent's cur=2 run of N words (N % 8 == 0: an even number of 16-byte
+// pieces), stored together with the run after it, which the lane
+// `lane ^ lane_mask` holds: the pair's run starts at `pair_run` (the even
+// parent's, 32-byte aligned), the even lane writes its pieces 2i and the odd
+// lane its pieces 2i + 1, so each 16-byte store instruction fills whole
+// 32-byte sectors (a lane alone half-fills two).  Every lane of the warp
+// calls it; `both`: the pair stores (else the even lane stores alone).
+template <int N>
+__device__ __forceinline__ void store_pair_run(uint32_t* pair_run, const uint32_t (&wd)[N],
+                                               bool odd, bool active, bool both, int lane_mask) {
+  constexpr int NP = N / 4;  // pieces of one run
+  static_assert(N % 8 == 0, "an even number of 16-byte pieces");
+  // the even lane hands over its odd pieces 2t + 1, the odd lane its even
+  // pieces 2t (the pair's pieces NP + 2t)
+  uint32_t got[NP / 2][4];
+#pragma unroll
+  for (int t = 0; t < NP / 2; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      got[t][e] = __shfl_xor_sync(0xffffffffu, odd ? wd[8 * t + e] : wd[8 * t + 4 + e], lane_mask);
+    }
+  }
+  if (!active) return;
+  uint4* dst = reinterpret_cast<uint4*>(pair_run);
+  if (!both) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) dst[i] = make_uint4(wd[4 * i], wd[4 * i + 1], wd[4 * i + 2], wd[4 * i + 3]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    // the pair's piece 2i (even lane: its own below NP, else handed over)
+    // and 2i + 1 (odd lane: handed over below NP, else its own); every
+    // index a constant once unrolled, only the pick depends on the lane
+    uint32_t ve[4], vo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ve[e] = 2 * i < NP ? wd[4 * min(2 * i, NP - 1) + e] : got[max(0, (2 * i - NP) / 2)][e];
+      vo[e] = 2 * i + 1 < NP ? got[min(i, NP / 2 - 1)][e] : wd[4 * max(0, 2 * i + 1 - NP) + e];
+    }
+    dst[2 * i + odd] = odd ? make_uint4(vo[0], vo[1], vo[2], vo[3])
+                           : make_uint4(ve[0], ve[1], ve[2], ve[3]);
   }
 }
 
-// Kernel 14: one thread block per (frame, parent).  The parent block and its
-// whole window sit in shared memory; for each of the K slots of the parent's
-// chunk (`chunk` consecutive parents of the frame), the cur=2 cell sums of the
-// block against the window at the slot's delta, then 2x2 pooling up to
-// bs/2, each size written at slot k of its table.  A slot of -1 writes 0.
-__global__ void compact_tables_kernel(const uint8_t* __restrict__ im1,
-                                      const uint8_t* __restrict__ windows,
-                                      const int* __restrict__ slots,
-                                      CvOuts outs, int ncur, int is16_mask,
-                                      int h, int w, int bs, int ws,
-                                      int k_slots, int nch, int chunk, int ssd,
-                                      int buf1_len) {
+// Kernel 14: one thread block per pp neighbouring parents of a row and
+// group of slots_per_cta slots.  Each window is read from device memory once
+// (16-byte loads of its 16-aligned cover) into the layout above; then one
+// barrier, and none after it.  A thread owns one (parent, slot, cur=2 row
+// sy): its two patch rows sit in registers for the whole block, and for
+// each slot (dy, dx) of its parent's chunk it funnel-shifts the window
+// words at byte offset dx out of two aligned words, takes the byte |d| of
+// four pixels at once, sums them into its bs/2 cur=2 cells with dp4a, and
+// pools them in registers up to cur = bs/2 (pair sums in the thread, then
+// __shfl_xor across the neighbouring sy lanes, which all sit in one warp:
+// at bs 128 the cur = 64 cell spans 32 of them).  Each size is stored as its
+// parent's row run (16/8/4-byte vectors); a cur=2 run of 32 bytes or more
+// together with the next parent's (store_pair_run).  A slot of -1 stores
+// zeros.  Below bs 64 an SM holds four blocks for sad (64 registers a
+// thread) and three for ssd (80): the loop is latency-bound, and four
+// blocks ran sad faster than three at the 1080p level 0, where ssd, held to
+// 64 registers, spilled and ran slower.
+template <int BS, int MODE>
+__global__ void __launch_bounds__(kMaxThreads, BS >= 64 ? 1 : MODE == kSsd ? 3 : 4)
+compact_tables_kernel(const uint8_t* __restrict__ im1, const uint8_t* __restrict__ windows,
+                      const int* __restrict__ slots, CvOuts outs, int h, int w, int ws,
+                      int k_slots, int nch, int chunk, int slots_per_cta, int lpp) {
+  using S = Shape<BS>;
+  constexpr int F2 = S::kF2, NW = S::kNW, H = half_cells<F2>();
+  static_assert(BS >= 4 && F2 <= 64, "kernel 14 is built for bs 4 .. 128");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int npx = w / bs;
-  const int npy = h / bs;
-  const int n_p = npy * npx;
-  const int n = blockIdx.x;
-  const int b = n / n_p;
-  const int p = n % n_p;
-  const int py = p / npx;
-  const int px = p % npx;
-  const int f2 = bs / 2;
+  const int pp = 1 << lpp;
+  const CompactLayout lay = compact_layout(F2, ws, pp);
+  const int npx = w / BS;
+  const int npy = h / BS;
+  const int ntx = (npx + pp - 1) >> lpp;
+  const int b = blockIdx.x / (npy * ntx);
+  const int tile = blockIdx.x - b * npy * ntx;
+  const int py = tile / ntx;
+  const int px0 = (tile - py * ntx) << lpp;
+  const int np_blk = min(pp, npx - px0);
+  const int n0 = (b * npy + py) * npx + px0;  // window index of parent px0
+  const int wbytes = ws * ws;
 
-  int* buf0 = reinterpret_cast<int*>(smem);                       // f2 * f2
-  int* buf1 = buf0 + f2 * f2;                                     // buf1_len
-  uint8_t* patch = reinterpret_cast<uint8_t*>(buf1 + buf1_len);  // bs * bs
-  uint8_t* win = patch + bs * bs;                                 // ws * ws
-
-  for (int t = threadIdx.x; t < bs * bs; t += blockDim.x) {
-    patch[t] = im1[(static_cast<size_t>(b) * h + py * bs + t / bs) * w + px * bs + t % bs];
+  // 1. the windows: each 16-byte vector of a window's cover goes to its
+  //    rows as words (rows and window 4-aligned), else as bytes
+  uint32_t* wsm = reinterpret_cast<uint32_t*>(smem);
+  const int nvec = (15 + wbytes + 15) / 16;  // the most vectors a cover has
+  for (int t = threadIdx.x; t < np_blk * nvec; t += blockDim.x) {
+    const int q = t / nvec;
+    const int c = t - q * nvec;
+    const uint8_t* src = windows + static_cast<size_t>(n0 + q) * wbytes;
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(src) & ~static_cast<uintptr_t>(15);
+    const int s0 = static_cast<int>(reinterpret_cast<uintptr_t>(src) - a0);
+    if (16 * c >= s0 + wbytes) continue;
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(a0) + c);
+    const uint32_t wd[4] = {x.x, x.y, x.z, x.w};
+    uint32_t* rows = wsm + q * lay.win_words;
+    const int o = 16 * c - s0;  // window byte of the vector's first byte
+    if ((ws & 3) == 0 && (s0 & 3) == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int oi = o + 4 * i;
+        if (oi >= 0 && oi < wbytes) {
+          const int y = oi / ws;
+          rows[((y & 1) * lay.half + (y >> 1)) * lay.pitch + ((oi - y * ws) >> 2)] = wd[i];
+        }
+      }
+    } else {
+      uint8_t* rb = reinterpret_cast<uint8_t*>(rows);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int oi = o + i;
+        if (oi >= 0 && oi < wbytes) {
+          const int y = oi / ws;
+          rb[4 * ((y & 1) * lay.half + (y >> 1)) * lay.pitch + (oi - y * ws)] =
+              static_cast<uint8_t>(wd[i >> 2] >> (8 * (i & 3)));
+        }
+      }
+    }
   }
-  const uint8_t* wbase = windows + static_cast<size_t>(n) * ws * ws;
-  for (int t = threadIdx.x; t < ws * ws; t += blockDim.x) win[t] = wbase[t];
   __syncthreads();
 
-  const int* sl = slots + (static_cast<size_t>(b) * nch + p / chunk) * k_slots * 2;
-  for (int k = 0; k < k_slots; ++k) {
-    const int dy = sl[2 * k];
-    const int dx = sl[2 * k + 1];
-    const bool used = dy >= 0 && dx >= 0;
-    int f = f2;
-    {
-      const size_t ncol = static_cast<size_t>(npx) * f;
-      const size_t plane = static_cast<size_t>(npy) * f * ncol;
-      for (int c = threadIdx.x; c < f * f; c += blockDim.x) {
-        const int sy = c / f;
-        const int sx = c % f;
-        int s = 0;
-        if (used) {
+  // 2. this thread's parent pi, cur=2 row sy and slot si of each iteration
+  //    (the block's threads are a multiple of F2 * pp); its patch rows
+  const int sy = threadIdx.x & (F2 - 1);
+  const int pi = (threadIdx.x / F2) & (pp - 1);
+  const int si = (threadIdx.x / F2) >> lpp;
+  const int spi = blockDim.x / (F2 << lpp);  // slots an iteration
+  const int px = px0 + pi;
+  const bool pactive = pi < np_blk;
+  uint32_t pw[2][NW];
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
+  for (int u = 0; u < 2; ++u) {
+    const uint8_t* row = im1 + (static_cast<size_t>(b) * h + py * BS + 2 * sy + u) * w +
+                         static_cast<size_t>(pactive ? px : px0) * BS;
 #pragma unroll
-            for (int v = 0; v < 2; ++v) {
-              const int y = 2 * sy + u;
-              const int x = 2 * sx + v;
-              const int d = static_cast<int>(patch[y * bs + x]) -
-                            static_cast<int>(win[(dy + y) * ws + dx + x]);
-              s += ssd ? d * d : abs(d);
-            }
-          }
-        }
-        buf0[c] = s;
-        const size_t o = (static_cast<size_t>(b) * k_slots + k) * plane +
-                         static_cast<size_t>(py * f + sy) * ncol + px * f + sx;
-        store_cost(outs.p[0], is16_mask & 1, o, s);
+    for (int j = 0; j < NW; j += (NW % 4 == 0 ? 4 : NW)) {
+      if constexpr (NW % 4 == 0) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(row) + j / 4);
+        pw[u][j] = x.x;
+        pw[u][j + 1] = x.y;
+        pw[u][j + 2] = x.z;
+        pw[u][j + 3] = x.w;
+      } else if constexpr (NW == 2) {
+        const uint2 x = __ldg(reinterpret_cast<const uint2*>(row));
+        pw[u][0] = x.x;
+        pw[u][1] = x.y;
+      } else {
+        pw[u][0] = __ldg(reinterpret_cast<const uint32_t*>(row));
       }
     }
-    int* src = buf0;
-    int* dst = buf1;
-    for (int lvl = 1; lvl < ncur; ++lvl) {
-      __syncthreads();
-      const int fp = f;
-      f >>= 1;
-      const size_t ncol = static_cast<size_t>(npx) * f;
-      const size_t plane = static_cast<size_t>(npy) * f * ncol;
-      for (int c = threadIdx.x; c < f * f; c += blockDim.x) {
-        const int sy = c / f;
-        const int sx = c % f;
-        const int* q = src + (2 * sy) * fp + 2 * sx;
-        const int s = q[0] + q[1] + q[fp] + q[fp + 1];
-        dst[c] = s;
-        const size_t o = (static_cast<size_t>(b) * k_slots + k) * plane +
-                         static_cast<size_t>(py * f + sy) * ncol + px * f + sx;
-        store_cost(outs.p[lvl], (is16_mask >> lvl) & 1, o, s);
-      }
-      int* tmp = src;
-      src = dst;
-      dst = tmp;
-    }
-    __syncthreads();  // the next slot overwrites buf0
   }
+  // each parent reads its own chunk's slot list (a block's parents may lie
+  // in two chunks)
+  const int p = py * npx + (pactive ? px : px0);
+  const int* sl = slots + (static_cast<size_t>(b) * nch + p / chunk) * k_slots * 2;
+  const uint32_t* wrows = wsm + pi * lay.win_words;
+  const int kbeg = blockIdx.y * slots_per_cta;
+  const int kend = min(k_slots, kbeg + slots_per_cta);
+
+  // 3. the slots; every lane of a warp runs every iteration (the shuffles
+  //    need them all); lanes past the end compute zeros and store nothing
+  for (int k0 = kbeg; k0 < kend; k0 += spi) {
+    const int k = k0 + si;
+    const bool active = pactive && k < kend;
+    const int dy = active ? __ldg(sl + 2 * k) : -1;
+    const int dx = active ? __ldg(sl + 2 * k + 1) : -1;
+    uint32_t acc[F2];
+#pragma unroll
+    for (int q = 0; q < F2; ++q) acc[q] = 0;
+    if (dy >= 0 && dx >= 0) {
+      const int sh = 8 * (dx & 3);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int y = dy + 2 * sy + u;
+        const uint32_t* row = wrows + ((y & 1) * lay.half + (y >> 1)) * lay.pitch + (dx >> 2);
+        uint32_t wv[NW + 1];
+#pragma unroll
+        for (int j = 0; j <= NW; ++j) wv[j] = row[j];
+#pragma unroll
+        for (int j = 0; j < NW; ++j) {
+          add_word<MODE>(acc, j, pw[u][j], __funnelshift_r(wv[j], wv[j + 1], sh));
+        }
+      }
+    }
+    const size_t plane = static_cast<size_t>(b) * k_slots + k;
+    int v[F2];
+#pragma unroll
+    for (int q = 0; q < F2; ++q) v[q] = static_cast<int>(acc[q]);
+    constexpr int RUN = MODE == kSsd ? F2 : F2 / 2;  // words of a parent's cur=2 run
+    if constexpr (F2 < 32 && RUN % 8 == 0) {
+      // runs of 32 bytes or more, two parents a warp: stored in pairs
+      uint32_t wd[RUN];
+#pragma unroll
+      for (int q = 0; q < RUN; ++q) {
+        if constexpr (MODE == kSsd) {
+          wd[q] = static_cast<uint32_t>(v[q]);
+        } else {
+          wd[q] = __byte_perm(v[2 * q], v[2 * q + 1], 0x5410);
+        }
+      }
+      const int even_px = px - (pi & 1);
+      uint32_t* pair_run = reinterpret_cast<uint32_t*>(
+          static_cast<char*>(outs.p[0]) +
+          run_offset(plane, npy, npx, F2, py, sy, even_px) * (MODE == kSsd ? 4 : 2));
+      store_pair_run(pair_run, wd, (pi & 1) != 0, active, pp > 1 && (pi | 1) < np_blk, F2);
+    } else if (active) {
+      store_cells(outs.p[0], run_offset(plane, npy, npx, F2, py, sy, px), v, F2, MODE != kSsd);
+    }
+    uint32_t pk[H];
+    bool prev_packed = false;
+#pragma unroll
+    for (int l = 1; l < S::kLevels - 1; ++l) {  // cur = 4 .. BS/2: masks <= 16, in the warp
+      const int nf = F2 >> l;
+      const bool packed = packed_size<MODE>(l, nf);
+      int hs[H];
+      pair_sums<F2, MODE>(l, prev_packed, v, pk, hs);
+      lane_pairs(packed, nf, 1 << (l - 1), hs, v, pk);
+      if (active && (sy & ((1 << l) - 1)) == 0) {
+        store_run(outs.p[l], run_offset(plane, npy, npx, nf, py, sy >> l, px), packed, pk, v, nf,
+                  MODE != kSsd && (2 << l) <= 16);
+      }
+      prev_packed = packed;
+    }
+  }
+}
+
+template <int BS, int MODE>
+int launch_tables(const void* im1, const void* windows, const void* slots, const CvOuts& o,
+                  int batch, int h, int w, int ws, int k_slots, int nch, int chunk,
+                  int slots_per_cta, int lpp, int threads, int smem, cudaStream_t stream) {
+  auto kernel = compact_tables_kernel<BS, MODE>;
+  if (smem != compact_layout(BS / 2, ws, 1 << lpp).bytes || threads % ((BS / 2) << lpp) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int tiles_x = (w / BS + (1 << lpp) - 1) >> lpp;
+  const dim3 grid(static_cast<unsigned>(batch) * (h / BS) * tiles_x,
+                  (k_slots + slots_per_cta - 1) / slots_per_cta);
+  if (grid.x == 0 || k_slots == 0) return 0;
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const uint8_t*>(im1), static_cast<const uint8_t*>(windows),
+      static_cast<const int*>(slots), o, h, w, ws, k_slots, nch, chunk, slots_per_cta, lpp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -635,37 +855,63 @@ extern "C" int bbme_pooled_cvs(const void* im1, const void* windows,
 }
 
 
-// Kernel 14.  im1: (B, h, w) u8; windows: (B * nP, ws, ws) u8, ws = bs + 2r;
-// slots: (B, nch, K, 2) i32 window offsets (dy + r, dx + r) of each chunk's
-// slots, -1 unused, one list per `chunk` parents; outs[i]: table of cur =
-// 2 << i, (B, K, h / cur, w / cur), 16-bit where bit i of is16_mask is set, else int32, for cur = 2 .. bs/2
-// (ncur = log2(bs) - 1 sizes).
+// Kernel 14.  im1: (B, h, w) u8, 16-byte aligned; windows: (B * nP, ws, ws)
+// u8, ws = bs + 2r; slots: (B, nch, K, 2) i32 window offsets (dy + r, dx +
+// r) of each chunk's slots, each in [0, 2r], or -1 unused, one list per
+// `chunk` parents; outs[i]: table of cur = 2 << i, (B, K, h / cur, w /
+// cur), 16-bit where bit i of is16_mask is set, else int32 (it must be
+// cv_dtype's choice: sad at cur <= 16), 16-byte aligned, for cur = 2 ..
+// bs/2 (ncur = log2(bs) - 1 sizes).  The launch geometry (parents and
+// slots per block, threads, shared bytes) is kernels/cv_diff.py
+// compact_geometry's; the shared bytes must equal compact_layout's.  bs is
+// one of 4, 8, .., 128: any other is refused.
 extern "C" int bbme_compact_tables(const void* im1, const void* windows,
                                    const void* slots, void* const* outs,
                                    int ncur, int is16_mask, int batch, int h,
                                    int w, int bs, int ws, int k_slots, int nch,
-                                   int chunk, int ssd, void* stream) {
-  if (ncur < 1 || ncur > kMaxCurs || (2 << ncur) != bs || chunk < 1 ||
-      nch != ((h / bs) * (w / bs) + chunk - 1) / chunk) {
-    return static_cast<int>(cudaErrorInvalidValue);
+                                   int chunk, int ssd, int slots_per_cta,
+                                   int parents_per_cta, int threads,
+                                   int smem_bytes, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (ncur < 1 || ncur > kMaxCurs || (2 << ncur) != bs || h % bs != 0 || w % bs != 0 ||
+      ws < bs || (ws - bs) % 2 != 0 || chunk < 1 || k_slots < 0 ||
+      nch != ((h / bs) * (w / bs) + chunk - 1) / chunk ||
+      reinterpret_cast<uintptr_t>(im1) % 16 != 0) {
+    return bad;
+  }
+  int lpp = 0;
+  while ((1 << lpp) < parents_per_cta) ++lpp;
+  if (slots_per_cta < 1 || threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      (1 << lpp) != parents_per_cta || parents_per_cta > 8) {
+    return bad;
   }
   CvOuts o{};
-  for (int i = 0; i < ncur; ++i) o.p[i] = outs[i];
-  const int f2 = bs / 2;
-  const int buf1_len = f2 / 2 > 0 ? (f2 / 2) * (f2 / 2) : 1;
-  const size_t smem = sizeof(int) * (static_cast<size_t>(f2) * f2 + buf1_len) +
-                      static_cast<size_t>(bs) * bs + static_cast<size_t>(ws) * ws;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        compact_tables_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  for (int i = 0; i < ncur; ++i) {
+    const bool want16 = !ssd && (2 << i) <= 16;
+    if (((is16_mask >> i) & 1) != static_cast<int>(want16) || outs[i] == nullptr ||
+        reinterpret_cast<uintptr_t>(outs[i]) % 16 != 0) {
+      return bad;
+    }
+    o.p[i] = outs[i];
   }
-  const unsigned blocks = static_cast<unsigned>(batch) * (h / bs) * (w / bs);
-  if (blocks == 0 || k_slots == 0) return 0;
-  compact_tables_kernel<<<blocks, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(im1), static_cast<const uint8_t*>(windows),
-      static_cast<const int*>(slots), o, ncur, is16_mask, h, w, bs, ws, k_slots,
-      nch, chunk, ssd, buf1_len);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bs) {
+#define BBME_BS(N)                                                                          \
+  case N:                                                                                   \
+    return ssd ? launch_tables<N, kSsd>(im1, windows, slots, o, batch, h, w, ws, k_slots,   \
+                                        nch, chunk, slots_per_cta, lpp, threads,            \
+                                        smem_bytes, st)                                     \
+               : launch_tables<N, kSad2>(im1, windows, slots, o, batch, h, w, ws, k_slots,  \
+                                         nch, chunk, slots_per_cta, lpp, threads,           \
+                                         smem_bytes, st);
+    BBME_BS(4)
+    BBME_BS(8)
+    BBME_BS(16)
+    BBME_BS(32)
+    BBME_BS(64)
+    BBME_BS(128)
+#undef BBME_BS
+    default:
+      return bad;
+  }
 }

@@ -27,9 +27,11 @@ only the costs at the K slot deltas of each parent's 128-parent chunk
 For CPU tensors the wrappers run the plain versions (``pooled_cvs_plain``,
 the ``_compute_cv`` code in torch, and ``compact_tables_plain``); for CUDA
 tensors they launch ``csrc/cv_diff.cu``.  The volume kernel is built for bs
-2, 4, .., 128; ``volume_geometry`` picks its launch (parents and delta rows
-per block, threads, shared bytes), and the entry point refuses any other bs.
-``cuda_refusals`` names the shapes no launch of these kernels can take.
+2, 4, .., 128, kernel 14 for bs 4, .., 128; ``volume_geometry`` and
+``compact_geometry`` pick their launches (parents and delta rows or slots
+per block, threads, shared bytes), and the entry points refuse any other
+bs.  ``models.engine.cuda_refusals`` names the shapes no launch of these
+kernels can take.
 """
 
 from __future__ import annotations
@@ -361,11 +363,70 @@ full_block_volume.launches = 0
 
 # ------------------------------------------------ compact tables (kernel 14)
 
-def compact_smem(bs: int, r: int) -> int:
-    """Shared bytes of one kernel-14 block (cv_diff.cu bbme_compact_tables):
-    the cur=2 sums and the next size's, the patch and the window."""
+MAX_PARENTS = 8  # parents a block takes at most (csrc/cv_diff.cu)
+
+
+def compact_smem(bs: int, r: int, parents_per_block: int = 1) -> int:
+    """Shared bytes of one kernel-14 block (cv_diff.cu compact_layout): each
+    parent's window as aligned words, its rows at an odd pitch of at least
+    ``(ws + 3) // 4 + 1`` words (the word past a row feeds the funnel
+    shift), the windows ``bs/2`` words apart modulo 32 below bs 64 (the sy
+    lanes of a warp's parents on distinct banks)."""
+    ws, f2 = bs + 2 * r, bs // 2
+    pitch = (ws + 3) // 4 + 1
+    pitch += 1 - pitch % 2
+    words = ws * pitch
+    if f2 < 32:
+        words += (f2 - words) % 32
+    return 4 * parents_per_block * words
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactGeometry:
+    """How ``csrc/cv_diff.cu`` launches kernel 14: one block per
+    ``parents_per_block`` parents of a row and group of ``slots_per_block``
+    slots, ``groups`` groups (the last one may be short), ``blocks`` blocks
+    in all, ``threads`` per block (a thread a parent's cur=2 row at one
+    slot, ``threads // (bs/2 * parents_per_block)`` slots at a time),
+    ``smem_bytes`` of dynamic shared memory."""
+
+    parents_per_block: int
+    slots_per_block: int
+    groups: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+def compact_geometry(bs: int, r: int, k_slots: int, batch: int, npy: int,
+                     npx: int) -> CompactGeometry:
+    """Kernel 14's launch over ``batch`` frames of npy x npx parents at K =
+    ``k_slots`` >= 1.
+
+    FINE_PARENTS parents of a row a block (32 / (bs/2) below bs 16, so that
+    a warp's lanes are one slot's), at most 256 threads' worth, the row and
+    the shared memory; every slot in one group (each window read once)
+    unless the grid then has fewer than ``TARGET_BLOCKS`` blocks (the 1080p
+    level 3 at B=8 has 320 parents): then the fewest groups of whole
+    iterations that fix it."""
     f2 = bs // 2
-    return 4 * (f2 * f2 + max(1, (f2 // 2) ** 2)) + bs * bs + (bs + 2 * r) ** 2
+    want = min(MAX_PARENTS, max(FINE_PARENTS, 32 // f2))
+    pp = 1
+    while (2 * pp <= min(want, MAX_THREADS // f2, npx)
+           and compact_smem(bs, r, 2 * pp) <= SMEM_LIMIT):
+        pp *= 2
+    unit = max(32, f2 * pp)  # whole warps, whole (parent, slot) groups
+    threads = min(MAX_THREADS // unit * unit, -(-k_slots * f2 * pp // unit) * unit)
+    per_iter = threads // (f2 * pp)
+    iters = -(-k_slots // per_iter)
+    tiles = batch * npy * -(-npx // pp)
+    groups = 1
+    while groups < iters and tiles * groups < TARGET_BLOCKS:
+        groups += 1
+    slots_per_block = -(-iters // groups) * per_iter
+    groups = -(-k_slots // slots_per_block)
+    return CompactGeometry(pp, slots_per_block, groups, tiles * groups, threads,
+                           compact_smem(bs, r, pp))
 
 
 def table_curs(bs: int) -> list[int]:
@@ -445,10 +506,11 @@ def compact_tables_plain(
 
 
 # bbme_compact_tables(im1, windows, slots, outs, ncur, is16_mask, batch, h, w,
-#                     bs, ws, k_slots, nch, chunk, ssd, stream)
+#                     bs, ws, k_slots, nch, chunk, ssd, slots_per_cta,
+#                     parents_per_cta, threads, smem_bytes, stream)
 TABLES_ARGTYPES = (
     [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_void_p)]
-    + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 )
 
 
@@ -482,14 +544,17 @@ def compact_tables(
         c: torch.empty((b, k_slots, h // c, w // c), dtype=cv_dtype(c, cost), device=im1.device)
         for c in curs
     }
+    if k_slots == 0:
+        return out
     ptrs = (ctypes.c_void_p * len(curs))(*(out[c].data_ptr() for c in curs))
     is16 = sum(1 << i for i, c in enumerate(curs) if cv_dtype(c, cost) == torch.uint16)
+    geo = compact_geometry(bs, r, k_slots, b, h // bs, w // bs)
     with torch.cuda.device(im1.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _tables_kernel()(
             im1.data_ptr(), windows.data_ptr(), slots.data_ptr(), ptrs, len(curs), is16,
             b, h, w, bs, bs + 2 * r, k_slots, slots.shape[1], CHUNK, int(cost == "ssd"),
-            stream,
+            geo.slots_per_block, geo.parents_per_block, geo.threads, geo.smem_bytes, stream,
         )
     _build.check(code, "compact_tables")
     compact_tables.launches += 1

@@ -20,12 +20,15 @@ Phases (any failure raises and the script exits non-zero):
      colours, against the plain step loop); 14 and 10 (cur 2
      and 16, a colour step and a whole round, the round kernel's compact
      form) at K=64 on slot lists with unused (-1) slots and candidates
-     within +-3, many of which miss every slot; kernel 7 (the spiral
-     search's argmin, sad and ssd) around predictions within +-48 px; the
-     volume kernel (B, C) over a sweep of shapes (bs 8/16/32, r
-     0/3/12/16, sad and ssd, band on and off, C's sizes); then B and C timed
-     at every level's shapes of the default path (its calls recorded on one
-     batch), with their per-batch sums, A's 8 calls of that batch each timed
+     within +-3, many of which miss every slot (14 with sad and ssd);
+     kernel 7 (the spiral search's argmin, sad and ssd) around predictions
+     within +-48 px; the volume kernel (B, C) over a sweep of shapes (bs
+     8/16/32, r 0/3/12/16, sad and ssd, band on and off, C's sizes) and
+     kernel 14 over another (bs 4..128, r 4/5, K 1/8/64/side^2, sad and
+     ssd); then B and C timed at every level's shapes of the default path
+     (its calls recorded on one batch), and 14 at every level's shapes of
+     the cv_compact=64 path beside its bound, with their per-batch sums, A's
+     8 calls of that batch each timed
      alone beside its yardstick, and D's, E's and F's rounds of that batch
      (candidates from real search winners) against the plain step loop, each
      round timed alone, with their per-batch sums and level-0 single steps;
@@ -163,12 +166,18 @@ def _texture(h: int, w: int, rng: np.random.Generator) -> np.ndarray:
     return (img * (255.0 / img.max())).astype(np.uint8)
 
 
-def _cuda_ms(torch, fn, reps: int) -> float:
-    """Mean time of fn on the card, CUDA events around `reps` calls, warmed up."""
+def _cuda_ms(torch, fn, reps: int, queued: bool = False) -> float:
+    """Mean time of fn on the card, CUDA events around `reps` calls, warmed
+    up.  ``queued``: the calls wait on the card behind a ~2.5 ms sleep, so
+    the host has issued them all before the first starts and the events
+    time the card's work, not the host's calls (for calls shorter than
+    their wrapper's host time)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(5_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -297,6 +306,19 @@ def _diff_ops(b: int, n_p: int, side: int, bs: int) -> int:
     """Integer operations of a pooled volume: a difference, an absolute value
     (or square) and an add for each pixel of each delta."""
     return 3 * b * n_p * side * side * bs * bs
+
+
+def _tables_work(frames, wins, slots, tables) -> tuple[int, int]:
+    """(bytes, ops) of one kernel-14 call on these inputs: frames, windows
+    and slot lists read once, the tables written once; a diff, an absolute
+    value (or square) and an add per pixel of each (parent, used slot)
+    pair."""
+    from blockbasedmotionestimation_tpu_torch.ops.compact import CHUNK
+
+    n_p = wins.shape[1]
+    bs = 2 << len(tables)  # the tables hold cur = 2 .. bs/2
+    used = (slots[..., 0] >= 0).sum(-1).repeat_interleave(CHUNK, dim=1)[:, :n_p]
+    return _nbytes(frames, wins, slots, *tables.values()), 3 * int(used.sum()) * bs * bs
 
 
 def _step_work(torch, g, pm, rpm, *, kind, cur, h, w, r, r2, ci, cj, store_r=None,
@@ -700,23 +722,26 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     used = int((slots[..., 0] >= 0).sum())
     print(f"[kernel] compact slot lists: {tuple(slots.shape)}, {used} of {slots[..., 0].numel()} "
           f"slots used, overflow {compact.overflow_fraction(winners, base, ext, COMPACT_K).tolist()}")
-    tables = cv_diff.compact_tables(frames, wins, slots, bs, ext, cfg.cost)
-    err = 0
-    for bi in range(B):
-        ref = cv_diff.compact_tables_plain(frames[bi:bi + 1], wins[bi:bi + 1], slots[bi:bi + 1],
-                                           bs, ext, cfg.cost)
-        err = max([err] + [_max_abs_err(torch, tables[c][bi:bi + 1], ref[c]) for c in tables])
-        del ref
-    ms = _cuda_ms(torch, lambda: cv_diff.compact_tables(frames, wins, slots, bs, ext, cfg.cost), 3)
-    pms = _cuda_ms(torch, lambda: per_frame(lambda bi: cv_diff.compact_tables_plain(
-        frames[bi:bi + 1], wins[bi:bi + 1], slots[bi:bi + 1], bs, ext, cfg.cost)), 1)
-    # the pairs (parent, used slot): a diff, an abs and an add per pixel
-    pairs = int((slots[..., 0] >= 0).sum(-1).repeat_interleave(128, dim=1)[:, :n_p].sum())
-    record("14", "compact_tables", "cv_diff.cu", "cv_diff.py:584", err, ms, pms,
-           (_nbytes(frames, wins, slots, *tables.values()), 3 * pairs * bs * bs),
-           f"K={COMPACT_K}, {pairs} (parent, used slot) pairs, B={B} (plain: {B} frames one by "
-           f"one), sizes { {c: tuple(v.shape[1:]) for c, v in tables.items()} }",
-           also=["cv_diff.py:649"])
+    # the main path's cost first (its times and bound stay on the row), then
+    # the other cost; 10 below reads the main path's tables
+    for cost in (cfg.cost, "ssd" if cfg.cost == "sad" else "sad"):
+        got = cv_diff.compact_tables(frames, wins, slots, bs, ext, cost)
+        err = 0
+        for bi in range(B):
+            ref = cv_diff.compact_tables_plain(frames[bi:bi + 1], wins[bi:bi + 1],
+                                               slots[bi:bi + 1], bs, ext, cost)
+            err = max([err] + [_max_abs_err(torch, got[c][bi:bi + 1], ref[c]) for c in got])
+            del ref
+        ms = _cuda_ms(torch, lambda: cv_diff.compact_tables(frames, wins, slots, bs, ext, cost), 5)
+        pms = _cuda_ms(torch, lambda: per_frame(lambda bi: cv_diff.compact_tables_plain(
+            frames[bi:bi + 1], wins[bi:bi + 1], slots[bi:bi + 1], bs, ext, cost)), 1)
+        record("14", "compact_tables", "cv_diff.cu", "cv_diff.py:584", err, ms, pms,
+               _tables_work(frames, wins, slots, got),
+               f"{cost}: K={COMPACT_K}, B={B} (plain: {B} frames one by one), sizes "
+               f"{ {c: tuple(v.shape[1:]) for c, v in got.items()} }", also=["cv_diff.py:649"])
+        if cost == cfg.cost:
+            tables = got
+        del got
 
     def compact_work(cur):
         return lambda g, vol, kw, ci, cj: _compact_step_work(
@@ -813,10 +838,52 @@ def _volume_sweep(torch, dev, card: str, rng: np.random.Generator) -> None:
         raise AssertionError("the volume kernel disagrees with its plain version in the sweep")
 
 
-def _volume_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
-    """B and C at every level's shapes of the default path: each call one
-    batch of the path makes (recorded by a spy), timed alone with CUDA
-    events; returns the times by call and their per-batch sum by row."""
+def _tables_sweep(torch, dev, card: str, rng: np.random.Generator) -> None:
+    """Phase 3: kernel 14 against its plain version over a sweep of shapes:
+    bs 4 .. 128, r 4 and 5 (ws a multiple of 4 and not), K 1, 8, 64 and
+    side^2 with every fifth slot unused, sad and ssd; B=2 frames of 11x13
+    parents, so a parent row straddles the two chunks and the last chunk is
+    ragged."""
+    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff
+
+    worst, calls = 0, 0
+    b, npy, npx = 2, 11, 13
+    for bs in (4, 8, 16, 32, 64, 128):
+        im1 = torch.as_tensor(rng.integers(0, 256, size=(b, npy * bs, npx * bs), dtype=np.uint8),
+                              device=dev)
+        for r in (4, 5):
+            side, ws = 2 * r + 1, bs + 2 * r
+            win = torch.as_tensor(
+                rng.integers(0, 256, size=(b, npy * npx, ws, ws), dtype=np.uint8), device=dev)
+            for k_slots in (1, 8, 64, side * side):
+                keys = np.stack([np.stack([rng.permutation(side * side)[:k_slots]
+                                           for _ in range(2)]) for _ in range(b)])
+                sl = np.stack([keys // side, keys % side], -1).astype(np.int32)
+                sl[:, :, 2::5] = -1
+                slots = torch.as_tensor(sl, device=dev)
+                for cost in ("sad", "ssd"):
+                    k = cv_diff.compact_tables(im1, win, slots, bs, r, cost)
+                    p = cv_diff.compact_tables_plain(im1, win, slots, bs, r, cost)
+                    if sorted(k) != sorted(p):
+                        raise AssertionError(f"tables sweep: sizes {sorted(k)} vs {sorted(p)}")
+                    worst = max([worst] + [_max_abs_err(torch, k[c], p[c]) for c in k])
+                    calls += 1
+    print(f"[kernel] 14 sweep: {calls} calls (bs 4..128, r 4/5, K 1/8/64/side^2 with unused "
+          f"slots, sad and ssd, 11x13 parents in two chunks) against the plain version: "
+          f"max_abs_err {worst} ({card})")
+    if worst:
+        raise AssertionError("kernel 14 disagrees with its plain version in the sweep")
+
+
+def _volume_levels(torch, engine, cfg, im1, im2, card: str,
+                   rows=(("B", "pooled_cvs"), ("C", "deep_pooled_cvs")), work_of=None,
+                   queued: bool = False) -> dict:
+    """The calls of ``rows`` (TPU kernel row, ``ops.windowed`` wrapper; B
+    and C by default) at every level's shapes of the path ``cfg``: each
+    call one batch makes (recorded by a spy), timed alone with CUDA events
+    (``queued``: behind a sleep, see ``_cuda_ms``); ``work_of`` (row ->
+    (args, out) -> (bytes, ops)) adds each call's bound.  Returns the times
+    (and bounds) by call and their per-batch sums by row."""
     from blockbasedmotionestimation_tpu_torch.ops import windowed
 
     calls = []
@@ -827,23 +894,29 @@ def _volume_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
             return fn(*args, **kw)
         return call
 
-    with _swapped(windowed, pooled_cvs=spy("B", windowed.pooled_cvs),
-                  deep_pooled_cvs=spy("C", windowed.deep_pooled_cvs)):
+    with _swapped(windowed, **{name: spy(row, getattr(windowed, name)) for row, name in rows}):
         engine.estimate_flow_batched(im1, im2, cfg)
-    out = {"B": {"ms_by_call": [], "per_batch_ms": 0.0},
-           "C": {"ms_by_call": [], "per_batch_ms": 0.0}}
+    work_of = work_of or {}
+    out = {row: {"ms_by_call": [], "per_batch_ms": 0.0} for row, _ in rows}
     for row, fn, args, kw in calls:
-        ms = _cuda_ms(torch, lambda: fn(*args, **kw), 3)
-        frames, win, bs, r = args[:4]
-        more = f", fuse_max {args[5]}" if len(args) > 5 else f", {kw}" if kw else ""
-        print(f"[levels] {row}: level {tuple(frames.shape)}, windows {tuple(win.shape)}, r={r}"
-              f"{more}: {ms:.4f} ms ({card})")
+        ms = _cuda_ms(torch, lambda: fn(*args, **kw), 10 if queued else 3, queued)
+        shapes = ", ".join(str(tuple(a.shape)) if hasattr(a, "shape") else repr(a)
+                           for a in args)
+        more = f", {kw}" if kw else ""
+        bound = ""
+        if row in work_of:
+            bound_ms, by = _bound(*work_of[row](args, fn(*args, **kw)))
+            out[row].setdefault("bound_ms_by_call", []).append(bound_ms)
+            out[row]["bound_per_batch_ms"] = out[row].get("bound_per_batch_ms", 0.0) + bound_ms
+            bound = f", bound {bound_ms:.4f} ms ({by})"
+        print(f"[levels] {row}: {shapes}{more}: {ms:.4f} ms{' queued' if queued else ''}{bound} "
+              f"({card})")
         out[row]["ms_by_call"].append(ms)
         out[row]["per_batch_ms"] += ms
     del calls
-    print(f"[levels] per batch of {B}: B {out['B']['per_batch_ms']:.4f} ms over "
-          f"{len(out['B']['ms_by_call'])} launches, C {out['C']['per_batch_ms']:.4f} ms over "
-          f"{len(out['C']['ms_by_call'])} launches ({card})")
+    print(f"[levels] per batch of {B}: " + ", ".join(
+        f"{row} {r['per_batch_ms']:.4f} ms over {len(r['ms_by_call'])} launches"
+        for row, r in out.items()) + f" ({card})")
     return out
 
 
@@ -1070,6 +1143,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     results = _kernels_vs_plain(torch, dev, cfg, card, rng)
     _volume_sweep(torch, dev, card, rng)
+    _tables_sweep(torch, dev, card, rng)
     torch.cuda.empty_cache()
 
     # 4. the main path: default config, 8 pairs at 1080p, made as bench.py
@@ -1080,6 +1154,14 @@ def main() -> int:
     # 3 (end). B and C at each level's shapes of this path, per-batch sums
     for row, timed in _volume_levels(torch, engine, cfg, im1, im2, card).items():
         results[row].update(timed)
+    torch.cuda.empty_cache()
+    # 14 at each level's shapes of the cv_compact path
+    results["14"].update(_volume_levels(
+        torch, engine, cfg.replace(cv_compact=COMPACT_K, rival_window=False), im1, im2, card,
+        rows=(("14", "compact_tables"),),
+        work_of={"14": lambda args, out: _tables_work(*args[:3], out)},
+        queued=True,
+    )["14"])
     torch.cuda.empty_cache()
     results["A"].update(_gather_levels(torch, engine, cfg, im1, im2, card))
     for row, timed in _round_levels(torch, engine, cfg, im1, im2, card).items():

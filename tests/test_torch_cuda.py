@@ -343,6 +343,80 @@ def test_cuda_capacity_kernels_equal_plain(cuda, bs, ext, r2):
                         assert torch.equal(gk, gp), ("11/12", rival, cost, cur, ci, cj)
 
 
+def _compact_slots(rng, b, nch, k_slots, r, cuda):
+    """(b, nch, K, 2) slot lists: distinct deltas of the (2r+1)^2 window a
+    chunk (K = side^2: all of them, shuffled), every fifth slot and the
+    whole last list of the last frame unused (-1)."""
+    side = 2 * r + 1
+    keys = np.stack([np.stack([rng.permutation(side * side)[:k_slots] for _ in range(nch)])
+                     for _ in range(b)])
+    sl = np.stack([keys // side, keys % side], -1).astype(np.int32)
+    sl[:, :, 2::5] = -1
+    sl[-1, -1] = -1
+    return torch.as_tensor(sl, device=cuda)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize(
+    "bs,r,k_slots",
+    [(4, 3, 8), (4, 2, "all"), (8, 4, 1), (8, 5, 64), (16, 7, "all"), (16, 8, 8),
+     (32, 16, 64), (32, 3, "all"), (64, 9, 64), (64, 4, 1), (128, 5, 8), (128, 2, "all")],
+)
+def test_cuda_compact_tables_equal_plain(cuda, bs, r, k_slots):
+    # kernel 14 against its plain version at every bs it is built for, ws =
+    # bs + 2r a multiple of 4 or not (r odd), K = 1, 8, 64 and side^2 with
+    # unused slots among the used ones; 11 x 13 parents a frame, so a
+    # parent row straddles the two chunks (parents 117-129), the last chunk
+    # is ragged (15 parents) and 13 is no multiple of a block's parents
+    rng = np.random.default_rng(bs * 100 + r)
+    b, npy, npx = 2, 11, 13
+    h, w, ws = npy * bs, npx * bs, bs + 2 * r
+    k_slots = (2 * r + 1) ** 2 if k_slots == "all" else k_slots
+    im1 = torch.as_tensor(rng.integers(0, 256, size=(b, h, w), dtype=np.uint8), device=cuda)
+    win = torch.as_tensor(rng.integers(0, 256, size=(b, npy * npx, ws, ws), dtype=np.uint8),
+                          device=cuda)
+    slots = _compact_slots(rng, b, 2, k_slots, r, cuda)
+    for cost in ("sad", "ssd"):
+        before = cv_diff.compact_tables.launches
+        tk = cv_diff.compact_tables(im1, win, slots, bs, r, cost)
+        assert cv_diff.compact_tables.launches == before + 1
+        tp = cv_diff.compact_tables_plain(im1, win, slots, bs, r, cost)
+        assert sorted(tk) == sorted(tp) == cv_diff.table_curs(bs)
+        for cur in tk:
+            assert tk[cur].dtype == tp[cur].dtype == cv_diff.cv_dtype(cur, cost)
+            assert torch.equal(tk[cur], tp[cur]), (cost, cur)
+            assert not tk[cur][-1, :, -bs // cur:].to(torch.int32).any()  # the unused last list: zeros
+
+
+@pytest.mark.requires_cuda
+def test_cuda_compact_tables_refuse_unbuilt_bs(cuda):
+    # kernel 14 is built for bs 4 .. 128; a larger block raises, nothing
+    # falls back and no launch is counted
+    im1 = torch.zeros((1, 256, 256), dtype=torch.uint8, device=cuda)
+    win = torch.zeros((1, 1, 258, 258), dtype=torch.uint8, device=cuda)
+    slots = torch.zeros((1, 1, 2, 2), dtype=torch.int32, device=cuda)
+    before = cv_diff.compact_tables.launches
+    with pytest.raises(RuntimeError, match="compact_tables"):
+        cv_diff.compact_tables(im1, win, slots, 256, 1, "sad")
+    assert cv_diff.compact_tables.launches == before
+
+
+@pytest.mark.requires_cuda
+def test_cuda_compact_level_equals_cpu(cuda):
+    # one cv_compact=64 level at the slice's bs 32 and S 16, rival off, on
+    # 13 x 16 parents (two chunks, the second ragged): CUDA == CPU
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 256, size=(2, 416, 512), dtype=np.uint8)
+    b = np.roll(a, (3, -5), axis=(1, 2))
+    cfg = MotionConfig(block_sizes=(32,), search_sizes=(64,), interp_factor=1,
+                       cv_compact=64, rival_window=False)
+    before = cv_diff.compact_tables.launches
+    on_gpu, _ = engine.estimate_flow_batched(a, b, cfg, device=cuda)
+    assert cv_diff.compact_tables.launches == before + 1
+    on_cpu, _ = engine.estimate_flow_batched(a, b, cfg, device="cpu")
+    assert torch.equal(on_gpu.cpu(), on_cpu)
+
+
 @pytest.mark.requires_cuda
 def test_cuda_capacity_modes_equal_cpu(cuda):
     rng = np.random.default_rng(5)

@@ -173,13 +173,15 @@ _BIG = dict(interp_factor=1, block_sizes=(128,), search_sizes=(160,))
         (dict(_BIG, search_sizes=(128 + 2 * 170,), regularizer="fourcolor"), "kernel 7's window"),
         (dict(_BIG, search_sizes=(128 + 2 * 170,), regularizer="fourcolor",
               search_order="raster"), None),  # the raster search is plain torch
-        (dict(_BIG, block_sizes=(64,), search_sizes=(64 + 420,), cv_compact=64,
+        (dict(_BIG, block_sizes=(64,), search_sizes=(64 + 416,), cv_compact=64,
+              rival_window=False), None),  # kernel 14's widest window at bs 64 (S 208)
+        (dict(_BIG, block_sizes=(64,), search_sizes=(64 + 418,), cv_compact=64,
               rival_window=False), "kernel 14 needs"),
         (dict(_BIG, block_sizes=(64,), search_sizes=(64 + 420,), cv_compact=64,
               rival_window=False, search_impl="xla"), None),  # xla: no compact tables
     ],
     ids=["default", "bs128", "bs128-widest", "bs128-too-wide", "bs256", "k7-widest", "k7-too-wide",
-         "raster", "k14-too-wide", "k14-xla"],
+         "raster", "k14-widest", "k14-too-wide", "k14-xla"],
 )
 def test_cuda_refusals_name_the_shapes_no_kernel_takes(fields, refused):
     # check_config refuses, before any work and only on a CUDA device, the

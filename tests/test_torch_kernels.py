@@ -270,6 +270,55 @@ def test_volume_geometry_covers_every_dy_row_once(bs, grid):
         assert (geo.groups - 1) * geo.dy_per_block < side  # no empty group
 
 
+_LEVELS_1080P = [(8, 40, 64), (8, 20, 32), (8, 10, 16), (8, 5, 8)]  # B=8, npy, npx
+
+
+@pytest.mark.parametrize(
+    "bs,r,k_slots,grid",
+    [(32, 16, 64, g) for g in _LEVELS_1080P]  # the cv_compact=64 path, every level
+    + [(32, 16, 1089, _LEVELS_1080P[0]),  # K = side^2
+       (64, 208, 64, (1, 2, 3)),  # the widest window cuda_refusals takes at bs 64
+       (128, 5, 64, (2, 11, 13)), (16, 7, 225, (2, 11, 13)), (8, 3, 8, (2, 11, 13)),
+       (4, 1, 1, (1, 1, 1))],
+)
+def test_compact_geometry_fits_the_block(bs, r, k_slots, grid):
+    # kernel 14's launch: the shared bytes of cv_diff.cu compact_layout
+    # within the H100's 232 448 bytes a block, whole warps of whole (parent,
+    # slot) groups, every slot in exactly one group of whole iterations
+    b, npy, npx = grid
+    f2 = bs // 2
+    geo = cv_diff.compact_geometry(bs, r, k_slots, b, npy, npx)
+    pp = geo.parents_per_block
+    assert geo.smem_bytes == cv_diff.compact_smem(bs, r, pp) <= cv_diff.SMEM_LIMIT, geo
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= cv_diff.MAX_THREADS
+    assert geo.threads % (f2 * pp) == 0 and pp in (1, 2, 4, 8) and pp <= npx, geo
+    assert geo.slots_per_block % (geo.threads // (f2 * pp)) == 0, geo
+    assert (geo.groups - 1) * geo.slots_per_block < k_slots <= geo.groups * geo.slots_per_block
+    assert geo.blocks == b * npy * -(-npx // pp) * geo.groups
+
+
+def test_compact_geometry_fills_the_card_at_every_level():
+    # the 1080p levels at B=8, K=64: levels 0-1 read each window once, the
+    # smaller ones split the slots so the grid covers the 132 SMs
+    geos = [cv_diff.compact_geometry(32, 16, 64, *g) for g in _LEVELS_1080P]
+    assert [g.groups for g in geos] == [1, 1, 4, 8]
+    assert all(g.blocks >= 4 * cv_diff.SMS and g.parents_per_block == 4 for g in geos)
+
+
+@pytest.mark.parametrize("bs,r,pp,want", [
+    (32, 16, 4, 17_664),   # ws 64: pitch 17, 64 * 17 = 1088 words -> 1104 (= 16 mod 32)
+    (32, 16, 1, 4_416),
+    (8, 3, 8, 3_200),      # ws 14: pitch 5, 70 words -> 100 (= 4 mod 32)
+    (16, 7, 4, 4_736),     # ws 30: pitch 9, 270 words -> 296 (= 8 mod 32)
+    (64, 208, 1, 232_320), # ws 480: pitch 121, 58 080 words (bs 64: no bank padding)
+    (64, 209, 1, 237_144), # ws 482: pitch 122 -> 123: over the 232 448 bytes
+    (128, 5, 4, 81_696),   # ws 138: pitch 36 -> 37, 5106 words
+])
+def test_compact_smem_is_the_c_layout(bs, r, pp, want):
+    # compact_smem against cv_diff.cu compact_layout, worked by hand
+    assert cv_diff.compact_smem(bs, r, pp) == want
+
+
 def test_pooled_cvs_refuse_zsad(rng):
     im1 = torch.as_tensor(_frames(rng, 1, 8, 8))
     wins = torch.zeros((1, 1, 12, 12), dtype=torch.uint8)
