@@ -24,8 +24,9 @@ class MotionConfig:
     Defaults replicate the reference program's shipped Middlebury
     configuration: 4 pyramid levels, 32x32 blocks, 64 px search windows, 4x
     pre-interpolation for quarter-pel output.  The port runs every
-    regularizer, window centre and search order with ``sad`` or ``ssd``
-    (``models.engine.check_config`` names what raises).
+    regularizer, window centre, search order and cost (``zsad`` on the
+    plain versions, as the reference runs it in XLA only;
+    ``models.engine.check_config`` names what raises).
 
     Attributes:
       block_sizes: per-level block edge (level 0 = finest). Powers of two >= 2.

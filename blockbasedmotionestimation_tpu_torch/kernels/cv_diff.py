@@ -8,7 +8,9 @@ leading batch dim, (B, side^2, npy*f, npx*f) with f = bs // cur:
 ``cv[b, (dy+r)*side + (dx+r), py*f + sy, px*f + sx]`` is the cost of
 sub-block (sy, sx) of parent (py, px) against the frame-2 window shifted by
 (dy, dx).  Volumes are stored in the reference's ``_cv_dtype`` widths:
-uint16 while the worst-case cost fits (sad at cur <= 16), int32 otherwise.
+uint16 while the worst-case cost fits (sad at cur <= 16), int32 otherwise,
+f32 for ``cost="zsad"``, which only ``pooled_cvs_plain`` computes (the
+reference runs zsad in XLA only; every kernel wrapper here refuses it).
 
 Two options narrow what is written:
   * ``store_r``: the cur=2 volume keeps only dx in [-store_r, store_r], with
@@ -44,11 +46,15 @@ from typing import Iterable
 import torch
 
 from blockbasedmotionestimation_tpu_torch.kernels import _build
+from blockbasedmotionestimation_tpu_torch.kernels.sad_search import zero_mean_sad
 from blockbasedmotionestimation_tpu_torch.ops.compact import CHUNK
 
 
 def cv_dtype(cur: int, cost: str) -> torch.dtype:
-    """Smallest dtype holding a worst-case cost at sub-block size cur."""
+    """Smallest dtype holding a worst-case cost at sub-block size cur; f32
+    for zsad, whose costs are float-valued."""
+    if cost == "zsad":
+        return torch.float32
     peak = (255 * 255 if cost == "ssd" else 255) * cur * cur
     return torch.uint16 if peak < (1 << 16) else torch.int32
 
@@ -63,9 +69,11 @@ def deep_curs(bs: int, fuse_max: int) -> list[int]:
 
 
 def _check_cost(cost: str) -> None:
+    """The kernels' costs: zsad has no kernel (its callers run
+    ``pooled_cvs_plain`` by name, as the reference runs zsad in XLA)."""
     if cost not in ("sad", "ssd"):
         raise NotImplementedError(
-            f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 2)"
+            f"cost={cost!r}: the kernels compute sad and ssd; zsad runs pooled_cvs_plain"
         )
 
 
@@ -88,6 +96,30 @@ def _shape(b: int, side: int, h: int, w: int, cur: int, store_r: int | None):
     return (b, nd, h // cur, w // cur)
 
 
+def _row_costs(d: torch.Tensor, bs: int, cost: str, curs):
+    """(cur, (B, nP, side, f, f) costs) for each size in ``curs`` of one
+    delta row's diffs d (B, nP, side, bs, bs): sad and ssd pooled 2x2 from
+    each size to the next; zsad computed from the diffs at every size,
+    since each sub-block subtracts its own mean (the reference's
+    ``_compute_cv``), so no size pools from the one below."""
+    b, n_p, side = d.shape[:3]
+    if cost == "zsad":
+        d = d.to(torch.float32)
+        for cur in sorted(curs):
+            f = bs // cur
+            sub = d.reshape(b, n_p, side, f, cur, f, cur).transpose(4, 5)
+            yield cur, zero_mean_sad(sub.reshape(b, n_p, side, f, f, cur * cur))
+        return
+    cvr = d.abs() if cost == "sad" else d * d
+    cur = 1
+    while cur < bs:
+        n = bs // cur
+        cvr = cvr.reshape(b, n_p, side, n // 2, 2, n // 2, 2).sum(dim=(4, 6))
+        cur *= 2
+        if cur in curs:
+            yield cur, cvr
+
+
 def pooled_cvs_plain(
     im1: torch.Tensor,      # (B, H, W) u8 frame-1 level image
     windows: torch.Tensor,  # (B, nP, bs + 2r, bs + 2r) u8 frame-2 windows
@@ -99,8 +131,11 @@ def pooled_cvs_plain(
     emit: Iterable[int] | None = None,
 ) -> dict[int, torch.Tensor]:
     """The volumes with torch ops: one delta row per step, the row's deltas
-    unfolded, pooled 2x2 from each size to the next."""
-    _check_cost(cost)
+    unfolded, pooled 2x2 from each size to the next (``_row_costs``).  Also
+    the volumes of ``cost="zsad"``, which no kernel computes: f32, each
+    size from the diffs."""
+    if cost not in ("sad", "ssd", "zsad"):
+        raise ValueError(f"unknown cost: {cost}")
     emit = _check_options(bs, r, store_r, emit)
     b, h, w = im1.shape
     npy, npx = h // bs, w // bs
@@ -118,15 +153,7 @@ def pooled_cvs_plain(
         rows = windows[:, :, dyi : dyi + bs]
         # (B, nP, bs, side, bs) -> (B, nP, side, bs, bs): window of delta dx
         shifted = rows.unfold(-1, bs, 1).permute(0, 1, 3, 2, 4).to(torch.int32)
-        d = patches - shifted
-        cvr = d.abs() if cost == "sad" else d * d
-        cur = 1
-        while cur < bs:
-            n = bs // cur
-            cvr = cvr.reshape(b, npy * npx, side, n // 2, 2, n // 2, 2).sum(dim=(4, 6))
-            cur *= 2
-            if cur not in out:
-                continue
+        for cur, cvr in _row_costs(patches - shifted, bs, cost, out):
             f = bs // cur
             vol = (
                 cvr.reshape(b, npy, npx, side, f, f)

@@ -177,7 +177,8 @@ def _checked(grid, vol, pm, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, 
     edge)."""
     rs._check_grid(grid, cur, h, w, ci, cj)
     if cost not in ("sad", "ssd"):
-        raise NotImplementedError(f"cost={cost!r}: only sad and ssd are ported")
+        raise NotImplementedError(
+            f"cost={cost!r}: the kernels compute sad and ssd; zsad never takes a fused form")
     if not 0 <= store_r <= r:
         raise ValueError(f"need 0 <= store_r <= r = {r}, got {store_r}")
     b, nby, nbx, _ = grid.shape

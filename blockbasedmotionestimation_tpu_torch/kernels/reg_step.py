@@ -40,7 +40,9 @@ For CPU tensors the wrappers run ``color_step_plain`` (the XLA branch of the
 reference's ``_rounds_loop`` body, in torch; a round loops it) and
 ``color_step_compact_plain`` (the slot-compare formulation, which the map
 lookup on the card is held to); for CUDA tensors they launch the round
-kernel.  Nothing falls back from one to the other.
+kernel.  Nothing falls back from one to the other.  The wrappers take
+u16/i32 volumes; the f32 volumes of ``cost="zsad"`` go to the plain step
+and round by name, on any device (the reference runs zsad in XLA only).
 """
 
 from __future__ import annotations
@@ -115,11 +117,14 @@ def select_costs(
     r: int,
     r_x: int | None = None,
 ) -> torch.Tensor:
-    """(B, m, n, 9) int32 costs at the (clipped) candidate deltas of a
-    volume of dy in [-r, r] and dx in [-r_x, r_x] (r_x = r: square)."""
+    """(B, m, n, 9) costs at the (clipped) candidate deltas of a volume of
+    dy in [-r, r] and dx in [-r_x, r_x] (r_x = r: square): int32, or f32
+    from an f32 (zsad) volume."""
     r_x = r if r_x is None else r_x
     key = (ddy + r).clamp(0, 2 * r) * (2 * r_x + 1) + (ddx + r_x).clamp(0, 2 * r_x)
-    vals = torch.gather(cv_slab.to(torch.int32), 1, key.permute(0, 3, 1, 2).long())
+    if cv_slab.dtype != torch.float32:
+        cv_slab = cv_slab.to(torch.int32)
+    vals = torch.gather(cv_slab, 1, key.permute(0, 3, 1, 2).long())
     return vals.permute(0, 2, 3, 1)
 
 
@@ -303,7 +308,10 @@ color_step.row_launches = dict.fromkeys(("D", "D'", "8", "9"), 0)
 
 
 def color_round_stored_plain(grid, cv, pm, *, lam, sweeps, **kw) -> None:
-    """A round of D/D'/8/9 with torch ops: ``sweeps`` x the four colours."""
+    """A round of D/D'/8/9 with torch ops: ``sweeps`` x the four colours.
+    Also the rounds of ``cost="zsad"`` on f32 volumes, which no kernel
+    takes (``color_round_stored`` refuses them): the energy is the f32
+    cost plus lam * smoothness, as the reference's XLA round computes it."""
     _round_plain(color_step_plain, grid, cv, pm, lam=lam, sweeps=sweeps, **kw)
 
 

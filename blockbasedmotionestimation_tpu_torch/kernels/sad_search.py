@@ -12,6 +12,11 @@ strict-< update); for a CUDA tensor it launches ``csrc/sad_search.cu``
 (a thread block a block, a thread a delta row and a run of 4 dx, four
 pixels an instruction), which visits the offsets in no set order with
 (cost, spiral rank) compares.  The two formulations check each other.
+
+The kernel computes sad and ssd.  ``cost="zsad"`` (f32 zero-mean SAD,
+``block_cost``) has no kernel, here or in the reference, which runs it in
+XLA: its callers run ``sad_spiral_argmin_plain`` on any device, and the
+wrapper refuses it.
 """
 
 from __future__ import annotations
@@ -37,16 +42,44 @@ def extract_blocks(image: torch.Tensor, bs: int) -> torch.Tensor:
     )
 
 
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """f32 sum over the last dim (a power of two: a block's pixels) in a
+    fixed order: halves added elementwise until one is left, so every
+    device rounds the same way."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def zero_mean_sad(d: torch.Tensor) -> torch.Tensor:
+    """f32 zero-mean SAD of integer diffs over the last dim: the mean as an
+    f32 sum divided by the count, then sum |d - mean| (the reference's
+    ``block_cost(cost="zsad")``).  Both sums are ``pairwise_sum``: the
+    first is exact (integers below 2^24), the second while the block has
+    at most 16 x 16 pixels (its terms are multiples of 1/count, its sum at
+    most 255 * count); at 32 x 32 and above the reference's XLA order may
+    round the last place differently."""
+    df = d.to(torch.float32)
+    n = torch.tensor(float(df.shape[-1]), dtype=torch.float32, device=df.device)
+    mean = pairwise_sum(df) / n
+    return pairwise_sum((df - mean[..., None]).abs())
+
+
 def block_cost(a: torch.Tensor, b: torch.Tensor, dims, cost: str) -> torch.Tensor:
-    """int32 SAD (the reference's L1 norm) or SSD of a - b over ``dims``."""
+    """Cost of a - b over ``dims``: int32 SAD (the reference's L1 norm) or
+    SSD, or f32 zero-mean SAD (``zero_mean_sad``)."""
     d = a.to(torch.int32) - b.to(torch.int32)
     if cost == "sad":
         return d.abs().sum(dim=dims, dtype=torch.int32)
     if cost == "ssd":
         return (d * d).sum(dim=dims, dtype=torch.int32)
-    raise NotImplementedError(
-        f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 2)"
-    )
+    if cost == "zsad":
+        dims = [k % d.dim() for k in dims]
+        keep = [k for k in range(d.dim()) if k not in dims]
+        flat = d.permute(*keep, *sorted(dims)).reshape(*[d.shape[k] for k in keep], -1)
+        return zero_mean_sad(flat)
+    raise ValueError(f"unknown cost: {cost}")
 
 
 def sad_spiral_argmin_plain(
@@ -59,14 +92,17 @@ def sad_spiral_argmin_plain(
     cost: str,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(best_dy, best_dx), each (B, nblk) int32 in window coordinates
-    (0 .. 2S, centre S): the offsets in spiral order, strict < wins."""
+    (0 .. 2S, centre S): the offsets in spiral order, strict < wins.  Costs
+    are int32, f32 for zsad (the reference's ``cdt``), masked offsets
+    I32_MAX in either."""
     _, h, w = im1.shape
     dys, dxs, ext = spiral_offsets(ss - bs)
     blocks = extract_blocks(im1, bs).to(torch.int32)
     wins = windows.to(torch.int32)
-    best = torch.full(cy.shape, _I32_MAX, dtype=torch.int32, device=im1.device)
-    best_dy = torch.full_like(best, ext)
-    best_dx = torch.full_like(best, ext)
+    cdt = torch.float32 if cost == "zsad" else torch.int32
+    best = torch.full(cy.shape, _I32_MAX, dtype=cdt, device=im1.device)
+    best_dy = torch.full(cy.shape, ext, dtype=torch.int32, device=im1.device)
+    best_dx = torch.full_like(best_dy, ext)
     for dy, dx in zip((dys + ext).tolist(), (dxs + ext).tolist()):
         c = block_cost(blocks, wins[:, :, dy : dy + bs, dx : dx + bs], (2, 3), cost)
         ty = cy + (dy - ext)
@@ -120,7 +156,8 @@ def sad_spiral_argmin(
     frame b has its pixel (0, 0) at frame position (cy - S, cx - S)."""
     if cost not in ("sad", "ssd"):
         raise NotImplementedError(
-            f"cost={cost!r}: only sad and ssd are ported (ROADMAP Queue 1 item 2)"
+            f"cost={cost!r}: kernel 7 computes sad and ssd; zsad runs "
+            "sad_spiral_argmin_plain, as the reference runs it in XLA"
         )
     if im1.dtype != torch.uint8 or im1.dim() != 3:
         raise ValueError(f"im1 must be (B, H, W) uint8, got {im1.dtype} {tuple(im1.shape)}")

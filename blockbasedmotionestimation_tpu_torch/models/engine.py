@@ -34,9 +34,14 @@ hybrid, the stored band) gives the dense bits.  The device, not
 ``search_impl``, decides between the kernels (CUDA) and their plain
 versions (CPU).
 
-``cost="zsad"`` raises ``NotImplementedError`` naming its ROADMAP item.  On
-a CUDA device, a level whose shapes no kernel can take (``cuda_refusals``)
-raises ``ValueError`` before any work.
+``cost="zsad"`` (f32 zero-mean SAD) runs as the reference's XLA path runs
+it, whatever ``search_impl`` and the capacity options say: the dense-rival
+form of the fused level, the search, ``windowed_schedule`` and
+exact/fourcolor/jacobi, all on the plain versions (f32 volumes and costs)
+on every device; no kernel computes zsad, so on the card only the window
+gathers (A) launch one.  The route follows from ``cfg.cost`` before any
+work.  On a CUDA device, a level whose shapes no kernel can take
+(``cuda_refusals``) raises ``ValueError`` before any work.
 """
 
 from __future__ import annotations
@@ -80,8 +85,11 @@ def cuda_refusals(cfg: MotionConfig) -> list[str]:
     the H100): kernel 7 holds a whole (bs + 2S)^2 window and its block; the
     volume kernel (B, C, 13; built for bs 2 .. 128) at least one delta row
     of one parent's window; kernel 14 the parent's window and its pooled
-    sums.  The plain versions (CPU tensors) have no such limit.
+    sums.  The plain versions (CPU tensors) have no such limit, nor a zsad
+    configuration, whose levels run the plain versions on the card too.
     """
+    if cfg.cost == "zsad":
+        return []
     out = []
     for level, (bs, ss) in enumerate(zip(cfg.block_sizes, cfg.search_sizes)):
         ext = spiral_extent(ss - bs)
@@ -114,15 +122,12 @@ def cuda_refusals(cfg: MotionConfig) -> list[str]:
 
 
 def check_config(cfg: MotionConfig, device=None) -> None:
-    """Raise NotImplementedError for configurations outside the port, and
-    ValueError on a CUDA ``device`` for levels no kernel can take
-    (``cuda_refusals``), before any work.  ``search_impl="xla"`` turns the
-    capacity modes off, as in the reference; the device decides between
-    kernels and plain versions."""
-    if cfg.cost not in ("sad", "ssd"):
-        raise NotImplementedError(
-            f"cost={cfg.cost!r} is not ported yet (ROADMAP Queue 1 item 2)"
-        )
+    """Raise ValueError for an unknown cost, and on a CUDA ``device`` for
+    levels no kernel can take (``cuda_refusals``), before any work.
+    ``search_impl="xla"`` turns the capacity modes off, as in the
+    reference; the device decides between kernels and plain versions."""
+    if cfg.cost not in ("sad", "ssd", "zsad"):
+        raise ValueError(f"unknown cost: {cfg.cost}")
     if device is not None and torch.device(device).type == "cuda":
         refused = cuda_refusals(cfg)
         if refused:

@@ -8,7 +8,9 @@ the gather is ``kernels.gather`` (kernel A).
 ``block_search_level`` is one level's search (the reference's
 ``calcLevelBM``): the spiral walk around the truncated prediction, whose
 argmin is ``kernels.sad_search`` (kernel 7), or the exhaustive raster scan
-(plain torch, as the reference runs it in XLA).
+(plain torch, as the reference runs it in XLA).  ``cost="zsad"`` runs the
+spiral argmin's plain version on every device, with f32 costs, as the
+reference runs zsad in XLA only.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from blockbasedmotionestimation_tpu_torch.kernels.gather import gather_windows a
 from blockbasedmotionestimation_tpu_torch.kernels.sad_search import (
     block_cost,
     extract_blocks,
+    sad_spiral_argmin_plain,
 )
 from blockbasedmotionestimation_tpu_torch.kernels.sad_search import (
     sad_spiral_argmin as _sad_argmin,
@@ -87,7 +90,10 @@ def block_search_level(
     # these centres lie in [0, h - bs] x [0, w - bs]: the gather's clip
     # leaves them be, so each window is centred on its (cy, cx)
     windows = gather_windows(im2, cy, cx, bs, ext)[0]
-    best_dy, best_dx = _sad_argmin(im1, windows, cy.reshape(b, -1), cx.reshape(b, -1), bs, ss, cost)
+    # zsad has no kernel (nor in the reference, which runs it in XLA): its
+    # argmin is the plain version on every device
+    argmin = sad_spiral_argmin_plain if cost == "zsad" else _sad_argmin
+    best_dy, best_dx = argmin(im1, windows, cy.reshape(b, -1), cx.reshape(b, -1), bs, ss, cost)
     u = cx + best_dx.reshape(b, nby, nbx) - ext - ox
     v = cy + best_dy.reshape(b, nby, nbx) - ext - oy
     return torch.where(center_ok[..., None], torch.stack([u, v], dim=-1), 0).to(torch.int32)
@@ -127,8 +133,9 @@ def _raster_search_level(
     ox1 = ox.expand(1, nby, nbx).reshape(1, -1)
     lo_y, hi_y = cy.sub(sp).clamp(min=0), cy.add(sp).clamp(max=h - bs)
     lo_x, hi_x = cx.sub(sp).clamp(min=0), cx.add(sp).clamp(max=w - bs)
-    best = torch.full(cy.shape, _I32_MAX, dtype=torch.int32, device=im1.device)
-    best_l1 = best.clone()
+    cdt = torch.float32 if cost == "zsad" else torch.int32  # zsad is f32-valued
+    best = torch.full(cy.shape, _I32_MAX, dtype=cdt, device=im1.device)
+    best_l1 = torch.full(cy.shape, _I32_MAX, dtype=torch.int32, device=im1.device)
     win_y, win_x = cy.clone(), cx.clone()
     side = 2 * sp + 1
     for dy in range(side):

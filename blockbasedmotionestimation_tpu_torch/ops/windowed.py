@@ -40,7 +40,11 @@ The form follows the reference's dispatch, in its order:
     stored only for |dx delta| <= store_radius and the cur = 2 round runs F,
     which also recomputes the main-window candidates beyond that band.
   * otherwise every size of both windows is stored (kernel B) and every
-    round runs D/D'.
+    round runs D/D'.  ``cost="zsad"`` always takes this dense-rival form,
+    on the plain versions (``cv_diff.pooled_cvs_plain``,
+    ``reg_step.color_round_stored_plain``, f32 volumes) on every device:
+    no kernel computes zsad, and the reference runs it in XLA only.  Only
+    the gathers (A) launch a kernel there.
 Every round is one call of a round wrapper (``reg_step.color_round_stored``
 for D, D', 8 and 9, ``reg_step.color_round_compact`` for 10,
 ``kernels.fused_step.color_round_*`` for E, F, 11 and 12).
@@ -57,6 +61,7 @@ from blockbasedmotionestimation_tpu_torch.kernels.cv_diff import (
     deep_pooled_cvs,
     full_block_volume,
     pooled_cvs,
+    pooled_cvs_plain,
 )
 from blockbasedmotionestimation_tpu_torch.kernels.fused_step import (
     color_round_fused,
@@ -67,6 +72,7 @@ from blockbasedmotionestimation_tpu_torch.kernels.fused_step import (
 from blockbasedmotionestimation_tpu_torch.kernels.reg_step import (
     color_round_compact,
     color_round_stored,
+    color_round_stored_plain,
 )
 from blockbasedmotionestimation_tpu_torch.ops.compact import chunk_delta_slots, slot_map
 from blockbasedmotionestimation_tpu_torch.ops.regularize import subdivide
@@ -123,7 +129,9 @@ def spiral_argmin(
     ty = cy[:, None] + dy_of
     tx = cx[:, None] + dx_of
     ok = (ty >= 0) & (ty <= h - bs) & (tx >= 0) & (tx <= w - bs)
-    sad_m = torch.where(ok, sad.to(torch.int32), _I32_MAX)
+    # f32 (zsad) costs compare as f32, the others as int32; masked deltas
+    # cost I32_MAX in either, as in the reference
+    sad_m = torch.where(ok, sad if sad.dtype == torch.float32 else sad.to(torch.int32), _I32_MAX)
     order = np.full((side, side), _I32_MAX, dtype=np.int32)
     order[dys_np + ext, dxs_np + ext] = np.arange(side * side, dtype=np.int32)
     order_t = torch.as_tensor(order.reshape(-1), device=dev)[None, :, None, None]
@@ -169,14 +177,15 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
     return grid
 
 
-def _stored_round(cvs, pm, r, rcvs=None, rpm=None, r2=0):
+def _stored_round(cvs, pm, r, rcvs=None, rpm=None, r2=0, step=color_round_stored):
     """A round on stored volumes, D/D' (or 8/9 without ``rcvs``): one call
-    of ``color_round_stored`` a round."""
+    of ``step`` a round (``color_round_stored``, or its plain version for
+    zsad's f32 volumes)."""
     def round_of(cur):
         kw = dict(r=r)
         if rcvs is not None:
             kw.update(rcv=rcvs.pop(cur), rpm=rpm, r2=r2)
-        return color_round_stored, (cvs.pop(cur), pm), kw
+        return step, (cvs.pop(cur), pm), kw
     return round_of
 
 
@@ -218,9 +227,15 @@ def windowed_level(
     windows, by, bx = gather_windows(im2, cy_safe, cx_safe, bs, ext)
     base_mv = torch.stack([bx - ox, by - oy], dim=-1).contiguous()
 
-    use_compact = compact is not None and not rival and bs >= 8
-    fuse_eff = min(fuse, bs // 2) if fuse is not None and not use_compact and bs % 8 == 0 else 0
-    hybrid = not use_compact and not fuse_eff and hybrid_form(bs, rival)
+    # zsad has no kernel, nor in the reference, which runs it in XLA only:
+    # the dense-rival form on the plain versions, whatever the capacity
+    # options and the band say
+    plain = cost == "zsad"
+    volumes = pooled_cvs_plain if plain else pooled_cvs
+    use_compact = not plain and compact is not None and not rival and bs >= 8
+    fuse_eff = (min(fuse, bs // 2) if not plain and fuse is not None and not use_compact
+                and bs % 8 == 0 else 0)
+    hybrid = not plain and not use_compact and not fuse_eff and hybrid_form(bs, rival)
     fuse_max = min(16, bs // 2)  # the hybrid form's finest stored size
     store_r = None
     if hybrid and store_radius is not None and 0 <= store_radius < ext:
@@ -230,7 +245,7 @@ def windowed_level(
     elif fuse_eff:
         cvs = deep_pooled_cvs(im1, windows, bs, ext, cost, fuse_eff)
     else:
-        cvs = pooled_cvs(im1, windows, bs, ext, cost, store_r=store_r)
+        cvs = volumes(im1, windows, bs, ext, cost, store_r=store_r)
         if store_r is None:
             windows = None  # only the tables, the fused steps and F read them
     best_dy, best_dx = spiral_argmin(cvs[bs], cy_safe, cx_safe, shift, bs, h, w)
@@ -267,9 +282,10 @@ def windowed_level(
         if fuse_eff or hybrid:
             rcvs = deep_pooled_cvs(im1, rwindows, bs, r2, cost, fuse_eff or fuse_max)
         else:
-            rcvs = pooled_cvs(im1, rwindows, bs, r2, cost)
+            rcvs = volumes(im1, rwindows, bs, r2, cost)
             rwindows = None
-    stored = _stored_round(cvs, base_mv, ext, rcvs, rbase, r2)
+    stored = _stored_round(cvs, base_mv, ext, rcvs, rbase, r2,
+                           step=color_round_stored_plain if plain else color_round_stored)
     if fuse_eff:
         fkw = dict(im1=im1, win=windows, r=ext, cost=cost)
         if rival:
@@ -318,7 +334,8 @@ def windowed_schedule(
     windows the rival centre ``pick_rival(winners, winners, r)`` and its
     window and volumes at r2 = min(rival_radius, r).  Every volume is
     stored (the reference's dense form: no hybrid here), so the rounds run
-    D/D' (or 8/9 without rival).  The rounds rebase candidates on the
+    D/D' (or 8/9 without rival); for zsad the volumes and rounds are the
+    plain versions.  The rounds rebase candidates on the
     winners themselves, not on the clipped window centres (they differ only
     where a raster search kept an out-of-frame prediction); the rival's
     deltas rebase on its clipped centre.
@@ -332,7 +349,10 @@ def windowed_schedule(
     # (bs + 2r)^2 crop; the gather at radius r from the same clipped corner
     # yields that crop directly
     windows, _, _ = gather_windows(im2, oy + parent_mv[..., 1], ox + parent_mv[..., 0], bs, r)
-    cvs = pooled_cvs(im1, windows, bs, r, cost)
+    # zsad: the plain volumes and rounds (no kernel computes it)
+    plain = cost == "zsad"
+    volumes = pooled_cvs_plain if plain else pooled_cvs
+    cvs = volumes(im1, windows, bs, r, cost)
     del windows
 
     rcvs = rbase = None
@@ -341,8 +361,9 @@ def windowed_schedule(
         rmv = pick_rival(parent_mv, parent_mv, r)
         rwindows, rvy, rvx = gather_windows(im2, oy + rmv[..., 1], ox + rmv[..., 0], bs, r2)
         rbase = torch.stack([rvx - ox, rvy - oy], dim=-1).contiguous()
-        rcvs = pooled_cvs(im1, rwindows, bs, r2, cost)
+        rcvs = volumes(im1, rwindows, bs, r2, cost)
         del rwindows
 
+    step = color_round_stored_plain if plain else color_round_stored
     return rounds_loop(parent_mv.clone(), bs, h, w, lam0, sweeps_per_round,
-                       _stored_round(cvs, parent_mv, r, rcvs, rbase, r2))
+                       _stored_round(cvs, parent_mv, r, rcvs, rbase, r2, step=step))

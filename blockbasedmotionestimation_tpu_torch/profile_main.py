@@ -5,17 +5,19 @@
     python -m blockbasedmotionestimation_tpu_torch.profile_main --window-center search
     python -m blockbasedmotionestimation_tpu_torch.profile_main --cv-fused 4
     python -m blockbasedmotionestimation_tpu_torch.profile_main --cv-compact 64 --no-rival
+    python -m blockbasedmotionestimation_tpu_torch.profile_main --cost zsad
     python -m blockbasedmotionestimation_tpu_torch.profile_main --volume-launches
     python -m blockbasedmotionestimation_tpu_torch.profile_main --sass
 
 Runs ``estimate_flow_batched`` with ``MotionConfig(interp_factor=1)`` (or
-the regularizer / window centre / capacity mode given; ``--no-rival`` sets
-``rival_window=False``, which ``cv_compact`` needs to take effect) on
-seeded-noise 1080p pairs (frame 2
+the regularizer / window centre / capacity mode / cost given; ``--no-rival``
+sets ``rival_window=False``, which ``cv_compact`` needs to take effect) on
+8 seeded-noise 1080p pairs (2 for zsad, whose dense f32 volumes take
+about 6 GB a frame; frame 2
 = frame 1 moved by (-5, -9), made as ``chip_smoke.py`` makes them) and
 prints, beside the card's name and power limit:
 
-  - wall time per batch over 10 batches of 8 (min, median, max), fields/s
+  - wall time per batch over 10 batches (min, median, max), fields/s
     at the median, and the peak device memory;
   - wall time per pyramid level, each level synchronised before and after;
   - launches and device time of each kernel wrapper and of each stage of a
@@ -82,11 +84,13 @@ def _timed_kernels(events: dict):
     records (start, end) CUDA events under the function's name."""
     from blockbasedmotionestimation_tpu_torch.ops import search, windowed
 
-    names = {search: ["_gather", "_sad_argmin"], windowed: [
+    names = {search: ["_gather", "_sad_argmin", "sad_spiral_argmin_plain"], windowed: [
         "pooled_cvs", "deep_pooled_cvs", "full_block_volume", "compact_tables",
         "chunk_delta_slots", "slot_map", "color_round_stored", "color_round_hybrid",
         "color_round_hybrid_tail", "color_round_fused", "color_round_fused_rival",
-        "color_round_compact"], engine: [
+        "color_round_compact", "spiral_argmin",
+        # zsad's plain volumes and rounds (no kernel computes zsad)
+        "pooled_cvs_plain", "color_round_stored_plain"], engine: [
         "block_search_level", "run_schedule", "windowed_schedule", "windowed_level"]}
     saved = {(m, n): getattr(m, n) for m, ns in names.items() for n in ns}
 
@@ -285,6 +289,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cv-fused", type=int, default=None, metavar="N")
     ap.add_argument("--cv-compact", type=int, default=None, metavar="K")
     ap.add_argument("--no-rival", action="store_true")
+    ap.add_argument("--cost", default="sad", choices=["sad", "ssd", "zsad"])
     ap.add_argument("--volume-launches", action="store_true")
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
@@ -298,8 +303,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     cfg = MotionConfig(interp_factor=1, regularizer=args.regularizer,
                        window_center=args.window_center, cv_fused=args.cv_fused,
-                       cv_compact=args.cv_compact, rival_window=not args.no_rival)
-    noise = np.random.default_rng(0).integers(0, 256, size=(B, H + 16, W + 16), dtype=np.uint8)
+                       cv_compact=args.cv_compact, rival_window=not args.no_rival,
+                       cost=args.cost)
+    b = 2 if args.cost == "zsad" else B
+    noise = np.random.default_rng(0).integers(0, 256, size=(b, H + 16, W + 16), dtype=np.uint8)
     im1 = torch.as_tensor(noise[:, :H, :W].copy(), device=dev)
     im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
     if args.volume_launches:
@@ -308,10 +315,10 @@ def main(argv=None) -> int:
     if args.sass:
         _sass_loops()
         return 0
-    print(f"[profile] card: {card}; 1080p, B={B}, MotionConfig(interp_factor=1, "
+    print(f"[profile] card: {card}; 1080p, B={b}, MotionConfig(interp_factor=1, "
           f"regularizer={cfg.regularizer!r}, window_center={cfg.window_center!r}, "
           f"rival_window={cfg.rival_window}, cv_fused={cfg.cv_fused}, "
-          f"cv_compact={cfg.cv_compact})")
+          f"cv_compact={cfg.cv_compact}, cost={cfg.cost!r})")
 
     engine.estimate_flow_batched(im1, im2, cfg)  # warm: builds and loads the kernels
     torch.cuda.synchronize()
@@ -325,7 +332,7 @@ def main(argv=None) -> int:
         batch_s.append(time.perf_counter() - t0)
     med = float(np.median(batch_s))
     print(f"[profile] {REPS} batches: min {min(batch_s) * 1e3:.3f}, median {med * 1e3:.3f}, "
-          f"max {max(batch_s) * 1e3:.3f} ms; {B / med:.3f} fields/s at the median; "
+          f"max {max(batch_s) * 1e3:.3f} ms; {b / med:.3f} fields/s at the median; "
           f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
 
     level_ms = []

@@ -65,6 +65,22 @@ Phases (any failure raises and the script exits non-zero):
      rival windows, cv_compact=64 and cv_compact=4 without, the last with
      overflowing chunks);
   6. ``estimate_flow_driver`` with ``interp_factor=4`` at 388x584.
+  7. ``cost="zsad"`` (``MotionConfig(interp_factor=1, cost="zsad")``) at
+     1080p, B=2, on seeded texture pairs moved by (5, 9), frame 1 through
+     a gain of 1.1 and an offset of 12: zsad has no kernel, so the gathers
+     (A, 8 a batch) must be the only launches; the interior recovers the
+     known flow; the median of 3 batches in fields/s and the peak memory;
+     then CUDA equals the CPU on a two-motion 256x384 pair for the
+     default, fourcolor and search-centred zsad configurations;
+  8. the sequence runner and the CLI on six seeded 1080p frames of a
+     texture moving by (5, 9) a frame, ``MotionConfig(interp_factor=1)``,
+     in a temporary directory: ``run_sequence`` at batch 1 and at batch 4
+     with ``out_stride=2`` and f16 downloads, each ``.flo`` equal to
+     ``estimate_flow_driver`` on its pair (strided), a second run resuming
+     every pair, pairs/s beside phase 4's fields/s and beside the engine
+     alone; then ``cli.main``'s ``estimate`` on two PNG frames equals the
+     driver, and ``evaluate`` returns 0; the runner and the CLI launch A-F
+     as phase 4 does, a batch's worth a call (counted from 0 around each).
 The line before the last is a JSON object with one entry per TPU kernel
 row (A, B, C, D, D', E, F, 8, 9, 7, 11, 12, 13, 14, 10; ``launches`` from
 the default path, else from the first path that runs the row); the last is
@@ -1077,7 +1093,7 @@ def _drive(torch, engine, cfg, im1, im2, counters: dict, want: dict, tag: str, c
     _same_as_plain(torch, engine, cfg, im1, im2, flow, tag)
     if float(wrong.float().mean()) > 1e-3:
         raise AssertionError(f"[{tag}] the path did not recover the known translation")
-    return launches, rows, flow
+    return launches, rows, flow, B / med
 
 
 def _equal_flows(torch, a, b, what: str, tag: str) -> None:
@@ -1100,6 +1116,174 @@ def _overflow_log(log: list):
 
     with _swapped(windowed, chunk_delta_slots=spy):
         yield
+
+
+B7 = 2  # phase 7's batch: zsad's dense f32 volumes take about 6 GB a frame at 1080p
+# phase 7 (zsad, rival on): per level the main and the rival window (A
+# twice); no kernel computes zsad, so no other wrapper launches
+WANT_ZSAD = NONE | {"gather_windows": 8}
+
+
+def _zsad_phase(torch, engine, cfg, counters: dict, dev, card: str) -> None:
+    """Phase 7: ``cost="zsad"`` at 1080p, B=2, on seeded texture pairs
+    moved by (5, 9) with frame 1 through a gain of 1.1 and an offset of 12;
+    only the gathers (A) may launch; the interior must hold the known
+    flow; then CUDA == CPU at 256x384 (default, fourcolor, search-centred)."""
+    from blockbasedmotionestimation_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(70)
+    im1s, im2s = [], []
+    for _ in range(B7):
+        tex = synth.textured_image(H + SHIFT_Y, W + SHIFT_X, rng)
+        im1s.append(synth.perturb_photometric(tex[:H, :W], rng, gain=1.1, offset=12.0))
+        im2s.append(tex[SHIFT_Y:, SHIFT_X:])
+    im1 = torch.as_tensor(np.stack(im1s), device=dev)
+    im2 = torch.as_tensor(np.stack(im2s), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    flow, pad = engine.estimate_flow_batched(im1, im2, cfg)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"[zsad] launches: {launches} (expected {WANT_ZSAD})")
+    if launches != WANT_ZSAD:
+        raise AssertionError("[zsad] a kernel other than the gather launched, or A did not")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if tuple(flow.shape) != (B7, pad.padded_h, pad.padded_w, 2) or not torch.isfinite(flow).all():
+        raise AssertionError(f"[zsad] bad output {tuple(flow.shape)}")
+    m = 64
+    inner = flow[:, pad.pad_y + m : pad.pad_y + H - m, pad.pad_x + m : pad.pad_x + W - m]
+    known = torch.tensor([-SHIFT_X, -SHIFT_Y], dtype=torch.float32, device=dev)
+    wrong = ~(inner == known).all(-1)
+    print(f"[zsad] interior pixels off the known flow {(-SHIFT_X, -SHIFT_Y)} under gain 1.1, "
+          f"offset 12: {int(wrong.sum())} of {wrong.numel()}, per frame "
+          f"{wrong.sum(dim=(1, 2)).tolist()}")
+    if float(wrong.float().mean()) > 1e-3:
+        raise AssertionError("[zsad] the path did not recover the known translation")
+    batch_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        engine.estimate_flow_batched(im1, im2, cfg)
+        torch.cuda.synchronize()
+        batch_s.append(time.time() - t0)
+    med = float(np.median(batch_s))
+    print(f"[zsad] first call {first_s:.3f} s; 3 batches of {B7}: {[round(t, 4) for t in batch_s]} s, "
+          f"median {med:.4f} s; {B7 / med:.3f} fields/s at the median; peak {peak_gb:.2f} GB "
+          f"({card})")
+    del flow, inner, im1, im2
+    torch.cuda.empty_cache()
+
+    # CUDA == CPU on a two-motion pair (the plain versions on both: exact)
+    h5, w5 = 256, 384
+    tex = synth.textured_image(h5 + 64, w5 + 64, rng)
+    a2 = tex[32:32 + h5, 32:32 + w5]
+    left = tex[32 - 3:32 - 3 + h5, 32 + 7:32 + 7 + w5]
+    right = tex[32 + 5:32 + 5 + h5, 32 - 12:32 - 12 + w5]
+    a1 = np.where(np.arange(w5)[None, :] < w5 // 2, left, right).astype(np.uint8)
+    a1 = synth.perturb_photometric(a1, rng, gain=1.1, offset=12.0)
+    for what, c in (("default", cfg), ("fourcolor", cfg.replace(regularizer="fourcolor")),
+                    ("window_center=search", cfg.replace(window_center="search"))):
+        t0 = time.time()
+        on_gpu, _ = engine.estimate_flow_batched(a1[None], a2[None], c, device=dev)
+        on_cpu, _ = engine.estimate_flow_batched(a1[None], a2[None], c, device="cpu")
+        diff = int((on_gpu.cpu() != on_cpu).any(-1).sum())
+        print(f"[zsad] CUDA vs CPU, {what}, {h5}x{w5}: MVs that differ {diff} of "
+              f"{h5 * w5} ({time.time() - t0:.1f} s)")
+        if diff:
+            raise AssertionError(f"[zsad] {what}: CUDA and CPU flows differ at {diff} pixels")
+
+
+def _counted(counters: dict, want: dict, tag: str, run):
+    """Run ``run()`` with every launch count set to 0 just before it; the
+    counts read just after must equal ``want``."""
+    for fn in counters.values():
+        fn.launches = 0
+    out = run()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"[{tag}] launches: {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"[{tag}] the path did not launch its kernels as expected")
+    return out
+
+
+def _sequence_phase(torch, engine, cfg, counters: dict, dev, card: str,
+                    fields_per_s: float) -> None:
+    """Phase 8: the sequence runner and the CLI on the card, on six seeded
+    1080p frames of a texture moving by (5, 9) a frame: every .flo equals
+    the driver's field on its pair (f32; strided f16 too), a second run
+    resumes every pair, and the CLI's estimate equals the driver; the
+    runner and the CLI launch the main path's kernels, as many times as
+    phase 4's batch a call."""
+    import tempfile
+
+    from blockbasedmotionestimation_tpu_torch import cli
+    from blockbasedmotionestimation_tpu_torch.models import sequence
+    from blockbasedmotionestimation_tpu_torch.utils import flowio, synth
+
+    n = 6
+    tex = synth.textured_image(H + SHIFT_Y * n, W + SHIFT_X * n, np.random.default_rng(80))
+    frames = [np.ascontiguousarray(tex[SHIFT_Y * (n - 1 - k):SHIFT_Y * (n - 1 - k) + H,
+                                       SHIFT_X * (n - 1 - k):SHIFT_X * (n - 1 - k) + W])
+              for k in range(n)]
+    want = [engine.estimate_flow_driver(frames[i], frames[i + 1], cfg, device=dev).cpu().numpy()
+            for i in range(n - 1)]
+    with tempfile.TemporaryDirectory() as tmp:
+        one, four = f"{tmp}/one", f"{tmp}/four"
+        calls = {name: k * (n - 1) for name, k in WANT_LAUNCHES.items()}  # a call a pair
+        res = _counted(counters, calls, "sequence, batch 1", lambda: sequence.run_sequence(
+            frames, one, cfg, batch_size=1, device=dev))
+        calls = {name: k * 2 for name, k in WANT_LAUNCHES.items()}  # batches of 4 and 1
+        res4 = _counted(counters, calls, "sequence, batch 4", lambda: sequence.run_sequence(
+            frames, four, cfg, batch_size=4, out_stride=2, transfer_dtype="f16", device=dev))
+        for i in range(n - 1):
+            got = flowio.read_flo(f"{one}/{sequence.flo_name(i)}")
+            if not np.array_equal(got, want[i]):
+                raise AssertionError(f"[sequence] pair {i}: the .flo differs from the driver's")
+            got = flowio.read_flo(f"{four}/{sequence.flo_name(i)}")
+            if not np.array_equal(got, want[i][::2, ::2]):
+                raise AssertionError(f"[sequence] pair {i}: the strided f16 .flo differs")
+        again = sequence.run_sequence(frames, one, cfg, device=dev)
+        if not all(r.skipped for r in again) or len(again) != n - 1:
+            raise AssertionError("[sequence] the second run did not resume every pair")
+        rates = [len(r) / sum(x.seconds for x in r) for r in (res, res4)]
+        print(f"[sequence] {n - 1} pairs at {H}x{W}: every .flo == estimate_flow_driver on its "
+              f"pair; batch 1 {rates[0]:.3f} pairs/s, batch 4 (stride 2, f16) {rates[1]:.3f} "
+              f"pairs/s, beside phase 4's {fields_per_s:.3f} fields/s; a second run resumed "
+              f"{len(again)} pairs ({card})")
+        # the engine alone on the same pairs, frames already on the card:
+        # what the runner's uploads, downloads and writes add
+        a = torch.as_tensor(np.stack(frames[:4]), device=dev)
+        b = torch.as_tensor(np.stack(frames[1:5]), device=dev)
+        alone = {}
+        for nb in (1, 4):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                engine.estimate_flow_driver_batched(a[:nb], b[:nb], cfg)
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+            alone[nb] = nb / float(np.median(times))
+        print(f"[sequence] estimate_flow_driver_batched alone, median of 3: batch 1 "
+              f"{alone[1]:.3f} pairs/s, batch 4 {alone[4]:.3f} pairs/s ({card})")
+        paths = [f"{tmp}/f{k}.png" for k in (0, 1)]
+        for path, f in zip(paths, frames):
+            flowio.write_image(path, f)
+            if not np.array_equal(flowio.read_gray(path), f):
+                raise AssertionError(f"[cli] {path} does not read back as written")
+        out = f"{tmp}/cli.flo"
+        if _counted(counters, WANT_LAUNCHES, "cli estimate",
+                    lambda: cli.main(["estimate", *paths, out, "--interp", "1"])) != 0:
+            raise AssertionError("[cli] estimate failed")
+        if not np.array_equal(flowio.read_flo(out), want[0]):
+            raise AssertionError("[cli] the estimate's .flo differs from the driver's")
+        if cli.main(["evaluate", out, f"{one}/{sequence.flo_name(0)}"]) != 0:
+            raise AssertionError("[cli] evaluate failed")
+        print("[cli] estimate on two PNG frames == estimate_flow_driver; evaluate returned 0")
 
 
 def main() -> int:
@@ -1178,7 +1362,7 @@ def main() -> int:
         reg_step.color_step_compact, reg_step.color_round_compact)}
     assert sorted(counters) == sorted(WANT_LAUNCHES)
     by_path, by_row = {}, {}
-    by_path["main"], by_row["main"], main_flow = _drive(
+    by_path["main"], by_row["main"], main_flow, main_rate = _drive(
         torch, engine, cfg, im1, im2, counters, WANT_LAUNCHES, "main", card)
     torch.cuda.empty_cache()
 
@@ -1221,7 +1405,7 @@ def main() -> int:
     # 4c, 4d. the search-then-regularize paths on the pairs of phase 4
     for tag, c, want in (("fourcolor", cfg.replace(regularizer="fourcolor"), WANT_FOURCOLOR),
                          ("search", cfg.replace(window_center="search"), WANT_SEARCH)):
-        by_path[tag], by_row[tag], _ = _drive(torch, engine, c, im1, im2, counters, want, tag,
+        by_path[tag], by_row[tag], _, _ = _drive(torch, engine, c, im1, im2, counters, want, tag,
                                               card, reps=5)
         torch.cuda.empty_cache()
 
@@ -1237,7 +1421,7 @@ def main() -> int:
         ("compact", no_rival_cfg.replace(cv_compact=COMPACT_K), WANT_COMPACT, no_rival_flow,
          "the rival-off default's"),
     ):
-        by_path[tag], by_row[tag], out = _drive(torch, engine, c, im1, im2, counters, want,
+        by_path[tag], by_row[tag], out, _ = _drive(torch, engine, c, im1, im2, counters, want,
                                                 tag, card, reps=5)
         overflow = []
         if tag == "compact":
@@ -1358,6 +1542,20 @@ def main() -> int:
           f"interior at the known flow (3, -2): {ok6:.6f}")
     if tuple(fl.shape) != (h6, w6, 2) or not torch.isfinite(fl).all() or ok6 != 1.0:
         raise AssertionError("driver did not recover the known translation")
+    del fl
+    torch.cuda.empty_cache()
+
+    # 7. cost="zsad" at 1080p, B=2: the plain versions on the card, the
+    #    gathers the only kernel
+    t0 = time.time()
+    _zsad_phase(torch, engine, cfg.replace(cost="zsad"), counters, dev, card)
+    print(f"[zsad] phase 7 took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 8. the sequence runner and the CLI on the card
+    t0 = time.time()
+    _sequence_phase(torch, engine, cfg, counters, dev, card, main_rate)
+    print(f"[sequence] phase 8 took {time.time() - t0:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": list(results.values())}))

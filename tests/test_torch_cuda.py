@@ -661,3 +661,74 @@ def test_cuda_compact_round_equals_plain_step_loop(cuda, cur, k_slots, width):
     with pytest.raises(ValueError, match="smap"):
         reg_step.color_round_compact(gk, table, pm, slots, lam=lam, sweeps=1, **kw)
     assert reg_step.color_step_compact.launches == before + 1
+
+
+# ------------------------------------------------------------------ zsad
+
+def _zsad_pair(h=256, w=384):
+    """A two-motion pair (halves moved by (7, -3) and (-12, 5)), frame 1
+    through a gain of 1.1 and an offset of 12."""
+    rng = np.random.default_rng(21)
+    tex = rng.integers(0, 256, size=(h + 64, w + 64), dtype=np.uint8)
+    a2 = tex[32:32 + h, 32:32 + w]
+    left = tex[32 - 3:32 - 3 + h, 32 + 7:32 + 7 + w]
+    right = tex[32 + 5:32 + 5 + h, 32 - 12:32 - 12 + w]
+    a1 = np.where(np.arange(w)[None, :] < w // 2, left, right).astype(np.float64)
+    a1 = np.clip(np.rint(a1 * 1.1 + 12), 0, 255).astype(np.uint8)
+    return a1[None], a2[None]
+
+
+def _kernel_launches():
+    fns = [cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs, cv_diff.full_block_volume,
+           cv_diff.compact_tables, sad_search.sad_spiral_argmin, reg_step.color_step,
+           reg_step.color_round_stored, reg_step.color_step_compact,
+           reg_step.color_round_compact, fused_step.color_step_hybrid,
+           fused_step.color_step_hybrid_tail, fused_step.color_round_hybrid,
+           fused_step.color_round_hybrid_tail, fused_step.color_step_fused,
+           fused_step.color_step_fused_rival, fused_step.color_round_fused,
+           fused_step.color_round_fused_rival]
+    return {f.__name__: f.launches for f in fns}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("override", [dict(), dict(regularizer="fourcolor"),
+                                      dict(window_center="search")],
+                         ids=["default", "fourcolor", "search"])
+def test_cuda_zsad_equals_cpu_and_launches_only_the_gather(cuda, override):
+    # zsad has no kernel: on the card only the gathers (A) launch one, and
+    # the flow equals the CPU's (exact: f32 elementwise adds in a fixed
+    # order round alike on both)
+    cfg = MotionConfig(interp_factor=1, cost="zsad", **override)
+    im1, im2 = _zsad_pair()
+    before, gathers = _kernel_launches(), gather.gather_windows.launches
+    on_gpu, _ = engine.estimate_flow_batched(im1, im2, cfg, device=cuda)
+    assert _kernel_launches() == before
+    assert gather.gather_windows.launches > gathers
+    on_cpu, _ = engine.estimate_flow_batched(im1, im2, cfg, device="cpu")
+    assert torch.equal(on_gpu.cpu(), on_cpu)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_color_round_stored_refuses_f32(cuda):
+    grid = torch.zeros((1, 8, 8, 2), dtype=torch.int32, device=cuda)
+    pm = torch.zeros((1, 2, 2, 2), dtype=torch.int32, device=cuda)
+    vol = torch.zeros((1, 25, 8, 8), dtype=torch.float32, device=cuda)
+    before = reg_step.color_round_stored.launches
+    with pytest.raises(ValueError, match="uint16/int32"):
+        reg_step.color_round_stored(grid, vol, pm, cur=2, h=16, w=16, r=2, lam=1.0, sweeps=1)
+    assert reg_step.color_round_stored.launches == before
+
+
+@pytest.mark.requires_cuda
+def test_cuda_run_sequence_equals_cpu(cuda, tmp_path):
+    from blockbasedmotionestimation_tpu_torch.models import sequence
+
+    rng = np.random.default_rng(22)
+    base = rng.integers(0, 256, size=(256 + 32, 384 + 32), dtype=np.uint8)
+    frames = [base[16 - k:16 - k + 256, 16 + 2 * k:16 + 2 * k + 384].copy() for k in range(4)]
+    cfg = MotionConfig(interp_factor=1)
+    for where, kw in (("gpu", dict(device=cuda)), ("cpu", dict(device="cpu"))):
+        sequence.run_sequence(frames, tmp_path / where, cfg, batch_size=2, **kw)
+    for i in range(3):
+        name = sequence.flo_name(i)
+        assert (tmp_path / "gpu" / name).read_bytes() == (tmp_path / "cpu" / name).read_bytes()

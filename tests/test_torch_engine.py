@@ -4,8 +4,9 @@ Tiny configurations (two 8px levels) on numpy pairs made from a seed;
 exact equality of the flow fields.  The port gets its own ``MotionConfig``,
 made from the JAX config's fields.  Also: the port never imports jax or the
 JAX package, its config and spiral tables equal the JAX package's, numpy
-frames go to CUDA by default, and the one configuration outside the port
-(``cost="zsad"``) raises.  The capacity modes (``cv_fused``,
+frames go to CUDA by default, and the configurations that raised before
+``cost="zsad"`` was ported now run (``tests/test_torch_zsad.py`` holds them
+to JAX).  The capacity modes (``cv_fused``,
 ``cv_compact``) are held to JAX's dense flow, which JAX's own tests hold its
 fused and (non-overflowing) compact paths to; their kernels are held to
 JAX's interpret-mode kernels in ``tests/test_torch_capacity.py``.
@@ -153,9 +154,15 @@ def test_estimate_flow_driver_interp2_matches_jax(rng):
     ],
 )
 def test_configs_outside_the_slice_raise(override):
-    frames = np.zeros((1, 16, 16), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.estimate_flow_batched(frames, frames, _port(TINY).replace(**override), device="cpu")
+    # no configuration is outside the port any more: each of these raised
+    # before zsad was ported, and now runs (on the plain versions, on any
+    # device, so no kernel limit refuses it on the card); equal frames of
+    # one grey level cost 0 at every delta, so the flow is 0
+    cfg = _port(TINY).replace(**override)
+    teng.check_config(cfg, "cuda")
+    frames = np.full((1, 16, 16), 90, np.uint8)
+    flow, _ = teng.estimate_flow_batched(frames, frames, cfg, device="cpu")
+    assert flow.dtype == torch.float32 and not flow.any()
 
 
 _BIG = dict(interp_factor=1, block_sizes=(128,), search_sizes=(160,))

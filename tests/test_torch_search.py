@@ -87,7 +87,7 @@ def test_argmin_rejects_bad_inputs(rng):
         fn(im1, wins, c.to(torch.int64), c, 4, 12, "sad")
     with pytest.raises(ValueError):
         fn(im1[:, :14], wins, c, c, 4, 12, "sad")  # frame not a multiple of bs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="zsad runs sad_spiral_argmin_plain"):
         fn(im1, wins, c, c, 4, 12, "zsad")
 
 
