@@ -26,7 +26,7 @@
 //   windowed_color_step_pm_compact (kernel 10, cv_compact's rounds cur <
 //     bs): the stored step without rival windows, each cost taken from a
 //     K-slot table at the slot of the cell's chunk that holds its delta.
-// One template, round_kernel<Form, CUR>, for the nine (CUR 2, 4, 8, 16 as
+// One template, round_kernel<Form, CUR, kStrips>, for the nine (CUR 2, 4, 8, 16 as
 // the rounds use them, 0 for any other cur; the stored form kStored serves
 // D, D', 8 and 9, since the cell layout here is the plain grid and the
 // parent of cell (i, j) is (i / f, j / f); kCompact serves 10).  A launch
@@ -96,6 +96,16 @@
 // the own MV).  Before it, kernel 10 was one launch a colour step of a
 // one-thread-a-cell kernel that compared each of its 9 candidates with all
 // K slots of its chunk (576 compares a cell at K = 64).
+// Row strips (the tiled engine, parallel/tiled.py): a batch entry may be a
+// strip of nby grid rows of a frame of nby_total, whose row 0 is the
+// frame's grid row row0_b[b].  Colours are global: a strip whose first row
+// is odd holds colour row ci at local rows (ci + row0_b) % 2, ...; the
+// border case, presence and in-image tests use global rows and the frame's
+// height full_h; the rows just above and below the strip come from ghost
+// (B, 2, nbx, 2), which the caller refreshes from the neighbouring strips
+// before every step, so a tiled round is a launch a step (a span of one),
+// never one cooperative launch.  Without row0_b (null) an entry is a whole
+// frame, as before; strips run their own instantiation (kStrips).
 // What bounds it now (PERF.md): latency.  A block works its tiles one after
 // another (stage, barrier, cells), 2-3 blocks an SM, so a level-0 step
 // takes many times what its bytes need; at the coarse levels a step costs
@@ -164,6 +174,9 @@ struct RoundArgs {
   int k_slots, nch, chunk;  // compact: K, chunks a frame, parents a chunk
   int step0, nsteps;    // the span: colour index of its first step, its steps
   float lam[kMaxSweeps];  // lambda x multiplier of each sweep the span touches
+  const int* row0_b;    // strips: (B,) the frame's grid row of each entry's row 0; null: whole frames
+  const int2* ghost;    // strips: (B, 2, nbx) the grid rows just above and below each strip
+  int nby_total, full_h;  // the frame's grid rows and pixel rows (nby, h for whole frames)
 };
 
 // sum of |a - b| over the four bytes, plus c: VABSDIFF4.U8.ACC
@@ -323,10 +336,11 @@ __device__ __forceinline__ void recompute_warp(uint32_t redo, const uintptr_t (&
   }
 }
 
-// A cell of a tile: frame b, grid cell (i, j), its place (ly, lx) in the
-// staged halo, and the first parent row and column staged.
+// A cell of a tile: entry b, local grid cell (i, j), its place (ly, lx) in
+// the staged halo, the first parent row and column staged, and the entry's
+// first grid row in its frame.
 struct CellAt {
-  int b, i, j, ly, lx, pr0, pc0;
+  int b, i, j, ly, lx, pr0, pc0, r0;  // r0: the frame's grid row of the entry's row 0
 };
 
 // One cell's colour step: the 9 candidates from the staged halo, every
@@ -336,7 +350,7 @@ struct CellAt {
 // rounded multiply and add, FLT_MAX where not usable, the lexicographic
 // (energy, rank) winner), with presence and usability as bit masks and the
 // winner tracked as it is found.
-template <Form kForm, int CUR>
+template <Form kForm, int CUR, bool kStrips>
 __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHaloC],
                                           const int2* s_pm, const int2* s_rpm,
                                           const int* s_rank, const CellAt at, bool valid,
@@ -344,17 +358,22 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
   const int cur = CUR > 0 ? CUR : a.cur;
   const int i = at.i;
   const int j = at.j;
-  const int* rank = s_rank + border_case(i, j, a.nby, a.nbx) * 9;
+  // the cell's row in its frame, the frame's rows and height (whole
+  // frames read the fields they read before strips)
+  const int gi0 = i + at.r0;
+  const int nby_t = kStrips ? a.nby_total : a.nby;
+  const int full_h = kStrips ? a.full_h : a.h;
+  const int* rank = s_rank + border_case(gi0, j, nby_t, a.nbx) * 9;
   int cx[9], cy[9];
   uint32_t present = 0;
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const int2 mv = s_mv[at.ly + kSlotDy[k]][at.lx + kSlotDx[k]];
-    const int gi = i + kSlotDy[k];
+    const int gi = gi0 + kSlotDy[k];
     const int gj = j + kSlotDx[k];
     cx[k] = mv.x;
     cy[k] = mv.y;
-    if (valid && rank[k] < kBigRank && gi >= 0 && gi < a.nby && gj >= 0 && gj < a.nbx) {
+    if (valid && rank[k] < kBigRank && gi >= 0 && gi < nby_t && gj >= 0 && gj < a.nbx) {
       present |= 1u << k;
     }
   }
@@ -395,7 +414,7 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
     if (!(covered & 1)) covered = 0;  // the own MV in no slot: every candidate excluded
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
-      if (((present & covered) >> k) & 1 && in_image(i, j, cur, a.h, a.w, cx[k], cy[k])) {
+      if (((present & covered) >> k) & 1 && in_image(gi0, j, cur, full_h, a.w, cx[k], cy[k])) {
         usable |= 1u << k;
       }
     }
@@ -417,7 +436,7 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
     const int rdy = cy[k] - rpmv.y;
     const bool in_rival = rival && rdx >= -a.r2 && rdx <= a.r2 && rdy >= -a.r2 && rdy <= a.r2;
     if (((present >> k) & 1) && (in_window || in_rival) &&
-        in_image(i, j, cur, a.h, a.w, cx[k], cy[k])) {
+        in_image(gi0, j, cur, full_h, a.w, cx[k], cy[k])) {
       usable |= 1u << k;
       if (kForm != kFused && in_window && ddx >= -cr && ddx <= cr) {
         stored |= 1u << k;
@@ -569,7 +588,9 @@ __device__ __forceinline__ int2 parent_of(const int* centres, const TileAt& T, i
 }
 
 // Stage a tile: its halo of MVs (read past L1, ld.global.cg: other SMs
-// wrote the grid in the previous step) and its parents' window centres.
+// wrote the grid in the previous step; a strip's rows -1 and nby from its
+// ghost rows) and its parents' window centres.
+template <bool kStrips>
 __device__ __forceinline__ void stage(const RoundArgs& a, const TileAt& T, int2 (*s_mv)[kHaloC],
                                       int2* s_pm, int2* s_rpm) {
   const int2* grid = reinterpret_cast<const int2*>(a.grid) +
@@ -587,6 +608,10 @@ __device__ __forceinline__ void stage(const RoundArgs& a, const TileAt& T, int2 
     mv[m] = make_int2(0, 0);
     if (e < kHaloR * kHaloC && gi >= 0 && gi < a.nby && gj >= 0 && gj < a.nbx) {
       mv[m] = __ldcg(grid + gi * a.nbx + gj);
+    } else if constexpr (kStrips) {
+      if (e < kHaloR * kHaloC && gj >= 0 && gj < a.nbx && (gi == -1 || gi == a.nby)) {
+        mv[m] = __ldcg(a.ghost + (static_cast<size_t>(T.b) * 2 + (gi < 0 ? 0 : 1)) * a.nbx + gj);
+      }
     }
   }
   const bool rival = a.rpm != nullptr;
@@ -627,7 +652,9 @@ __device__ __forceinline__ void stage(const RoundArgs& a, const TileAt& T, int2 
 // registers (no shared recomputes) and gain from more warps.
 __host__ __device__ constexpr int min_blocks(int cur) { return cur == 2 ? 3 : 2; }
 
-template <Form kForm, int CUR>
+// kStrips: the entries are row strips (row0_b and ghost given); a separate
+// instantiation, so whole frames run the code they ran before strips.
+template <Form kForm, int CUR, bool kStrips>
 __global__ void __launch_bounds__(kThreads, min_blocks(CUR)) round_kernel(const RoundArgs a) {
   __shared__ int2 s_mv[kHaloR][kHaloC];
   __shared__ int2 s_pm[kParR * kParC];
@@ -647,28 +674,33 @@ __global__ void __launch_bounds__(kThreads, min_blocks(CUR)) round_kernel(const 
     float lam = a.lam[0];  // a.lam[g >> 2], without a local copy of the array
 #pragma unroll
     for (int q = 1; q < kMaxSweeps; ++q) lam = (g >> 2) == q ? a.lam[q] : lam;
-    const Tiles tl = tiles_of(a.nby, a.nbx, ci, cj);
+    // strips: an entry's local colour row is (ci + its first row) % 2, so
+    // every entry gets the tiles of the larger count (local row 0)
+    const Tiles tl = tiles_of(a.nby, a.nbx, kStrips ? 0 : ci, cj);
     const int ntiles = a.batch * tl.per_frame;
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-      const TileAt T = tile_at(t, tl, ci, cj, a.f, npy, npx);
+      const int r0 = kStrips ? __ldg(a.row0_b + t / tl.per_frame) : 0;
+      const int lci = kStrips ? (ci + r0) & 1 : ci;
+      const int mc = kStrips ? (a.nby - lci + 1) / 2 : tl.mc;
+      const TileAt T = tile_at(t, tl, lci, cj, a.f, npy, npx);
       __syncthreads();  // the previous tile's readers are done
-      stage(a, T, s_mv, s_pm, s_rpm);
+      stage<kStrips>(a, T, s_mv, s_pm, s_rpm);
       __syncthreads();
       // every lane of a warp takes part (the recomputes are shared out
       // across the warp); lanes past the colour's cells write nothing
       const int ii = kTileR * T.ty + row;
       const int jj = kTileW * T.tx + lane;
-      const bool valid = ii < tl.mc && jj < tl.nc;
-      const CellAt at{T.b, ci + 2 * ii, cj + 2 * jj, 2 * row + 1, 2 * lane + 1, T.pr0, T.pc0};
-      cell_step<kForm, CUR>(a, s_mv, s_pm, s_rpm, s_rank, at, valid, lam);
+      const bool valid = ii < mc && jj < tl.nc;
+      const CellAt at{T.b, lci + 2 * ii, cj + 2 * jj, 2 * row + 1, 2 * lane + 1, T.pr0, T.pc0, r0};
+      cell_step<kForm, CUR, kStrips>(a, s_mv, s_pm, s_rpm, s_rank, at, valid, lam);
     }
     if (s + 1 < a.nsteps) gg.sync();  // the step's writes, visible to the next
   }
 }
 
 // The blocks one cooperative launch may hold on this device (cached per
-// device, form and cur).
-template <Form kForm, int CUR>
+// device and instantiation).
+template <Form kForm, int CUR, bool kStrips>
 int resident_blocks(int* out) {
   static int cached[64] = {};
   int dev = 0;
@@ -677,8 +709,8 @@ int resident_blocks(int* out) {
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (cached[dev] == 0) {
     int per_sm = 0, sms = 0, coop = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, round_kernel<kForm, CUR>, kThreads,
-                                                      0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, round_kernel<kForm, CUR, kStrips>,
+                                                      kThreads, 0);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -696,8 +728,9 @@ int prepare(RoundArgs& a, bool reads_im1, int step0, int nsteps, const float* la
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (a.f < 1 || a.cur < 2 || (a.cur & (a.cur - 1)) || a.nby % a.f || a.nbx % a.f) return bad;
   if (a.nby != a.h / a.cur || a.nbx != a.w / a.cur || a.r < 0 || a.r2 < 0) return bad;
-  if (static_cast<long long>(a.nby) * a.nbx * 2 >= (1LL << 31) ||
-      static_cast<long long>(a.h) * a.w >= (1LL << 31)) {
+  if (a.full_h % a.cur || a.nby_total != a.full_h / a.cur || a.nby_total < a.nby) return bad;
+  if (static_cast<long long>(a.nby_total) * a.nbx * 2 >= (1LL << 31) ||
+      static_cast<long long>(a.full_h) * a.w >= (1LL << 31)) {
     return bad;  // indices inside a frame are 32-bit
   }
   // the recompute's frame-1 words: rows aligned to 4 bytes (2 at cur = 2)
@@ -713,7 +746,7 @@ int prepare(RoundArgs& a, bool reads_im1, int step0, int nsteps, const float* la
   return 0;
 }
 
-template <Form kForm, int CUR>
+template <Form kForm, int CUR, bool kStrips>
 int launch_cur(RoundArgs& a, void* stream) {
   // colour (0, 0) has the most tiles
   const long long tiles =
@@ -722,18 +755,27 @@ int launch_cur(RoundArgs& a, void* stream) {
   if (tiles == 0) return 0;
   if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   int resident = 0;
-  const int code = resident_blocks<kForm, CUR>(&resident);
+  const int code = resident_blocks<kForm, CUR, kStrips>(&resident);
   if (code != 0) return code;
   const unsigned blocks = static_cast<unsigned>(tiles < resident ? tiles : resident);
   void* params[] = {&a};
-  const cudaError_t e = cudaLaunchCooperativeKernel(round_kernel<kForm, CUR>, dim3(blocks),
-                                                    dim3(kThreads), params, 0,
+  const cudaError_t e = cudaLaunchCooperativeKernel(round_kernel<kForm, CUR, kStrips>,
+                                                    dim3(blocks), dim3(kThreads), params, 0,
                                                     static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) {
     cudaGetLastError();  // a refused launch is not sticky; clear it
     return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Strips or whole frames (the compact form takes no strips).
+template <Form kForm, int CUR>
+int launch_strips(RoundArgs& a, void* stream) {
+  if constexpr (kForm != kCompact) {
+    if (a.row0_b != nullptr) return launch_cur<kForm, CUR, true>(a, stream);
+  }
+  return launch_cur<kForm, CUR, false>(a, stream);
 }
 
 // One cooperative launch of the span; the kernel is instantiated for cur 2,
@@ -744,11 +786,11 @@ int launch(RoundArgs& a, int step0, int nsteps, const float* lams, int n_lam, vo
   const int code = prepare(a, recomputes(kForm), step0, nsteps, lams, n_lam);
   if (code != 0) return code;
   switch (a.cur) {
-    case 2: return launch_cur<kForm, 2>(a, stream);
-    case 4: return launch_cur<kForm, 4>(a, stream);
-    case 8: return launch_cur<kForm, 8>(a, stream);
-    case 16: return launch_cur<kForm, 16>(a, stream);
-    default: return launch_cur<kForm, 0>(a, stream);
+    case 2: return launch_strips<kForm, 2>(a, stream);
+    case 4: return launch_strips<kForm, 4>(a, stream);
+    case 8: return launch_strips<kForm, 8>(a, stream);
+    case 16: return launch_strips<kForm, 16>(a, stream);
+    default: return launch_strips<kForm, 0>(a, stream);
   }
 }
 
@@ -777,7 +819,23 @@ RoundArgs args_of(void* grid, const void* cv, int cv16, const void* im1, const v
   a.store_r = store_r;
   a.r2 = r2;
   a.ssd = ssd;
+  a.nby_total = nby;
+  a.full_h = h;
   return a;
+}
+
+// A single step's strips: row0_b (B,) i32 and ghost (B, 2, nbx, 2) i32 both
+// given, or both null (whole frames); full_h the frame's height in pixels
+// (h for whole frames).  0 or an error.
+int strip_args(RoundArgs& a, const void* row0_b, const void* ghost, int full_h) {
+  if ((row0_b == nullptr) != (ghost == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (row0_b == nullptr && full_h != a.h) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.cur < 1) return static_cast<int>(cudaErrorInvalidValue);
+  a.row0_b = static_cast<const int*>(row0_b);
+  a.ghost = static_cast<const int2*>(ghost);
+  a.full_h = full_h;
+  a.nby_total = full_h / a.cur;
+  return 0;
 }
 
 int colour_index(int ci, int cj) {
@@ -802,16 +860,22 @@ int compact_args(RoundArgs& a, const void* smap, int k_slots, int nch, int chunk
 // Kernel E, one colour step.  grid: (B, nby, nbx, 2) i32, updated in place;
 // cv: (B, side^2, nby, nbx) main volume at cur; im1: (B, h, w) u8; rwin:
 // (B, nP, bs + 2 r2, bs + 2 r2) u8 rival windows; pm / rpm: (B, nby/f,
-// nbx/f, 2) i32 window centres; rank_table: (9, 9) i32.
+// nbx/f, 2) i32 window centres; rank_table: (9, 9) i32.  Every single step
+// takes strips: row0_b (B,) i32 and ghost (B, 2, nbx, 2) i32 (see the top of
+// this file) and the frame's height full_h, or null, null and h.
 extern "C" int bbme_color_step_hybrid(void* grid, const void* cv, int cv16,
                                       const void* im1, const void* rwin,
                                       const void* pm, const void* rpm,
                                       const void* rank_table, int batch,
                                       int nby, int nbx, int f, int cur, int h,
-                                      int w, int r, int r2, int ssd, int ci,
-                                      int cj, float lam, void* stream) {
+                                      int w, int r, int r2, int ssd,
+                                      const void* row0_b, const void* ghost,
+                                      int full_h, int ci, int cj, float lam,
+                                      void* stream) {
   RoundArgs a = args_of(grid, cv, cv16, im1, nullptr, rwin, pm, rpm, rank_table, batch, nby,
                         nbx, f, cur, h, w, r, -1, r2, ssd);
+  const int code = strip_args(a, row0_b, ghost, full_h);
+  if (code != 0) return code;
   return launch<kHybrid>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }
 
@@ -825,11 +889,14 @@ extern "C" int bbme_color_step_hybrid_tail(void* grid, const void* band,
                                            const void* rank_table, int batch,
                                            int nby, int nbx, int f, int cur,
                                            int h, int w, int r, int store_r,
-                                           int r2, int ssd, int ci, int cj,
-                                           float lam, void* stream) {
+                                           int r2, int ssd, const void* row0_b,
+                                           const void* ghost, int full_h, int ci,
+                                           int cj, float lam, void* stream) {
   if (store_r < 0 || store_r > r) return static_cast<int>(cudaErrorInvalidValue);
   RoundArgs a = args_of(grid, band, band16, im1, win, rwin, pm, rpm, rank_table, batch, nby,
                         nbx, f, cur, h, w, r, store_r, r2, ssd);
+  const int code = strip_args(a, row0_b, ghost, full_h);
+  if (code != 0) return code;
   return launch<kTail>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }
 
@@ -843,13 +910,17 @@ extern "C" int bbme_color_step_fused(void* grid, const void* im1,
                                      const void* pm, const void* rpm,
                                      const void* rank_table, int batch,
                                      int nby, int nbx, int f, int cur, int h,
-                                     int w, int r, int r2, int ssd, int ci,
-                                     int cj, float lam, void* stream) {
+                                     int w, int r, int r2, int ssd,
+                                     const void* row0_b, const void* ghost,
+                                     int full_h, int ci, int cj, float lam,
+                                     void* stream) {
   if ((rwin == nullptr) != (rpm == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RoundArgs a = args_of(grid, nullptr, 0, im1, win, rwin, pm, rpm, rank_table, batch, nby, nbx,
                         f, cur, h, w, r, -1, r2, ssd);
+  const int code = strip_args(a, row0_b, ghost, full_h);
+  if (code != 0) return code;
   return launch<kFused>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }
 
@@ -862,13 +933,16 @@ extern "C" int bbme_color_step(void* grid, const void* cv, int cv16,
                                const void* rcv, int rcv16, const void* pm,
                                const void* rpm, const void* rank_table,
                                int batch, int nby, int nbx, int f, int cur,
-                               int h, int w, int r, int r2, int ci, int cj,
+                               int h, int w, int r, int r2, const void* row0_b,
+                               const void* ghost, int full_h, int ci, int cj,
                                float lam, void* stream) {
   if ((rcv == nullptr) != (rpm == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   RoundArgs a = args_of(grid, cv, cv16, nullptr, nullptr, nullptr, pm, rpm, rank_table, batch,
                         nby, nbx, f, cur, h, w, r, -1, r2, 0);
   a.rcv = rcv;
   a.rcv16 = rcv16;
+  const int code = strip_args(a, row0_b, ghost, full_h);
+  if (code != 0) return code;
   return launch<kStored>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }
 

@@ -167,7 +167,8 @@ sad_spiral_argmin_kernel(const uint8_t* __restrict__ im1,
                          const int* __restrict__ cy, const int* __restrict__ cx,
                          const int* __restrict__ rank, int* __restrict__ out_dy,
                          int* __restrict__ out_dx, int n_per_frame, int nbx,
-                         int h, int w, int ext, int pitch, int wvec, int bvec) {
+                         int h, int w, int full_h, int ext, int pitch, int wvec,
+                         int bvec) {
   constexpr int NW = row_words(BS);
   // bs = 2: two bytes of a word are pixels; the window words are cut to them
   constexpr uint32_t kMask = BS >= 4 ? 0xffffffffu : 0x0000ffffu;
@@ -196,7 +197,7 @@ sad_spiral_argmin_kernel(const uint8_t* __restrict__ im1,
     const int dx0 = kRun * (item / side);
     const int ty = ccy + dy - ext;
     const int tx0 = ccx + dx0 - ext;
-    const bool row_ok = ty >= 0 && ty <= h - BS;
+    const bool row_ok = ty >= 0 && ty <= full_h - BS;  // the frame's rows, not the strip's
     // the run's dx that are deltas of the window and keep the block in frame
     uint32_t ok = 0;
 #pragma unroll
@@ -293,7 +294,7 @@ size_t smem_of(int bs, int win, int pitch) {
 template <int BS, bool kSsd>
 int launch(const uint8_t* im1, const uint8_t* windows, const int* cy, const int* cx,
            const int* rank, int* out_dy, int* out_dx, int nblk, int n_per_frame, int nbx,
-           int h, int w, int ext, cudaStream_t stream) {
+           int h, int w, int full_h, int ext, cudaStream_t stream) {
   const int win = BS + 2 * ext;
   const int side = 2 * ext + 1;
   // the narrowest pitch that holds a row, made odd (conflict-free) if that fits
@@ -316,19 +317,20 @@ int launch(const uint8_t* im1, const uint8_t* windows, const int* cy, const int*
   const int items = side * ((side + kRun - 1) / kRun);
   const int threads = items >= kMaxThreads ? kMaxThreads : (items + 31) / 32 * 32;
   kernel<<<static_cast<unsigned>(nblk), threads, smem, stream>>>(
-      im1, windows, cy, cx, rank, out_dy, out_dx, n_per_frame, nbx, h, w, ext, pitch, wvec,
-      bvec);
+      im1, windows, cy, cx, rank, out_dy, out_dx, n_per_frame, nbx, h, w, full_h, ext, pitch,
+      wvec, bvec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BS>
 int launch_cost(int ssd, const uint8_t* im1, const uint8_t* windows, const int* cy,
                 const int* cx, const int* rank, int* out_dy, int* out_dx, int nblk,
-                int n_per_frame, int nbx, int h, int w, int ext, cudaStream_t stream) {
+                int n_per_frame, int nbx, int h, int w, int full_h, int ext,
+                cudaStream_t stream) {
   return ssd ? launch<BS, true>(im1, windows, cy, cx, rank, out_dy, out_dx, nblk, n_per_frame,
-                                nbx, h, w, ext, stream)
+                                nbx, h, w, full_h, ext, stream)
              : launch<BS, false>(im1, windows, cy, cx, rank, out_dy, out_dx, nblk, n_per_frame,
-                                 nbx, h, w, ext, stream);
+                                 nbx, h, w, full_h, ext, stream);
 }
 
 }  // namespace
@@ -341,15 +343,17 @@ int launch_cost(int ssd, const uint8_t* im1, const uint8_t* windows, const int* 
 // coordinates (0 .. 2 * ext, centre ext).  Blocks are the frame's row-major
 // nbx-wide grid of bs x bs blocks; bs is a power of two, 2 .. 256 (any
 // other returns cudaErrorInvalidValue, as does a window over the shared
-// memory of a thread block).
+// memory of a thread block).  im1 may be a row strip of its frame (the
+// tiled engine): the centres are then the frame's rows, and an offset keeps
+// its block in the frame by the frame's height full_h (h for whole frames).
 extern "C" int bbme_sad_spiral_argmin(const void* im1, const void* windows,
                                       const void* cy, const void* cx,
                                       const void* rank, void* out_dy,
                                       void* out_dx, int nblk, int n_per_frame,
-                                      int nbx, int h, int w, int bs, int ext,
-                                      int ssd, void* stream) {
+                                      int nbx, int h, int w, int full_h, int bs,
+                                      int ext, int ssd, void* stream) {
   if (nblk == 0) return 0;
-  if (ext < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (ext < 0 || full_h < h) return static_cast<int>(cudaErrorInvalidValue);
   const auto* a = static_cast<const uint8_t*>(im1);
   const auto* wn = static_cast<const uint8_t*>(windows);
   const auto* y = static_cast<const int*>(cy);
@@ -359,14 +363,14 @@ extern "C" int bbme_sad_spiral_argmin(const void* im1, const void* windows,
   auto* odx = static_cast<int*>(out_dx);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (bs) {
-    case 2: return launch_cost<2>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, ext, st);
-    case 4: return launch_cost<4>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, ext, st);
-    case 8: return launch_cost<8>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, ext, st);
-    case 16: return launch_cost<16>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, ext, st);
-    case 32: return launch_cost<32>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, ext, st);
-    case 64: return launch_cost<64>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, ext, st);
-    case 128: return launch_cost<128>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, ext, st);
-    case 256: return launch_cost<256>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, ext, st);
+    case 2: return launch_cost<2>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, full_h, ext, st);
+    case 4: return launch_cost<4>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, full_h, ext, st);
+    case 8: return launch_cost<8>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, full_h, ext, st);
+    case 16: return launch_cost<16>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, full_h, ext, st);
+    case 32: return launch_cost<32>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, full_h, ext, st);
+    case 64: return launch_cost<64>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, full_h, ext, st);
+    case 128: return launch_cost<128>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, full_h, ext, st);
+    case 256: return launch_cost<256>(ssd, a, wn, y, x, rk, ody, odx, nblk, n_per_frame, nbx, h, w, full_h, ext, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

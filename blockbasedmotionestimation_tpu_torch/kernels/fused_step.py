@@ -42,7 +42,9 @@ validated once per round.  For CPU tensors the wrappers run the
 tensors they launch ``csrc/fused_step.cu`` (one kernel template for the
 four), one colour step a launch, or one cooperative launch a round with a
 grid barrier between its steps (up to ``MAX_SWEEPS`` sweeps a launch; more
-take several launches).  Nothing falls back from one to the other.
+take several launches).  Nothing falls back from one to the other.  The
+single steps take row strips (``strips``) as ``reg_step.color_step`` does,
+and each round wrapper names its single step as ``.step``.
 """
 
 from __future__ import annotations
@@ -61,7 +63,12 @@ from blockbasedmotionestimation_tpu_torch.kernels.reg_step import (  # noqa: F40
     _spans,
     sweep_lams,
 )
-from blockbasedmotionestimation_tpu_torch.ops.regularize import step_candidates, step_commit
+from blockbasedmotionestimation_tpu_torch.ops.regularize import (
+    Strips,
+    on_strips,
+    step_candidates,
+    step_commit,
+)
 
 
 def recompute_costs(
@@ -105,11 +112,12 @@ def recompute_costs(
 
 
 def _hybrid_plain(
-    grid, vol, pm, *, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, cj, lam_mult, cost
+    grid, vol, pm, *, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, cj, lam_mult, cost,
+    strips=None,
 ) -> None:
     """E (win None: vol is the dense main volume) or F (vol is the band)."""
     f = grid.shape[1] // pm.shape[1]
-    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj)
+    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj, strips=strips)
     ddy, ddx, in_window = rs.window_deltas(cands, pm, f, ci, cj, r)
     rdy, rdx, in_rival = rs.window_deltas(cands, rpm, f, ci, cj, r2)
     costs = recompute_costs(im1, rwin, rdy, rdx, r2, cur, ci, cj, cost)
@@ -125,34 +133,38 @@ def _hybrid_plain(
 
 
 def color_step_hybrid_plain(
-    grid, cv, pm, *, im1, rwin, rpm, cur, h, w, r, r2, ci, cj, lam_mult, cost
+    grid, cv, pm, *, im1, rwin, rpm, cur, h, w, r, r2, ci, cj, lam_mult, cost, strips=None
 ) -> None:
     """Kernel E with torch ops: update colour (ci, cj) of ``grid`` in place."""
     _hybrid_plain(grid, cv, pm, im1=im1, win=None, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w,
-                  r=r, store_r=r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+                  r=r, store_r=r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost,
+                  strips=strips)
 
 
 def color_step_hybrid_tail_plain(
     grid, band, pm, *, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, cj, lam_mult,
-    cost,
+    cost, strips=None,
 ) -> None:
     """Kernel F with torch ops: update colour (ci, cj) of ``grid`` in place."""
     _hybrid_plain(grid, band, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w,
-                  r=r, store_r=store_r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+                  r=r, store_r=store_r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost,
+                  strips=strips)
 
 
 # bbme_color_step_hybrid(grid, cv, cv16, im1, rwin, pm, rpm, rank_table, batch,
-#                        nby, nbx, f, cur, h, w, r, r2, ssd, ci, cj, lam, stream)
+#                        nby, nbx, f, cur, h, w, r, r2, ssd, row0_b, ghost,
+#                        full_h, ci, cj, lam, stream)
 ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-    + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_int] * 10 + rs.STEP_END
 )
 # bbme_color_step_hybrid_tail(grid, band, band16, im1, win, rwin, pm, rpm,
 #                             rank_table, batch, nby, nbx, f, cur, h, w, r,
-#                             store_r, r2, ssd, ci, cj, lam, stream)
+#                             store_r, r2, ssd, row0_b, ghost, full_h, ci, cj,
+#                             lam, stream)
 TAIL_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_int] * 11 + rs.STEP_END
 )
 
 
@@ -229,12 +241,15 @@ def color_step_hybrid(
     cj: int,
     lam_mult: float,
     cost: str,
+    strips: Strips | None = None,
 ) -> None:
     """Kernel E: one colour step, in place; see the module docstring."""
     f = _checked(grid, cv, pm, im1, None, rwin, rpm, cur, h, w, r, r, r2, ci, cj, cost)
+    tile = rs.strip_args(strips, grid, cur, h)
     if grid.device.type == "cpu":
-        color_step_hybrid_plain(grid, cv, pm, im1=im1, rwin=rwin, rpm=rpm, cur=cur, h=h,
-                                w=w, r=r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+        on_strips(color_step_hybrid_plain, grid, cv, pm, im1=im1, rwin=rwin, rpm=rpm, cur=cur,
+                  h=h, w=w, r=r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost,
+                  strips=strips)
         return
     b, nby, nbx, _ = grid.shape
     with torch.cuda.device(grid.device):
@@ -243,7 +258,7 @@ def color_step_hybrid(
             grid.data_ptr(), cv.data_ptr(), int(cv.dtype == torch.uint16), im1.data_ptr(),
             rwin.data_ptr(), pm.data_ptr(), rpm.data_ptr(),
             rs._rank_table_on(grid.device).data_ptr(),
-            b, nby, nbx, f, cur, h, w, r, r2, int(cost == "ssd"), ci, cj,
+            b, nby, nbx, f, cur, h, w, r, r2, int(cost == "ssd"), *tile, ci, cj,
             float(lam_mult), stream,
         )
     _build.check(code, "color_step_hybrid")
@@ -269,14 +284,17 @@ def color_step_hybrid_tail(
     cj: int,
     lam_mult: float,
     cost: str,
+    strips: Strips | None = None,
 ) -> None:
     """Kernel F: one colour step on the stored band, in place; see the
     module docstring."""
     f = _checked(grid, band, pm, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, cj, cost)
+    tile = rs.strip_args(strips, grid, cur, h)
     if grid.device.type == "cpu":
-        color_step_hybrid_tail_plain(
-            grid, band, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w, r=r,
-            store_r=store_r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost,
+        on_strips(
+            color_step_hybrid_tail_plain, grid, band, pm, im1=im1, win=win, rwin=rwin, rpm=rpm,
+            cur=cur, h=h, w=w, r=r, store_r=store_r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult,
+            cost=cost, strips=strips,
         )
         return
     b, nby, nbx, _ = grid.shape
@@ -286,7 +304,7 @@ def color_step_hybrid_tail(
             grid.data_ptr(), band.data_ptr(), int(band.dtype == torch.uint16),
             im1.data_ptr(), win.data_ptr(), rwin.data_ptr(), pm.data_ptr(), rpm.data_ptr(),
             rs._rank_table_on(grid.device).data_ptr(),
-            b, nby, nbx, f, cur, h, w, r, store_r, r2, int(cost == "ssd"), ci, cj,
+            b, nby, nbx, f, cur, h, w, r, store_r, r2, int(cost == "ssd"), *tile, ci, cj,
             float(lam_mult), stream,
         )
     _build.check(code, "color_step_hybrid_tail")
@@ -409,9 +427,9 @@ color_round_hybrid_tail.launches = 0
 # ----------------------------------------- cv_fused colour steps (11, 12)
 
 def _fused_plain(grid, pm, *, im1, win, rwin, rpm, cur, h, w, r, r2, ci, cj, lam_mult,
-                 cost) -> None:
+                 cost, strips=None) -> None:
     f = grid.shape[1] // pm.shape[1]
-    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj)
+    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj, strips=strips)
     ddy, ddx, in_window = rs.window_deltas(cands, pm, f, ci, cj, r)
     costs = recompute_costs(im1, win, ddy, ddx, r, cur, ci, cj, cost)
     if rwin is not None:
@@ -423,24 +441,23 @@ def _fused_plain(grid, pm, *, im1, win, rwin, rpm, cur, h, w, r, r2, ci, cj, lam
 
 
 def color_step_fused_plain(grid, pm, *, im1, win, cur, h, w, r, ci, cj, lam_mult,
-                           cost) -> None:
+                           cost, strips=None) -> None:
     """Kernel 11 with torch ops: update colour (ci, cj) of ``grid`` in place."""
     _fused_plain(grid, pm, im1=im1, win=win, rwin=None, rpm=None, cur=cur, h=h, w=w, r=r,
-                 r2=0, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+                 r2=0, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost, strips=strips)
 
 
 def color_step_fused_rival_plain(grid, pm, *, im1, win, rwin, rpm, cur, h, w, r, r2, ci, cj,
-                                 lam_mult, cost) -> None:
+                                 lam_mult, cost, strips=None) -> None:
     """Kernel 12 with torch ops: update colour (ci, cj) of ``grid`` in place."""
     _fused_plain(grid, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w, r=r,
-                 r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+                 r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost, strips=strips)
 
 
 # bbme_color_step_fused(grid, im1, win, rwin, pm, rpm, rank_table, batch, nby,
-#                       nbx, f, cur, h, w, r, r2, ssd, ci, cj, lam, stream)
-FUSED_ARGTYPES = (
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
-)
+#                       nbx, f, cur, h, w, r, r2, ssd, row0_b, ghost, full_h,
+#                       ci, cj, lam, stream)
+FUSED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + rs.STEP_END
 
 
 @functools.lru_cache(maxsize=None)
@@ -449,13 +466,14 @@ def _fused_kernel():
 
 
 def _launch_fused(wrapper, grid, pm, im1, win, rwin, rpm, cur, h, w, r, r2, ci, cj, lam_mult,
-                  cost) -> None:
+                  cost, strips) -> None:
     """Check a fused step's inputs; run the plain version on the CPU, else
     launch the kernel and count the launch on ``wrapper``."""
     f = _checked(grid, None, pm, im1, win, rwin, rpm, cur, h, w, r, r, r2, ci, cj, cost)
+    tile = rs.strip_args(strips, grid, cur, h)
     if grid.device.type == "cpu":
-        _fused_plain(grid, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h, w=w, r=r,
-                     r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost)
+        on_strips(_fused_plain, grid, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h,
+                  w=w, r=r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost, strips=strips)
         return
     b, nby, nbx, _ = grid.shape
     with torch.cuda.device(grid.device):
@@ -465,8 +483,8 @@ def _launch_fused(wrapper, grid, pm, im1, win, rwin, rpm, cur, h, w, r, r2, ci, 
             rwin.data_ptr() if rwin is not None else None, pm.data_ptr(),
             rpm.data_ptr() if rwin is not None else None,
             rs._rank_table_on(grid.device).data_ptr(),
-            b, nby, nbx, f, cur, h, w, r, r2, int(cost == "ssd"), ci, cj, float(lam_mult),
-            stream,
+            b, nby, nbx, f, cur, h, w, r, r2, int(cost == "ssd"), *tile, ci, cj,
+            float(lam_mult), stream,
         )
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1
@@ -486,11 +504,12 @@ def color_step_fused(
     cj: int,
     lam_mult: float,
     cost: str,
+    strips: Strips | None = None,
 ) -> None:
     """Kernel 11: one colour step, in place, every candidate's cost
     recomputed against the main window ``win`` (no volume)."""
     _launch_fused(color_step_fused, grid, pm, im1, win, None, None, cur, h, w, r, 0, ci, cj,
-                  lam_mult, cost)
+                  lam_mult, cost, strips)
 
 
 def color_step_fused_rival(
@@ -510,11 +529,12 @@ def color_step_fused_rival(
     cj: int,
     lam_mult: float,
     cost: str,
+    strips: Strips | None = None,
 ) -> None:
     """Kernel 12: kernel 11 with rival windows: candidates outside the main
     window are recomputed against the rival window ``rwin``."""
     _launch_fused(color_step_fused_rival, grid, pm, im1, win, rwin, rpm, cur, h, w, r, r2, ci,
-                  cj, lam_mult, cost)
+                  cj, lam_mult, cost, strips)
 
 
 color_step_fused.launches = 0
@@ -593,6 +613,15 @@ def color_round_fused_rival(
 
 color_round_fused.launches = 0
 color_round_fused_rival.launches = 0
+# the single step of each round, for the rounds on row strips
+color_round_hybrid.step = color_step_hybrid
+color_round_hybrid_tail.step = color_step_hybrid_tail
+color_round_fused.step = color_step_fused
+color_round_fused_rival.step = color_step_fused_rival
+color_round_hybrid_plain.step = functools.partial(on_strips, color_step_hybrid_plain)
+color_round_hybrid_tail_plain.step = functools.partial(on_strips, color_step_hybrid_tail_plain)
+color_round_fused_plain.step = functools.partial(on_strips, color_step_fused_plain)
+color_round_fused_rival_plain.step = functools.partial(on_strips, color_step_fused_rival_plain)
 # what ops.windowed.rounds_loop calls once per round, not once per step
 for _fn in (color_round_hybrid, color_round_hybrid_tail, color_round_fused,
             color_round_fused_rival, color_round_hybrid_plain, color_round_hybrid_tail_plain,

@@ -36,6 +36,15 @@ Layouts (batch written out):
         slots: (B, nch, K, 2) its chunks' slot lists and smap: (B, nch,
         side^2) uint16 their ``ops.compact.slot_map`` (10).
 
+Row strips (the tiled engine): the single steps take ``strips``
+(``ops.regularize.Strips``: each entry's first row in its frame, the
+frame's height and the ghost rows the caller refreshed before the step);
+``ci`` is then the frame's colour row.  On the card that is the round
+kernel's span of one step with the strips' arguments; on the CPU the plain
+step under ``ops.regularize.on_strips``.  A tiled round is a loop of single
+steps (``ops.windowed.rounds_loop``), so each round wrapper names its
+single step as ``.step``.
+
 For CPU tensors the wrappers run ``color_step_plain`` (the XLA branch of the
 reference's ``_rounds_loop`` body, in torch; a round loops it) and
 ``color_step_compact_plain`` (the slot-compare formulation, which the map
@@ -57,6 +66,8 @@ from blockbasedmotionestimation_tpu_torch.ops import regularize as reg
 from blockbasedmotionestimation_tpu_torch.ops.compact import CHUNK
 from blockbasedmotionestimation_tpu_torch.ops.regularize import (
     COLORS,
+    Strips,
+    on_strips,
     step_candidates,
     step_commit,
 )
@@ -161,10 +172,12 @@ def color_step_plain(
     rcv: torch.Tensor | None = None,
     rpm: torch.Tensor | None = None,
     r2: int = 0,
+    strips: Strips | None = None,
 ) -> None:
-    """Update the cells of colour (ci, cj) of ``grid`` in place."""
+    """Update the cells of colour (ci, cj) of ``grid`` in place (ci: the
+    grid's own row parity; see ``on_strips``)."""
     f = grid.shape[1] // pm.shape[1]
-    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj)
+    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj, strips=strips)
     ddy, ddx, in_window = window_deltas(cands, pm, f, ci, cj, r)
     costs = select_costs(cv[:, :, ci::2, cj::2], ddy, ddx, r)
     if rcv is not None:
@@ -176,11 +189,16 @@ def color_step_plain(
     step_commit(grid, ci, cj, cands, costs, in_window, present, in_img, rank, lam_mult)
 
 
+# a single step's strips (row0_b, ghost, full_h) and its colour, multiplier
+# and stream
+STEP_END = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p]
 # bbme_color_step(grid, cv, cv16, rcv, rcv16, pm, rpm, rank_table, batch, nby,
-#                 nbx, f, cur, h, w, r, r2, ci, cj, lam, stream)
+#                 nbx, f, cur, h, w, r, r2, row0_b, ghost, full_h, ci, cj, lam,
+#                 stream)
 _STORED_HEAD = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-ARGTYPES = _STORED_HEAD + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
+ARGTYPES = _STORED_HEAD + [ctypes.c_int] * 9 + STEP_END
 # bbme_color_round_stored(grid, cv, cv16, rcv, rcv16, pm, rpm, rank_table,
 #                         batch, nby, nbx, f, cur, h, w, r, r2, lams, nsweeps,
 #                         stream)
@@ -209,6 +227,29 @@ def _check_grid(grid, cur, h, w, ci, cj):
         raise ValueError(f"colour must be (0|1, 0|1), got ({ci}, {cj})")
     if grid.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {grid.device}")
+
+
+def strip_args(strips: Strips | None, grid: torch.Tensor, cur: int, h: int) -> tuple:
+    """Validate a single step's strips; returns the C entry points'
+    (row0_b, ghost, full_h): (None, None, h) for whole frames."""
+    if strips is None:
+        return None, None, h
+    b, _, nbx, _ = grid.shape
+    row0_b, full_h, ghost = strips
+    if row0_b.dtype != torch.int32 or tuple(row0_b.shape) != (b,) or row0_b.device != grid.device:
+        raise ValueError(f"strips.row0_b must be ({b},) int32 on {grid.device}, got "
+                         f"{row0_b.dtype} {tuple(row0_b.shape)} on {row0_b.device}")
+    if ghost.dtype != torch.int32 or tuple(ghost.shape) != (b, 2, nbx, 2) \
+            or ghost.device != grid.device:
+        raise ValueError(f"strips.ghost must be ({b}, 2, {nbx}, 2) int32 on {grid.device}, got "
+                         f"{ghost.dtype} {tuple(ghost.shape)} on {ghost.device}")
+    if full_h % cur or full_h < h:
+        raise ValueError(f"strips.full_h={full_h} must be a multiple of cur={cur} and >= {h}")
+    if grid.device.type != "cuda":
+        return ()
+    if not (row0_b.is_contiguous() and ghost.is_contiguous()):
+        raise ValueError("the strips' tensors must be contiguous")
+    return row0_b.data_ptr(), ghost.data_ptr(), full_h
 
 
 def _check_volume(name, vol, b, nd, nby, nbx, dev):
@@ -286,16 +327,19 @@ def color_step(
     rcv: torch.Tensor | None = None,
     rpm: torch.Tensor | None = None,
     r2: int = 0,
+    strips: Strips | None = None,
 ) -> None:
-    """One colour step, in place; see the module docstring for layouts."""
+    """One colour step, in place; see the module docstring for layouts
+    and ``strips``."""
     args = _stored_args(grid, cv, pm, cur, h, w, r, rcv, rpm, r2, ci, cj)
+    tile = strip_args(strips, grid, cur, h)
     if grid.device.type == "cpu":
-        color_step_plain(grid, cv, pm, cur=cur, h=h, w=w, r=r, ci=ci, cj=cj,
-                         lam_mult=lam_mult, rcv=rcv, rpm=rpm, r2=r2)
+        on_strips(color_step_plain, grid, cv, pm, cur=cur, h=h, w=w, r=r, ci=ci, cj=cj,
+                  lam_mult=lam_mult, rcv=rcv, rpm=rpm, r2=r2, strips=strips)
         return
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _kernel()(*args, ci, cj, float(lam_mult), stream)
+        code = _kernel()(*args, *tile, ci, cj, float(lam_mult), stream)
     _build.check(code, "color_step")
     color_step.launches += 1
     color_step.row_launches[_row(rcv, grid, pm)] += 1
@@ -343,8 +387,11 @@ def color_round_stored(
 
 color_round_stored.launches = 0
 color_round_stored.row_launches = dict.fromkeys(("D", "D'", "8", "9"), 0)
-# what ops.windowed.rounds_loop calls once per round, not once per step
+# what ops.windowed.rounds_loop calls once per round, not once per step;
+# on row strips it calls the round's single step, step by step
 color_round_stored.per_round = color_round_stored_plain.per_round = True
+color_round_stored.step = color_step
+color_round_stored_plain.step = functools.partial(on_strips, color_step_plain)
 
 
 # ------------------------------------------------- compact colour step (10)

@@ -20,9 +20,20 @@ device, as the reference computes them in XLA:
     sweep, vectorised over the batch only).
 ``step_candidates`` and ``step_commit`` are shared with the windowed
 colour steps (``kernels.reg_step``, ``kernels.fused_step``).
+
+Row strips (``parallel.tiled``): a batch entry may be a strip of grid rows
+of its frame, described at each colour step by ``Strips`` (its first row in
+the frame, the frame's height, and the frame's rows just above and below
+it, which the tiled engine's ``cell_exchange`` refreshes before every
+step).  Border cases, presence and the in-frame test then use the frame's
+rows, and a colour row ci of the frame sits at the strip's local rows
+(ci + first row) % 2, ... (``on_strips``).  ``exact`` does not decompose
+into strips.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -117,8 +128,64 @@ def subdivide(grid: torch.Tensor) -> torch.Tensor:
     return grid.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
+class Strips(NamedTuple):
+    """A batch of row strips at one colour step: entry b holds the rows
+    row0_b[b] .. of its frame (in cells of the step's size), whose height
+    is full_h pixels, and ghost[b] the frame's rows just above and below
+    the strip (zeros past the frame's edge)."""
+
+    row0_b: torch.Tensor  # (B,) int32
+    full_h: int
+    ghost: torch.Tensor   # (B, 2, nbx, 2) int32
+
+
+def strips_at(grid: torch.Tensor, row0: torch.Tensor, cur: int, full_h: int,
+              cell_exchange) -> Strips:
+    """The ``Strips`` of ``grid`` (B, nby, nbx, 2) at one step: its first
+    and last rows sent to the neighbouring strips by ``cell_exchange``,
+    theirs received as the ghost rows; row0 (B,) the strips' first pixel
+    rows."""
+    north, south = cell_exchange(grid[:, 0], grid[:, -1])
+    return Strips(row0 // cur, full_h, torch.stack([north, south], dim=1).contiguous())
+
+
+def on_strips(step, grid: torch.Tensor, *args, ci: int, strips: Strips | None, **kw) -> None:
+    """Run the plain colour step ``step`` (in place on ``grid``, colour
+    row ``ci`` in the grid's own rows) for the frame's colour row ``ci``:
+    a strip whose first row is odd takes local colour row 1 - ci.  Entries
+    of one local colour run together; the others (and their batch-first
+    tensor arguments) are taken apart and written back."""
+    if strips is None:
+        step(grid, *args, ci=ci, **kw)
+        return
+    b = grid.shape[0]
+    lci = (ci + strips.row0_b) % 2
+    for p in (0, 1):
+        sel = lci == p
+        if bool(sel.all()):
+            step(grid, *args, ci=p, strips=strips, **kw)
+            return
+        if not bool(sel.any()):
+            continue
+        idx = sel.nonzero()[:, 0]
+
+        def take(t):
+            if not isinstance(t, torch.Tensor) or t.shape[:1] != (b,):
+                return t
+            if t.dtype == torch.uint16:  # CUDA indexing does not take uint16
+                return t.view(torch.int16)[idx].view(torch.uint16)
+            return t[idx]
+
+        sub = grid[idx]
+        step(sub, *map(take, args), ci=p,
+             strips=Strips(strips.row0_b[idx], strips.full_h, strips.ghost[idx]),
+             **{k: take(v) for k, v in kw.items()})
+        grid[idx] = sub
+
+
 def step_candidates(
-    grid: torch.Tensor, cur: int, h: int, w: int, ci: int, cj: int, stride: int = 2
+    grid: torch.Tensor, cur: int, h: int, w: int, ci: int, cj: int, stride: int = 2,
+    strips: Strips | None = None,
 ):
     """The 9 candidates of the cells of colour (ci, cj) and their masks.
 
@@ -126,13 +193,23 @@ def step_candidates(
     the grid), rank (m, n, 9) tie-break ranks, present (m, n, 9) and in_img
     (B, m, n, 9): the candidate's target block lies in the h x w frame.
     The cells are rows ci::stride, cols cj::stride (stride 1: every cell).
+    With ``strips`` the grid is a batch of row strips: rows -1 and nby read
+    the ghost rows, the frame's rows and height (``strips.full_h``) decide,
+    and rank and present gain the batch dim.
     """
     _, nby, nbx, _ = grid.shape
     dev = grid.device
     m, n = (nby - ci + stride - 1) // stride, (nbx - cj + stride - 1) // stride
-    nby_t, nbx_t = h // cur, w // cur
     # zero ring = the reference's padded grid: off-grid slots read 0
     gp = F.pad(grid, (0, 0, 1, 1, 1, 1))
+    gi = ci + stride * torch.arange(m, device=dev)[:, None]
+    gj = cj + stride * torch.arange(n, device=dev)[None, :]
+    if strips is not None:
+        gp[:, 0, 1:-1] = strips.ghost[:, 0]
+        gp[:, -1, 1:-1] = strips.ghost[:, 1]
+        gi = strips.row0_b.long()[:, None, None] + gi  # (B, m, 1) the frame's rows
+        h = strips.full_h
+    nby_t, nbx_t = h // cur, w // cur
     cands = torch.stack(
         [
             gp[:, 1 + ci + dy : 2 + ci + dy + stride * (m - 1) : stride,
@@ -142,8 +219,6 @@ def step_candidates(
         dim=3,
     )  # (B, m, n, 9, 2) int32
 
-    gi = ci + stride * torch.arange(m, device=dev)[:, None]
-    gj = cj + stride * torch.arange(n, device=dev)[None, :]
     case = border_case(gi, gj, nby_t, nbx_t)
     rank = torch.as_tensor(_RANK_TABLE, device=dev)[case]  # (m, n, 9)
     slot_dy = torch.tensor([s[0] for s in SLOTS], device=dev)
@@ -185,19 +260,22 @@ def step_commit(
 
 def target_costs(
     blocks: torch.Tensor,  # (B, m, n, cur, cur) frame-1 blocks of the cells
-    im2: torch.Tensor,     # (B, h, w) u8
+    im2: torch.Tensor,     # (B, hb, w) u8 frame 2 (a strip's buffer: rows from im2_row0)
     cands: torch.Tensor,   # (B, m, n, 9, 2) int32 candidate MVs
-    gi: torch.Tensor,      # (m, 1) block rows of the cells
+    gi: torch.Tensor,      # (m, 1) or (B, m, 1) block rows of the cells in the frame
     gj: torch.Tensor,      # (1, n) block cols
     cur: int,
     cost: str,
+    im2_row0=0,            # int or (B,): the frame's row of im2's row 0
 ) -> torch.Tensor:
     """(B, m, n, 9) int32 cost of each cell's block against the frame-2
-    block at origin + candidate, its position clipped into the frame (an
+    block at origin + candidate, its position clipped into the buffer (an
     out-of-frame candidate's cost is masked by the caller)."""
     b, h, w = im2.shape
     ar = torch.arange(cur, device=im2.device)
-    by = ((gi * cur)[..., None] + cands[..., 1]).clamp(0, h - cur)
+    if isinstance(im2_row0, torch.Tensor):
+        im2_row0 = im2_row0.reshape(b, 1, 1, 1)
+    by = ((gi * cur)[..., None] + cands[..., 1] - im2_row0).clamp(0, h - cur)
     bx = ((gj * cur)[..., None] + cands[..., 0]).clamp(0, w - cur)
     bidx = torch.arange(b, device=im2.device).reshape(b, 1, 1, 1, 1, 1)
     flat = (bidx * h + (by[..., None, None] + ar[:, None])) * w + (bx[..., None, None] + ar)
@@ -206,28 +284,37 @@ def target_costs(
 
 
 def update_color(
+    grid: torch.Tensor,    # (B, nby, nbx, 2) int32, updated in place
     blocks: torch.Tensor,  # (B, nby, nbx, cur, cur) frame-1 blocks
     im2: torch.Tensor,
-    grid: torch.Tensor,    # (B, nby, nbx, 2) int32, updated in place
+    *,
     cur: int,
     lam_mult: float,
     ci: int,
     cj: int,
     stride: int,
     cost: str,
+    strips: Strips | None = None,
+    im2_row0=0,
 ) -> None:
     """One step: the cells of rows ci::stride, cols cj::stride take their
     winning candidate (stride 2: a fourcolor colour; stride 1: a Jacobi
-    pass).  Candidates are read before any cell is written."""
-    _, h, w = im2.shape
-    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj, stride)
+    pass).  Candidates are read before any cell is written.  With
+    ``strips``, im2 is each strip's frame-2 buffer, whose row 0 is the
+    frame's row ``im2_row0``."""
+    w = im2.shape[2]
+    h = grid.shape[1] * cur
+    cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj, stride, strips)
     m, n = cands.shape[1:3]
     if m == 0 or n == 0:
         return
     dev = grid.device
     gi = ci + stride * torch.arange(m, device=dev)[:, None]
     gj = cj + stride * torch.arange(n, device=dev)[None, :]
-    costs = target_costs(blocks[:, ci::stride, cj::stride], im2, cands, gi, gj, cur, cost)
+    if strips is not None:
+        gi = strips.row0_b.long()[:, None, None] + gi
+    costs = target_costs(blocks[:, ci::stride, cj::stride], im2, cands, gi, gj, cur, cost,
+                         im2_row0)
     # every candidate inside the frame is evaluable
     step_commit(grid, ci, cj, cands, costs, in_img, present, in_img, rank, lam_mult, stride)
 
@@ -299,10 +386,12 @@ def regularize_sweep(
     blocks = extract_blocks(im1, bs).reshape(b, nby, nbx, bs, bs)
     grid = grid.clone()
     if mode == "jacobi":
-        update_color(blocks, im2, grid, bs, lam_mult, 0, 0, 1, "sad")
+        update_color(grid, blocks, im2, cur=bs, lam_mult=lam_mult, ci=0, cj=0, stride=1,
+                     cost="sad")
     elif mode == "fourcolor":
         for ci, cj in COLORS:
-            update_color(blocks, im2, grid, bs, lam_mult, ci, cj, 2, "sad")
+            update_color(grid, blocks, im2, cur=bs, lam_mult=lam_mult, ci=ci, cj=cj, stride=2,
+                         cost="sad")
     else:
         raise ValueError(f"unknown regularizer mode: {mode}")
     return grid
@@ -318,6 +407,10 @@ def run_schedule(
     mode: str,
     *,
     cost: str = "sad",
+    full_h: int | None = None,
+    row0=0,
+    im2_row0=0,
+    cell_exchange=None,
 ) -> torch.Tensor:
     """The level's regularization (``motion_framework.cpp:141-152``): while
     the block size is > 1, ``sweeps_per_round`` sweeps with lambda
@@ -328,8 +421,19 @@ def run_schedule(
     exact takes f32(lam) * f32(sweep + 1) and SAD, as the reference does.
     Odd grids need no padding here: a colour's cells are sliced from the
     real grid, and the global bounds mask candidates beyond it.
+
+    Row strips (the tiled engine): ``cell_exchange(top, bottom)`` returns
+    the neighbouring strips' (north, south) edge rows, called before every
+    step (the reference's ``make_gp``: the grid with its neighbours' rows);
+    ``full_h`` is the frame's height, ``row0`` (B,) each strip's first
+    pixel row in it and ``im2_row0`` (B,) the first row of its frame-2
+    buffer ``im2``.  ``exact`` refuses strips.
     """
+    tiled = cell_exchange is not None
     if mode == "exact":
+        if tiled:
+            raise ValueError("regularizer='exact' is a whole-frame raster sweep and cannot be "
+                             "row-tiled")
         cur, lam = bs, lam0
         while cur > 1:
             for sweep in range(sweeps_per_round):
@@ -347,12 +451,21 @@ def run_schedule(
     b = grid.shape[0]
     grid = grid.clone()
     cur, lam = bs, lam0
+    if tiled:
+        row0 = torch.as_tensor(row0, dtype=torch.int32, device=grid.device).expand(b)
     while cur > 1:
         nby, nbx = grid.shape[1:3]
         blocks = extract_blocks(im1, cur).reshape(b, nby, nbx, cur, cur)
         for sweep in range(sweeps_per_round):
             for ci, cj in colors:
-                update_color(blocks, im2, grid, cur, lam * (sweep + 1), ci, cj, stride, cost)
+                strips = strips_at(grid, row0, cur, full_h, cell_exchange) if tiled else None
+                step = dict(cur=cur, lam_mult=lam * (sweep + 1), cj=cj, stride=stride, cost=cost)
+                if stride == 1:
+                    update_color(grid, blocks, im2, ci=ci, strips=strips, im2_row0=im2_row0,
+                                 **step)
+                else:
+                    on_strips(update_color, grid, blocks, im2, ci=ci, strips=strips,
+                              im2_row0=im2_row0, **step)
         grid = subdivide(grid)
         cur >>= 1
         lam *= 2.0

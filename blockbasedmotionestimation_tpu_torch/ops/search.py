@@ -11,6 +11,13 @@ argmin is ``kernels.sad_search`` (kernel 7), or the exhaustive raster scan
 (plain torch, as the reference runs it in XLA).  ``cost="zsad"`` runs the
 spiral argmin's plain version on every device, with f32 costs, as the
 reference runs zsad in XLA only.
+
+On a row strip (the tiled engine) ``im1`` is the strip, ``im2`` its frame-2
+buffer (the strip and its halo rows), ``full_h`` the frame's height,
+``row0`` (int or (B,) per entry) the strip's first row in the frame and
+``im2_row0`` the buffer's: block origins, centres and the in-frame tests
+are the frame's, windows are cut from the buffer at centre - im2_row0
+(reference ``block_search_level(full_h=, row0=, im2_row0=)``).
 """
 
 from __future__ import annotations
@@ -50,11 +57,21 @@ def gather_windows(
     return wins, by, bx
 
 
-def block_origins(npy: int, npx: int, bs: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
-    """(1, npy, 1) and (1, 1, npx) int32 block origin rows and cols."""
+def block_origins(npy: int, npx: int, bs: int, dev, row0=0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(1, npy, 1) and (1, 1, npx) int32 block origin rows and cols in the
+    frame; rows (B, npy, 1) where ``row0`` is a (B,) tensor of strips'
+    first rows."""
     oy = (torch.arange(npy, device=dev, dtype=torch.int32) * bs)[None, :, None]
     ox = (torch.arange(npx, device=dev, dtype=torch.int32) * bs)[None, None, :]
-    return oy, ox
+    return shift_rows(oy, row0), ox
+
+
+def shift_rows(t: torch.Tensor, rows) -> torch.Tensor:
+    """t (B, npy, npx) + rows: an int, or a (B,) tensor of strips'
+    offsets; t itself for 0 (whole frames launch nothing more)."""
+    if isinstance(rows, torch.Tensor):
+        return t + rows.reshape(-1, 1, 1).to(torch.int32)
+    return t + rows if rows else t
 
 
 def block_search_level(
@@ -66,34 +83,41 @@ def block_search_level(
     *,
     order: str = "spiral",
     cost: str = "sad",
+    full_h: int | None = None,
+    row0=0,
+    im2_row0=0,
 ) -> torch.Tensor:
     """One level's search: (B, nby, nbx, 2) int32 winning MVs (u, v).
 
     Spiral: the centre is origin + the prediction truncated toward zero; a
     centre whose block leaves the frame gives a zero MV; otherwise the
     minimum cost over the centre's [-S, S]^2 offsets, ties to the earliest
-    spiral visit, out-of-frame offsets skipped.
+    spiral visit, out-of-frame offsets skipped.  Row strips: see the module
+    docstring.
     """
     if order == "raster":
-        return _raster_search_level(im1, im2, pred, bs, ss, cost)
+        return _raster_search_level(im1, im2, pred, bs, ss, cost, full_h, row0, im2_row0)
     if order != "spiral":
         raise ValueError(f"unknown search order: {order}")
-    b, h, w = im1.shape
-    nby, nbx = h // bs, w // bs
+    b, ht, w = im1.shape
+    h = ht if full_h is None else full_h
+    nby, nbx = ht // bs, w // bs
     ext = spiral_extent(ss - bs)
-    oy, ox = block_origins(nby, nbx, bs, im1.device)
+    oy, ox = block_origins(nby, nbx, bs, im1.device, row0)
     cy = oy + pred[..., 1].to(torch.int32)
     cx = ox + pred[..., 0].to(torch.int32)
     center_ok = (cy >= 0) & (cy <= h - bs) & (cx >= 0) & (cx <= w - bs)
     cy = torch.where(center_ok, cy, oy)
     cx = torch.where(center_ok, cx, ox)
-    # these centres lie in [0, h - bs] x [0, w - bs]: the gather's clip
-    # leaves them be, so each window is centred on its (cy, cx)
-    windows = gather_windows(im2, cy, cx, bs, ext)[0]
+    # these centres lie in the frame, and inside the buffer while the halo
+    # covers the reach: the gather's clip leaves them be, so each window is
+    # centred on its (cy, cx)
+    windows = gather_windows(im2, shift_rows(cy, -im2_row0), cx, bs, ext)[0]
     # zsad has no kernel (nor in the reference, which runs it in XLA): its
     # argmin is the plain version on every device
     argmin = sad_spiral_argmin_plain if cost == "zsad" else _sad_argmin
-    best_dy, best_dx = argmin(im1, windows, cy.reshape(b, -1), cx.reshape(b, -1), bs, ss, cost)
+    best_dy, best_dx = argmin(im1, windows, cy.reshape(b, -1).contiguous(),
+                              cx.reshape(b, -1).contiguous(), bs, ss, cost, h)
     u = cx + best_dx.reshape(b, nby, nbx) - ext - ox
     v = cy + best_dy.reshape(b, nby, nbx) - ext - oy
     return torch.where(center_ok[..., None], torch.stack([u, v], dim=-1), 0).to(torch.int32)
@@ -106,6 +130,9 @@ def _raster_search_level(
     bs: int,
     ss: int,
     cost: str,
+    full_h: int | None = None,
+    row0=0,
+    im2_row0=0,
 ) -> torch.Tensor:
     """The reference's exhaustive raster search (``motion_framework.cpp:246-294``).
 
@@ -116,20 +143,22 @@ def _raster_search_level(
     zero-MV early-out: a window clipped away entirely keeps the predicted
     position.  Plain torch on every device (the reference runs it in XLA).
     """
-    b, h, w = im1.shape
-    nby, nbx = h // bs, w // bs
+    b, ht, w = im1.shape
+    h = ht if full_h is None else full_h
+    nby, nbx = ht // bs, w // bs
     sp = (ss - bs) >> 1
-    oy, ox = block_origins(nby, nbx, bs, im1.device)
+    oy, ox = block_origins(nby, nbx, bs, im1.device, row0)
     cy = (oy + pred[..., 1].to(torch.int32)).reshape(b, -1)  # unclamped centres
     cx = (ox + pred[..., 0].to(torch.int32)).reshape(b, -1)
     blocks = extract_blocks(im1, bs).to(torch.int32)
     # the reference clips the column twice (the tiled form's local buffer)
     wins, by, bx = gather_windows(
-        im2, cy.reshape(b, nby, nbx), cx.clamp(0, w - bs).reshape(b, nby, nbx), bs, sp
+        im2, shift_rows(cy.reshape(b, nby, nbx), -im2_row0),
+        cx.clamp(0, w - bs).reshape(b, nby, nbx), bs, sp
     )
     wins = wins.to(torch.int32)
-    cyc, cxc = by.reshape(b, -1), bx.reshape(b, -1)
-    oy1 = oy.expand(1, nby, nbx).reshape(1, -1)
+    cyc, cxc = shift_rows(by, im2_row0).reshape(b, -1), bx.reshape(b, -1)
+    oy1 = oy.expand(oy.shape[0], nby, nbx).reshape(oy.shape[0], -1)
     ox1 = ox.expand(1, nby, nbx).reshape(1, -1)
     lo_y, hi_y = cy.sub(sp).clamp(min=0), cy.add(sp).clamp(max=h - bs)
     lo_x, hi_x = cx.sub(sp).clamp(min=0), cx.add(sp).clamp(max=w - bs)

@@ -49,6 +49,16 @@ Every round is one call of a round wrapper (``reg_step.color_round_stored``
 for D, D', 8 and 9, ``reg_step.color_round_compact`` for 10,
 ``kernels.fused_step.color_round_*`` for E, F, 11 and 12).
 All forms give the same bits (compact: while it excludes nothing).
+
+Row strips (``parallel.tiled``; reference ``windowed_level`` /
+``windowed_schedule`` with ``full_h``, ``row0``, ``im2_row0``,
+``rival_extend`` and ``cell_exchange``): ``im1`` is a batch of strips,
+``im2`` their frame-2 buffers.  Window centres, origins and in-frame tests
+are the frame's; the rival pick reads the neighbouring strips' winners
+through ``rival_extend``; ``cell_exchange`` refreshes each strip's ghost
+rows before every colour step, so a round runs as single steps
+(``rounds_loop``).  ``compact`` is ignored on strips (the reference's tiled
+levels pass none); the hybrid form, the band and ``fuse`` run there.
 """
 
 from __future__ import annotations
@@ -75,8 +85,8 @@ from blockbasedmotionestimation_tpu_torch.kernels.reg_step import (
     color_round_stored_plain,
 )
 from blockbasedmotionestimation_tpu_torch.ops.compact import chunk_delta_slots, slot_map
-from blockbasedmotionestimation_tpu_torch.ops.regularize import subdivide
-from blockbasedmotionestimation_tpu_torch.ops.search import block_origins, gather_windows
+from blockbasedmotionestimation_tpu_torch.ops.regularize import COLORS, strips_at, subdivide
+from blockbasedmotionestimation_tpu_torch.ops.search import block_origins, gather_windows, shift_rows
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent, spiral_offsets
 
 _I32_MAX = int(np.iinfo(np.int32).max)
@@ -87,18 +97,25 @@ def _edge_index(n: int, device) -> torch.Tensor:
     return torch.arange(-1, n + 1, device=device).clamp(0, n - 1)
 
 
-def pick_rival(vals: torch.Tensor, base: torch.Tensor, r: int) -> torch.Tensor:
+def pick_rival(vals: torch.Tensor, base: torch.Tensor, r: int, extend=None) -> torch.Tensor:
     """Each parent's rival window centre (reference ``_pick_rival``).
 
     vals: (B, npy, npx, 2) int32 search winners; base: the same shape, the
     main window centres.  Picks the neighbour winner covering the most
     neighbours the main window excludes (excluded: Linf(val_k - base) > r;
     covered: Linf(val_k - val_j) <= r); ties go to the first neighbour in
-    raster order; parents with no excluded neighbour keep base.
+    raster order; parents with no excluded neighbour keep base.  The
+    neighbours of the edge parents replicate the edge; on row strips
+    ``extend(vals)`` gives vals with a ring of one (B, npy + 2, npx + 2, 2):
+    the neighbouring strips' rows, the edge replicated at the frame's edges
+    (reference ``row_extend``).
     """
     _, npy, npx, _ = vals.shape
     offs = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1) if (dy, dx) != (0, 0)]
-    vp = vals[:, _edge_index(npy, vals.device)][:, :, _edge_index(npx, vals.device)]
+    if extend is None:
+        vp = vals[:, _edge_index(npy, vals.device)][:, :, _edge_index(npx, vals.device)]
+    else:
+        vp = extend(vals)
     neigh = torch.stack(
         [vp[:, 1 + dy : 1 + dy + npy, 1 + dx : 1 + dx + npx] for dy, dx in offs]
     )  # (8, B, npy, npx, 2)
@@ -150,7 +167,7 @@ def hybrid_form(bs: int, rival: bool) -> bool:
 
 
 def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
-                sweeps_per_round: int, round_of) -> torch.Tensor:
+                sweeps_per_round: int, round_of, strips=None) -> torch.Tensor:
     """The subdivision rounds, cur = bs, bs/2, ..., 2.
 
     grid: (B, npy, npx, 2) int32 search winners; returns the stride-1
@@ -162,6 +179,12 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
     and ``sweeps`` and runs sweep s at lam * (s + 1), colours (0,0),
     (0,1), (1,0), (1,1).  lambda is lam0 in the first round and doubles
     every round.
+
+    On row strips, ``strips`` = (row0 (B,) int32, full_h, cell_exchange):
+    each round runs its wrapper's single step (``.step``) colour by
+    colour, at the same multipliers (Python's double lam * (s + 1), rounded
+    to f32 on its way to the kernel), each step after ``cell_exchange``
+    refreshed the ghost rows (``ops.regularize.strips_at``).
     """
     cur, lam = bs, lam0
     grid = grid.contiguous()
@@ -169,7 +192,15 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
         step, args, kw = round_of(cur)
         if not getattr(step, "per_round", False):
             raise TypeError(f"{step!r} is not a round wrapper (per_round)")
-        step(grid, *args, cur=cur, h=h, w=w, lam=lam, sweeps=sweeps_per_round, **kw)
+        if strips is None:
+            step(grid, *args, cur=cur, h=h, w=w, lam=lam, sweeps=sweeps_per_round, **kw)
+        else:
+            row0, full_h, cell_exchange = strips
+            for sweep in range(sweeps_per_round):
+                for ci, cj in COLORS:
+                    step.step(grid, *args, cur=cur, h=h, w=w, ci=ci, cj=cj,
+                              lam_mult=lam * (sweep + 1),
+                              strips=strips_at(grid, row0, cur, full_h, cell_exchange), **kw)
         del args, kw  # free the round's volumes before the next round
         grid = subdivide(grid).contiguous()
         cur >>= 1
@@ -205,17 +236,24 @@ def windowed_level(
     fuse: int | None = None,
     compact: int | None = None,
     compact_ring: int = 3,
+    full_h: int | None = None,
+    row0=0,
+    im2_row0=0,
+    rival_extend=None,
+    cell_exchange=None,
 ) -> torch.Tensor:
     """Fused block search + windowed regularization; (B, h, w, 2) int32 grid.
 
     ``fuse`` / ``compact`` / ``compact_ring`` are ``cv_fused`` /
     ``cv_compact`` / ``cv_compact_ring``; see the module docstring for the
-    form each selects.
+    form each selects, and for the strips (``cell_exchange`` given).
     """
-    _, h, w = im1.shape
+    b, ht, w = im1.shape
+    h = ht if full_h is None else full_h
     shift = ss - bs
     ext = spiral_offsets(shift)[2]
-    oy, ox = block_origins(*pred.shape[1:3], bs, im1.device)
+    oy, ox = block_origins(*pred.shape[1:3], bs, im1.device, row0)
+    tiled = cell_exchange is not None
 
     # the spiral search's centre: origin + truncated prediction, with the
     # zero-MV early-out for centres outside the image
@@ -224,15 +262,15 @@ def windowed_level(
     center_ok = (cy >= 0) & (cy <= h - bs) & (cx >= 0) & (cx <= w - bs)
     cy_safe = torch.where(center_ok, cy, oy)
     cx_safe = torch.where(center_ok, cx, ox)
-    windows, by, bx = gather_windows(im2, cy_safe, cx_safe, bs, ext)
-    base_mv = torch.stack([bx - ox, by - oy], dim=-1).contiguous()
+    windows, by, bx = gather_windows(im2, shift_rows(cy_safe, -im2_row0), cx_safe, bs, ext)
+    base_mv = torch.stack([bx - ox, shift_rows(by, im2_row0) - oy], dim=-1).contiguous()
 
     # zsad has no kernel, nor in the reference, which runs it in XLA only:
     # the dense-rival form on the plain versions, whatever the capacity
     # options and the band say
     plain = cost == "zsad"
     volumes = pooled_cvs_plain if plain else pooled_cvs
-    use_compact = not plain and compact is not None and not rival and bs >= 8
+    use_compact = not plain and not tiled and compact is not None and not rival and bs >= 8
     fuse_eff = (min(fuse, bs // 2) if not plain and fuse is not None and not use_compact
                 and bs % 8 == 0 else 0)
     hybrid = not plain and not use_compact and not fuse_eff and hybrid_form(bs, rival)
@@ -249,6 +287,8 @@ def windowed_level(
         if store_r is None:
             windows = None  # only the tables, the fused steps and F read them
     best_dy, best_dx = spiral_argmin(cvs[bs], cy_safe, cx_safe, shift, bs, h, w)
+    strips = (torch.as_tensor(row0, dtype=torch.int32, device=im1.device).expand(b), h,
+              cell_exchange) if tiled else None
     u = torch.where(center_ok, cx_safe + best_dx - ox, 0)
     v = torch.where(center_ok, cy_safe + best_dy - oy, 0)
     grid0 = torch.stack([u, v], dim=-1).to(torch.int32)
@@ -266,7 +306,7 @@ def windowed_level(
             return (color_round_compact, (tables.pop(cur), base_mv, slots),
                     dict(r=ext, smap=smap))
 
-        return rounds_loop(grid0, bs, h, w, lam0, sweeps_per_round, round_of)
+        return rounds_loop(grid0, bs, ht, w, lam0, sweeps_per_round, round_of)
 
     rcvs = rbase = rwindows = None
     r2 = ext if rival_radius is None else min(rival_radius, ext)
@@ -274,11 +314,11 @@ def windowed_level(
         # rival centres from the search winners: at a discontinuity the
         # winner snaps to the local motion, so the most-covering neighbour
         # winner is the foreign motion mode
-        rmv = pick_rival(grid0, base_mv, ext)
+        rmv = pick_rival(grid0, base_mv, ext, rival_extend)
         rwindows, rvy, rvx = gather_windows(
-            im2, oy + rmv[..., 1], ox + rmv[..., 0], bs, r2
+            im2, shift_rows(oy + rmv[..., 1], -im2_row0), ox + rmv[..., 0], bs, r2
         )
-        rbase = torch.stack([rvx - ox, rvy - oy], dim=-1).contiguous()
+        rbase = torch.stack([rvx - ox, shift_rows(rvy, im2_row0) - oy], dim=-1).contiguous()
         if fuse_eff or hybrid:
             rcvs = deep_pooled_cvs(im1, rwindows, bs, r2, cost, fuse_eff or fuse_max)
         else:
@@ -296,9 +336,9 @@ def windowed_level(
                 return stored(cur)
             return (color_round_fused_rival if rival else color_round_fused), (base_mv,), fkw
 
-        return rounds_loop(grid0, bs, h, w, lam0, sweeps_per_round, round_of)
+        return rounds_loop(grid0, bs, ht, w, lam0, sweeps_per_round, round_of, strips)
     if not hybrid:
-        return rounds_loop(grid0, bs, h, w, lam0, sweeps_per_round, stored)
+        return rounds_loop(grid0, bs, ht, w, lam0, sweeps_per_round, stored, strips)
     hkw = dict(im1=im1, rwin=rwindows, rpm=rbase, r=ext, r2=r2, cost=cost)
 
     def round_of(cur):
@@ -309,7 +349,7 @@ def windowed_level(
                     dict(hkw, win=windows, store_r=store_r))
         return color_round_hybrid, (cvs.pop(cur), base_mv), hkw
 
-    return rounds_loop(grid0, bs, h, w, lam0, sweeps_per_round, round_of)
+    return rounds_loop(grid0, bs, ht, w, lam0, sweeps_per_round, round_of, strips)
 
 
 def windowed_schedule(
@@ -325,9 +365,15 @@ def windowed_schedule(
     reg_radius: int | None = None,
     rival: bool = False,
     rival_radius: int | None = None,
+    full_h: int | None = None,
+    row0=0,
+    im2_row0=0,
+    rival_extend=None,
+    cell_exchange=None,
 ) -> torch.Tensor:
     """The windowed rounds around the search winners (reference
-    ``windowed_schedule``, untiled); (B, h, w, 2) int32 grid.
+    ``windowed_schedule``); (B, h, w, 2) int32 grid.  Row strips: see the
+    module docstring.
 
     One window per parent centred on origin + its search winner (kernel A),
     its volumes at radius r = min(reg_radius, S) (kernel B), and with rival
@@ -340,15 +386,17 @@ def windowed_schedule(
     where a raster search kept an out-of-frame prediction); the rival's
     deltas rebase on its clipped centre.
     """
-    _, h, w = im1.shape
+    b, ht, w = im1.shape
+    h = ht if full_h is None else full_h
     ext = spiral_extent(ss - bs)
     r = ext if reg_radius is None else min(reg_radius, ext)
-    oy, ox = block_origins(*grid0.shape[1:3], bs, im1.device)
+    oy, ox = block_origins(*grid0.shape[1:3], bs, im1.device, row0)
     parent_mv = grid0.contiguous()
     # the reference gathers (bs + 2S)^2 windows and reads their centre
     # (bs + 2r)^2 crop; the gather at radius r from the same clipped corner
     # yields that crop directly
-    windows, _, _ = gather_windows(im2, oy + parent_mv[..., 1], ox + parent_mv[..., 0], bs, r)
+    windows, _, _ = gather_windows(im2, shift_rows(oy + parent_mv[..., 1], -im2_row0),
+                                   ox + parent_mv[..., 0], bs, r)
     # zsad: the plain volumes and rounds (no kernel computes it)
     plain = cost == "zsad"
     volumes = pooled_cvs_plain if plain else pooled_cvs
@@ -358,12 +406,15 @@ def windowed_schedule(
     rcvs = rbase = None
     r2 = r if rival_radius is None else min(rival_radius, r)
     if rival:
-        rmv = pick_rival(parent_mv, parent_mv, r)
-        rwindows, rvy, rvx = gather_windows(im2, oy + rmv[..., 1], ox + rmv[..., 0], bs, r2)
-        rbase = torch.stack([rvx - ox, rvy - oy], dim=-1).contiguous()
+        rmv = pick_rival(parent_mv, parent_mv, r, rival_extend)
+        rwindows, rvy, rvx = gather_windows(im2, shift_rows(oy + rmv[..., 1], -im2_row0),
+                                            ox + rmv[..., 0], bs, r2)
+        rbase = torch.stack([rvx - ox, shift_rows(rvy, im2_row0) - oy], dim=-1).contiguous()
         rcvs = volumes(im1, rwindows, bs, r2, cost)
         del rwindows
 
     step = color_round_stored_plain if plain else color_round_stored
-    return rounds_loop(parent_mv.clone(), bs, h, w, lam0, sweeps_per_round,
-                       _stored_round(cvs, parent_mv, r, rcvs, rbase, r2, step=step))
+    strips = (torch.as_tensor(row0, dtype=torch.int32, device=im1.device).expand(b), h,
+              cell_exchange) if cell_exchange is not None else None
+    return rounds_loop(parent_mv.clone(), bs, ht, w, lam0, sweeps_per_round,
+                       _stored_round(cvs, parent_mv, r, rcvs, rbase, r2, step=step), strips)

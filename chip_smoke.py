@@ -80,7 +80,23 @@ Phases (any failure raises and the script exits non-zero):
      every pair, pairs/s beside phase 4's fields/s and beside the engine
      alone; then ``cli.main``'s ``estimate`` on two PNG frames equals the
      driver, and ``evaluate`` returns 0; the runner and the CLI launch A-F
-     as phase 4 does, a batch's worth a call (counted from 0 around each).
+     as phase 4 does, a batch's worth a call (counted from 0 around each);
+  9. the row tiling (``parallel.tiled``, the in-process transport: a
+     frame's strips stacked on the batch axis, every colour step of a tiled
+     round one launch for all strips, the ghost rows exchanged between
+     steps) at 1080x1920: the default config on phase 4's B=8 pairs on 2
+     row tiles (levels 0-2 shard, level 3 runs whole-frame; each level's
+     rows_ok printed) equals the untiled flow bit for bit, with its launches
+     counted from 0 (D, E and F as single steps: 8 a round) beside the
+     untiled batch's, and its fields/s and idle share (torch.profiler device
+     time over the median batch) beside the untiled batch's and phase 4's;
+     the two-motion pairs of 4b on 2 tiles; ``estimate_flow_tiled_auto`` on
+     4 row tiles (a derived ``mv_cap``) equal to the untiled engine at that
+     cap (2 pairs); fourcolor, search-centred and cv_fused=4 on 2 tiles at
+     B=2 (``B9``) equal to untiled, launches counted, each timed beside its
+     untiled batch (and the auto pair beside its untiled run); then one colour step
+     of D, E and F and kernel 7 on those strips (strips starting on odd
+     frame rows) against their plain versions, timed beside them.
 The line before the last is a JSON object with one entry per TPU kernel
 row (A, B, C, D, D', E, F, 8, 9, 7, 11, 12, 13, 14, 10; ``launches`` from
 the default path, else from the first path that runs the row); the last is
@@ -1197,6 +1213,245 @@ def _zsad_phase(torch, engine, cfg, counters: dict, dev, card: str) -> None:
             raise AssertionError(f"[zsad] {what}: CUDA and CPU flows differ at {diff} pixels")
 
 
+TILES = 2       # phase 9's row tiles (the auto case: AUTO_TILES)
+AUTO_TILES = 4
+B9 = 2          # phase 9's batch for the other configurations
+# a round wrapper and the single step the rounds on row strips launch
+STEP_OF = {"color_round_stored": "color_step", "color_round_hybrid": "color_step_hybrid",
+           "color_round_hybrid_tail": "color_step_hybrid_tail",
+           "color_round_fused": "color_step_fused",
+           "color_round_fused_rival": "color_step_fused_rival"}
+
+
+def _want_tiled(want: dict, levels: int, tiled: int, sweeps: int) -> dict:
+    """The launches of a path whose levels each launch ``want`` / levels
+    (every level alike: bs 32 throughout), when ``tiled`` of its levels run
+    on row strips: there each round is 4 * sweeps single steps, one launch
+    each, for all strips at once; the other launches do not change."""
+    out = dict(want)
+    for rnd, step in STEP_OF.items():
+        per_level = want[rnd] // levels
+        out[rnd] = per_level * (levels - tiled)
+        out[step] = want[step] + per_level * tiled * 4 * sweeps
+    return out
+
+
+def _device_ms(torch, run) -> float:
+    """Device time (ms) of the kernels ``run()`` launches, from
+    torch.profiler."""
+    from blockbasedmotionestimation_tpu_torch.profile_main import _kernel_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(_kernel_us(e) for e in prof.key_averages()) / 1e3
+
+
+def _median_s(torch, run, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    return float(np.median(times))
+
+
+def _tiled_kernels(torch, dev, cfg, im1, im2, card: str, results: dict) -> None:
+    """Phase 9's kernel checks: one colour step of D, E and F on the row
+    strips of the tiled default path (the calls recorded on one batch; D at
+    level 2, whose 5-row strips start on odd rows, E and F at level 0 moved
+    one row down the frame, so their strips start on odd rows too), and
+    kernel 7 on the strips of the tiled fourcolor path (level 0), each
+    against its plain version on the same CUDA inputs, timed beside it."""
+    from blockbasedmotionestimation_tpu_torch.kernels import fused_step, reg_step, sad_search
+    from blockbasedmotionestimation_tpu_torch.ops import regularize, search, windowed
+    from blockbasedmotionestimation_tpu_torch.parallel import tiled
+
+    calls = {}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls.setdefault(name, []).append((a, k))
+            return fn(*a, **k)
+        return wrapped
+
+    mesh = tiled.Mesh((1, TILES))
+    # the rounds call each round wrapper's .step on strips: spy on those
+    rounds = {n: getattr(windowed, n) for n in ("color_round_stored", "color_round_hybrid",
+                                                "color_round_hybrid_tail")}
+    saved = {n: fn.step for n, fn in rounds.items()}
+    for n, fn in rounds.items():
+        fn.step = spy(STEP_OF[n], saved[n])
+    try:
+        tiled.estimate_flow_padded_batch_tiled(im1[:B9], im2[:B9], cfg, mesh)
+    finally:
+        for n, fn in rounds.items():
+            fn.step = saved[n]
+    # kernel 7 on the fourcolor path's strips
+    argmin = search._sad_argmin
+    with _swapped(search, _sad_argmin=spy("sad_spiral_argmin", argmin)):
+        tiled.estimate_flow_padded_batch_tiled(im1[:B9], im2[:B9],
+                                               cfg.replace(regularizer="fourcolor"), mesh)
+    torch.cuda.synchronize()
+
+    def shifted(st, cur):
+        """The strips moved one row down a frame one row taller: odd first rows."""
+        return regularize.Strips(st.row0_b + 1, st.full_h + cur, st.ghost)
+
+    checks = (
+        ("D", "color_step", reg_step.color_step, reg_step.color_step_plain,
+         lambda ks: [k for k in ks if k[1]["cur"] == 32 and k[0][0].shape[1] % 2][0], False),
+        ("E", "color_step_hybrid", fused_step.color_step_hybrid,
+         fused_step.color_step_hybrid_plain, lambda ks: [k for k in ks if k[1]["cur"] == 4][-4],
+         True),
+        ("F", "color_step_hybrid_tail", fused_step.color_step_hybrid_tail,
+         fused_step.color_step_hybrid_tail_plain, lambda ks: ks[-4], True),
+    )
+    for row, name, kernel, plain, pick, shift in checks:
+        a, k = pick(calls[name])
+        k = dict(k)
+        if shift:
+            k["strips"] = shifted(k["strips"], k["cur"])
+        st = k["strips"]
+        odd = int((st.row0_b % 2).sum())
+        g0 = a[0].clone()
+        gk, gp = g0.clone(), g0.clone()
+        kernel(gk, *a[1:], **k)
+        kw = {n: v for n, v in k.items() if n != "strips"}
+        regularize.on_strips(plain, gp, *a[1:], strips=st, **kw)
+        err = _max_abs_err(torch, gk, gp)
+        ms = _cuda_ms(torch, lambda: kernel(g0.clone(), *a[1:], **k), 5)
+        pms = _cuda_ms(torch, lambda: regularize.on_strips(plain, g0.clone(), *a[1:], strips=st,
+                                                           **kw), 1)
+        print(f"[tiled] {row} on {g0.shape[0]} strips at cur={k['cur']}, colour "
+              f"({k['ci']}, {k['cj']}), {odd} strips starting on odd rows: max_abs_err {err}; "
+              f"{ms:.4f} ms, plain {pms:.4f} ms ({card})")
+        results[row].update(tiled_max_abs_err=err, tiled_step_ms=ms, tiled_step_plain_ms=pms)
+        if err:
+            raise AssertionError(f"[tiled] {row} on strips differs from its plain version")
+    a, k = calls["sad_spiral_argmin"][-1]
+    full_h = a[-1]
+    got = sad_search.sad_spiral_argmin(*a, **k)
+    want = sad_search.sad_spiral_argmin_plain(*a, **k)
+    err = max(_max_abs_err(torch, got[0], want[0]), _max_abs_err(torch, got[1], want[1]))
+    ms = _cuda_ms(torch, lambda: sad_search.sad_spiral_argmin(*a, **k), 5)
+    pms = _cuda_ms(torch, lambda: sad_search.sad_spiral_argmin_plain(*a, **k), 1)
+    print(f"[tiled] 7 on {a[0].shape[0]} strips of {a[0].shape[1]} rows (frame {full_h}): "
+          f"max_abs_err {err}; {ms:.4f} ms, plain {pms:.4f} ms ({card})")
+    results["7"].update(tiled_max_abs_err=err, tiled_ms=ms, tiled_plain_ms=pms)
+    if err:
+        raise AssertionError("[tiled] kernel 7 on strips differs from its plain version")
+
+
+def _tiling_phase(torch, engine, cfg, counters: dict, dev, card: str, main_rate: float,
+                  results: dict) -> None:
+    """Phase 9: the row tiling on the in-process transport (one card), at
+    1080x1920 on phase 4's pairs and phase 4b's two-motion pairs."""
+    from blockbasedmotionestimation_tpu_torch.ops import pad as pad_ops
+    from blockbasedmotionestimation_tpu_torch.parallel import tiled
+
+    noise = np.random.default_rng(0).integers(0, 256, size=(B, H + 16, W + 16), dtype=np.uint8)
+    im1 = torch.as_tensor(noise[:, :H, :W].copy(), device=dev)
+    im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
+    p = pad_ops.compute_padding(H, W, cfg, row_tiles=TILES)
+    if p != pad_ops.compute_padding(H, W, cfg):
+        raise AssertionError("the tile-aware padding differs from the untiled one")
+    a, b = pad_ops.pad_frame(im1, p), pad_ops.pad_frame(im2, p)
+    mesh = tiled.Mesh((1, TILES))
+    plan = tiled.plan_tiling(cfg, p.padded_h, p.padded_w, TILES)
+    print(f"[tiled] default, {TILES} row tiles, {p.padded_h}x{p.padded_w}: "
+          + ", ".join(f"level {e['level']} rows_ok {e['rows_ok']} (halo {e['halo']}, strip "
+                      f"{e['strip_h']})" for e in plan))
+    if [e["rows_ok"] for e in plan] != [True, True, True, False]:
+        raise AssertionError("levels 0-2 should shard and level 3 replicate")
+    n_tiled = sum(e["rows_ok"] for e in plan)
+    want = _want_tiled(WANT_LAUNCHES, cfg.num_levels, n_tiled, cfg.sweeps_per_round)
+
+    def run():
+        return tiled.estimate_flow_padded_batch_tiled(a, b, cfg, mesh)
+
+    got = _counted(counters, want, "tiled", run)
+    untiled = _counted(counters, WANT_LAUNCHES, "tiled: the untiled batch",
+                       lambda: engine.estimate_flow_padded(a, b, cfg))
+    _equal_flows(torch, got, untiled, f"the untiled flow ({TILES} row tiles, default)", "tiled")
+    launches = {n: c for n, c in want.items() if c}
+    print(f"[tiled] launches a batch of {B}, tiled {launches}; untiled "
+          f"{ {n: c for n, c in WANT_LAUNCHES.items() if c} }")
+    tiled_s = _median_s(torch, run, 5)
+    untiled_s = _median_s(torch, lambda: engine.estimate_flow_padded(a, b, cfg), 5)
+    dev_t = _device_ms(torch, run)
+    dev_u = _device_ms(torch, lambda: engine.estimate_flow_padded(a, b, cfg))
+    print(f"[tiled] B={B}: tiled {B / tiled_s:.3f} fields/s (median of 5, {tiled_s * 1e3:.3f} "
+          f"ms), device {dev_t:.3f} ms, idle share {1 - dev_t / (tiled_s * 1e3):.4f}; untiled "
+          f"{B / untiled_s:.3f} fields/s ({untiled_s * 1e3:.3f} ms), device {dev_u:.3f} ms, idle "
+          f"share {1 - dev_u / (untiled_s * 1e3):.4f}; phase 4 {main_rate:.3f} fields/s ({card})")
+    del got, untiled
+    torch.cuda.empty_cache()
+
+    # the two-motion pairs: the rival windows decide cells at strip edges too
+    tm1, tm2, _ = _two_motion(H, W, B, np.random.default_rng(1))
+    t1 = pad_ops.pad_frame(torch.as_tensor(tm1, device=dev), p)
+    t2 = pad_ops.pad_frame(torch.as_tensor(tm2, device=dev), p)
+    _equal_flows(torch, tiled.estimate_flow_padded_batch_tiled(t1, t2, cfg, mesh),
+                 engine.estimate_flow_padded(t1, t2, cfg), "the untiled flow (two motions)",
+                 "tiled")
+    del t1, t2
+    torch.cuda.empty_cache()
+
+    # estimate_flow_tiled_auto on 4 row tiles: the uncapped level-0 halo
+    # swallows a 320-row strip, so a cap is derived; equal to the untiled
+    # engine at that cap on the same tile-aware padding
+    cap = tiled.derive_mv_cap(cfg, H, W, AUTO_TILES)
+    capped = cfg.replace(mv_cap=cap)
+    pa = pad_ops.compute_padding(H, W, capped, row_tiles=AUTO_TILES)
+    auto_plan = tiled.plan_tiling(capped, pa.padded_h, pa.padded_w, AUTO_TILES)
+    print(f"[tiled] auto, {AUTO_TILES} row tiles: uncapped level-0 halo "
+          f"{tiled.im2_halo(cfg, 0)} rows against {pa.padded_h // AUTO_TILES}-row strips; "
+          f"derived mv_cap {cap}; rows_ok per level {[e['rows_ok'] for e in auto_plan]}")
+    if cap is None or not auto_plan[0]["rows_ok"]:
+        raise AssertionError("the auto path should derive a cap and shard level 0")
+    auto_mesh = tiled.Mesh((1, AUTO_TILES))
+    for bi in range(B9):
+        got = tiled.estimate_flow_tiled_auto(im1[bi], im2[bi], cfg, auto_mesh)
+        want_f = engine.estimate_flow_padded(pad_ops.pad_frame(im1[bi:bi + 1], pa),
+                                             pad_ops.pad_frame(im2[bi:bi + 1], pa), capped)
+        _equal_flows(torch, got[None], want_f[:, pa.pad_y:pa.pad_y + H, pa.pad_x:pa.pad_x + W],
+                     f"the untiled flow at mv_cap={cap} (pair {bi})", "tiled auto")
+    auto_s = _median_s(torch, lambda: tiled.estimate_flow_tiled_auto(im1[0], im2[0], cfg,
+                                                                     auto_mesh), 3)
+    plain_s = _median_s(torch, lambda: engine.estimate_flow_padded(
+        pad_ops.pad_frame(im1[:1], pa), pad_ops.pad_frame(im2[:1], pa), capped), 3)
+    print(f"[tiled auto] one pair: {auto_s * 1e3:.3f} ms on {AUTO_TILES} tiles, untiled at the "
+          f"same cap {plain_s * 1e3:.3f} ms (medians of 3; {card})")
+
+    # the search-then-regularize and capacity configurations on 2 tiles, B=2
+    for tag, c, w0 in (("fourcolor", cfg.replace(regularizer="fourcolor"), WANT_FOURCOLOR),
+                       ("search", cfg.replace(window_center="search"), WANT_SEARCH),
+                       ("fused", cfg.replace(cv_fused=FUSE), WANT_FUSED)):
+        cplan = tiled.plan_tiling(c, p.padded_h, p.padded_w, TILES)
+        n_c = sum(e["rows_ok"] for e in cplan)
+        want_c = _want_tiled(w0, c.num_levels, n_c, c.sweeps_per_round)
+        t0 = time.time()
+        got = _counted(counters, want_c, f"tiled {tag}",
+                       lambda: tiled.estimate_flow_padded_batch_tiled(a[:B9], b[:B9], c, mesh))
+        _equal_flows(torch, got, engine.estimate_flow_padded(a[:B9], b[:B9], c),
+                     f"the untiled flow ({TILES} row tiles, rows_ok "
+                     f"{[e['rows_ok'] for e in cplan]}, B={B9})", f"tiled {tag}")
+        ts = _median_s(torch, lambda: tiled.estimate_flow_padded_batch_tiled(a[:B9], b[:B9], c,
+                                                                            mesh), 3)
+        us = _median_s(torch, lambda: engine.estimate_flow_padded(a[:B9], b[:B9], c), 3)
+        print(f"[tiled {tag}] B={B9}: tiled {B9 / ts:.3f} fields/s ({ts * 1e3:.3f} ms), untiled "
+              f"{B9 / us:.3f} ({us * 1e3:.3f} ms), medians of 3 ({card}); "
+              f"{time.time() - t0:.1f} s")
+    del got
+    torch.cuda.empty_cache()
+    _tiled_kernels(torch, dev, cfg, a, b, card, results)
+
+
 def _counted(counters: dict, want: dict, tag: str, run):
     """Run ``run()`` with every launch count set to 0 just before it; the
     counts read just after must equal ``want``."""
@@ -1556,6 +1811,12 @@ def main() -> int:
     t0 = time.time()
     _sequence_phase(torch, engine, cfg, counters, dev, card, main_rate)
     print(f"[sequence] phase 8 took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 9. the row tiling on one card (in-process transport)
+    t0 = time.time()
+    _tiling_phase(torch, engine, cfg, counters, dev, card, main_rate, results)
+    print(f"[tiled] phase 9 took {time.time() - t0:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": list(results.values())}))

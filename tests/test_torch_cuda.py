@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from blockbasedmotionestimation_tpu_torch import MotionConfig
 from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step, sad_search
 from blockbasedmotionestimation_tpu_torch.models import engine
+from blockbasedmotionestimation_tpu_torch.ops.regularize import Strips, on_strips
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
 
 
@@ -732,3 +733,116 @@ def test_cuda_run_sequence_equals_cpu(cuda, tmp_path):
     for i in range(3):
         name = sequence.flo_name(i)
         assert (tmp_path / "gpu" / name).read_bytes() == (tmp_path / "cpu" / name).read_bytes()
+
+
+def _strips(cuda, gen, b, t, nby, nbx, cur, first=0):
+    """Strips of b frames (entry k * t + i is strip i of frame k, whose
+    first grid row is first + i * nby, in a frame one row taller than the
+    strips reach), with random ghost rows."""
+    row0_b = (first + torch.arange(b * t, device=cuda) % t * nby).to(torch.int32)
+    ghost = torch.randint(-30, 31, (b * t, 2, nbx, 2), generator=gen, device=cuda,
+                          dtype=torch.int64).to(torch.int32)
+    return Strips(row0_b, (first + t * nby + 1) * cur, ghost)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cur", [2, 4, 16])
+@pytest.mark.parametrize("form", ["D", "D'", "8", "9", "E", "F", "11", "12"])
+def test_cuda_round_kernel_on_strips_equals_plain(cuda, form, cur):
+    # one colour step of each form on row strips (a span of one launch with
+    # row0_b and ghost rows): 3 strips of 2 frames, each strip an odd number
+    # of grid rows at f = 1 (every other strip starts on an odd frame row),
+    # random ghost rows, against the plain step on the same CUDA tensors
+    # under on_strips; each of the four frame colours, sad and ssd
+    gen = torch.Generator(device=cuda).manual_seed(7 * cur + len(form))
+    rng = np.random.default_rng(31 * cur + len(form))
+    if form in ("D", "D'", "8", "9"):
+        b, npy, npx, r, r2 = 6, 3, 40, 7, 5
+        f = 1 if form in ("D", "8") else 2
+        nby, nbx = npy * f, npx * f
+        h, w = nby * cur, nbx * cur
+
+        def ints(lo, hi, shape, dtype=torch.int32):
+            return torch.randint(lo, hi, shape, generator=gen, device=cuda,
+                                 dtype=torch.int64).to(dtype)
+
+        cv = ints(0, 2**16, (b, (2 * r + 1) ** 2, nby, nbx), torch.uint16)
+        pm = ints(-4, 5, (b, npy, npx, 2))
+        kw = dict(cur=cur, h=h, w=w, r=r)
+        if form in ("D", "D'"):
+            kw.update(rcv=ints(0, 2**24, (b, (2 * r2 + 1) ** 2, nby, nbx)),
+                      rpm=(pm + ints(-12, 13, pm.shape)).contiguous(), r2=r2)
+        g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
+        g0 = (g0 + ints(-20, 21, g0.shape)).contiguous()
+        wrapper, step_plain, args = reg_step.color_step, reg_step.color_step_plain, (cv, pm)
+        costs = ("sad",)
+    else:
+        costs = ("sad", "ssd")
+    for cost in costs:
+        if form not in ("D", "D'", "8", "9"):
+            g0, forms = _round_inputs(cuda, rng, 32, cur, cost)
+            round_fn, step_plain, args, kw = forms[form]
+            wrapper = round_fn.step
+            nby, nbx = g0.shape[1:3]
+            # the two entries as strips starting on odd frame rows
+            strips = _strips(cuda, gen, 1, 2, nby, nbx, cur, first=1)
+        else:
+            strips = _strips(cuda, gen, 2, 3, nby, nbx, cur)
+        for ci, cj in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            gk, gp = g0.clone(), g0.clone()
+            before = wrapper.launches
+            wrapper(gk, *args, ci=ci, cj=cj, lam_mult=2.5, strips=strips, **kw)
+            assert wrapper.launches == before + 1
+            on_strips(step_plain, gp, *args, ci=ci, cj=cj, lam_mult=2.5, strips=strips, **kw)
+            assert not torch.equal(gp, g0)
+            assert torch.equal(gk, gp), (form, cur, cost, ci, cj)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bs,ss", [(32, 64), (8, 24), (4, 12)])
+def test_cuda_sad_spiral_argmin_on_strips_equals_plain(cuda, bs, ss):
+    # kernel 7 on a row strip: blocks from the strip, centres and the
+    # in-frame test in the frame's rows (full_h three strips high), centres
+    # near and past the frame's top and bottom
+    rng = np.random.default_rng(7 * bs + ss)
+    b, h, w = 2, 3 * bs, 6 * bs
+    full_h = 3 * h
+    ext = spiral_extent(ss - bs)
+    win, nblk = bs + 2 * ext, 18
+    im1 = torch.as_tensor(rng.integers(0, 256, size=(b, h, w), dtype=np.uint8), device=cuda)
+    wins = torch.as_tensor(rng.integers(0, 256, size=(b, nblk, win, win), dtype=np.uint8),
+                           device=cuda)
+    cy = rng.integers(-ext - 2, full_h - bs + ext + 3, size=(b, nblk)).astype(np.int32)
+    cy[:, :3] = full_h - bs - rng.integers(0, ext + 1, size=3)  # the frame's bottom rows
+    cx = rng.integers(0, w - bs + 1, size=(b, nblk)).astype(np.int32)
+    args = [im1, wins, torch.as_tensor(cy, device=cuda), torch.as_tensor(cx, device=cuda)]
+    for cost in ("sad", "ssd"):
+        got = sad_search.sad_spiral_argmin(*args, bs, ss, cost, full_h)
+        want = sad_search.sad_spiral_argmin_plain(*args, bs, ss, cost, full_h)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), cost
+        whole = sad_search.sad_spiral_argmin_plain(*args, bs, ss, cost)
+        assert not torch.equal(whole[0], want[0])  # the strip's own height masks other rows
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("override", [dict(), dict(regularizer="fourcolor"),
+                                      dict(window_center="search"), dict(cv_fused=4)])
+def test_cuda_row_tiled_equals_untiled(cuda, override):
+    # the in-process row tiling on the card (every round a launch a step,
+    # ghost rows between steps) equals the untiled engine, and the CPU
+    from blockbasedmotionestimation_tpu_torch.parallel import tiled
+
+    cfg = MotionConfig(block_sizes=(8, 8), search_sizes=(24, 24), interp_factor=1, mv_cap=16,
+                       **override)
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, 256, size=(2, 288, 128), dtype=np.uint8)
+    im1, im2 = base[:, :256, :96].copy(), base[:, 3:259, 5:101].copy()
+    mesh = tiled.Mesh((1, 2))
+    plan = tiled.plan_tiling(cfg, 256, 96, 2)
+    assert [e["rows_ok"] for e in plan] == [True, True]
+    got = tiled.estimate_flow_padded_batch_tiled(im1, im2, cfg, mesh, device=cuda)
+    want = engine.estimate_flow_padded(torch.as_tensor(im1, device=cuda),
+                                       torch.as_tensor(im2, device=cuda), cfg)
+    assert torch.equal(got, want)
+    cpu = tiled.estimate_flow_padded_batch_tiled(im1, im2, cfg, mesh, device="cpu")
+    assert torch.equal(got.cpu(), cpu)

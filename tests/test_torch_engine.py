@@ -302,6 +302,14 @@ def test_port_never_imports_jax():
         cfg = port.tiny_config(rival_radius=2)
         flow, _ = engine.estimate_flow_batched(a, np.roll(a, 2, axis=2), cfg, device="cpu")
         assert flow.shape == (1, 48, 64, 2)
+        # the row tiling and the multi-process runtime, run too
+        from blockbasedmotionestimation_tpu_torch.parallel import multihost, tiled
+        assert multihost.describe()["process_count"] == 1
+        assert multihost.make_mesh().shape == {"batch": 1, "ty": 1}
+        b = rng.integers(0, 256, size=(64, 64), dtype=np.uint8)
+        rows = tiled.estimate_flow_padded_tiled(b, np.roll(b, 1, axis=0), cfg,
+                                                tiled.Mesh((1, 2)), device="cpu")
+        assert rows.shape == (64, 64, 2)
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
         assert not bad, bad
         # nor any module of the JAX package, jax-free ones included

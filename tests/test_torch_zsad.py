@@ -9,8 +9,10 @@ and bit for bit where f32 holds the sum exactly: every term |d - mean| is a
 multiple of 1 / (cur * cur) and the sum is at most 255 * cur * cur, so for
 sub-blocks of up to 16 x 16 pixels every partial sum is exact in any order.
 At 32 x 32 and above the port's fixed pairwise order and XLA's may round
-the last place differently.  The flows are held to JAX's exactly: every
-test below runs blocks of 16 and 8 pixels.
+the last place differently.  The flows are held to JAX's exactly: the
+engine tests run blocks of 16 and 8 pixels, and at the default 32 x 32
+blocks (dense-rival, fourcolor, search-centred) every MV of the two pairs
+equals JAX's (``MV_DIFF_BOUND``).
 """
 
 import numpy as np
@@ -219,3 +221,25 @@ def test_spiral_argmin_plain_zsad_returns_int32_offsets():
     for cost in ("sad", "zsad"):
         dy, dx = sad_search.sad_spiral_argmin_plain(im1, wins, c, c, 8, 16, cost)
         assert dy.dtype == dx.dtype == torch.int32, cost
+
+
+# the default block size: 32 x 32 blocks, S = 16, two levels
+ZSAD32 = MotionConfig(block_sizes=(32, 32), search_sizes=(64, 64), interp_factor=1, cost="zsad")
+# MVs that may differ from JAX's a pair at 32 x 32 (the last place of a
+# 1024-term f32 sum may round another way): none, on these pairs
+MV_DIFF_BOUND = 0
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [ZSAD32, ZSAD32.replace(regularizer="fourcolor"), ZSAD32.replace(window_center="search")],
+    ids=["dense-rival", "fourcolor", "search-rival"],
+)
+def test_engine_zsad_32px_blocks_matches_jax(cfg):
+    # ROADMAP Queue 3 item 1: zsad at the default 32 px blocks, where the
+    # costs are held only within rtol; the flows are counted pixel by pixel
+    im1s, im2s = _photometric_pairs(13, 128, 192)
+    want, _ = jeng.estimate_flow_batched(im1s, im2s, cfg)
+    got, _ = teng.estimate_flow_batched(im1s, im2s, _port(cfg), device="cpu")
+    differ = (got.numpy() != np.asarray(want)).any(-1).sum(axis=(1, 2))
+    assert differ.tolist() == [MV_DIFF_BOUND] * 2, differ
