@@ -96,16 +96,22 @@
 // the own MV).  Before it, kernel 10 was one launch a colour step of a
 // one-thread-a-cell kernel that compared each of its 9 candidates with all
 // K slots of its chunk (576 compares a cell at K = 64).
-// Row strips (the tiled engine, parallel/tiled.py): a batch entry may be a
-// strip of nby grid rows of a frame of nby_total, whose row 0 is the
-// frame's grid row row0_b[b].  Colours are global: a strip whose first row
-// is odd holds colour row ci at local rows (ci + row0_b) % 2, ...; the
-// border case, presence and in-image tests use global rows and the frame's
-// height full_h; the rows just above and below the strip come from ghost
-// (B, 2, nbx, 2), which the caller refreshes from the neighbouring strips
-// before every step, so a tiled round is a launch a step (a span of one),
-// never one cooperative launch.  Without row0_b (null) an entry is a whole
-// frame, as before; strips run their own instantiation (kStrips).
+// Tiles (the tiled engine, parallel/tiled.py): a batch entry may be a row
+// strip of nby grid rows of a frame of nby_total, whose row 0 is the frame's
+// grid row row0_b[b], or a 2-D tile whose column 0 is also the frame's grid
+// column col0_b[b] of nbx_total.  Colours are global: a tile whose first row
+// (column) is odd holds colour row ci (column cj) at local rows (ci +
+// row0_b) % 2, ... (columns (cj + col0_b) % 2, ...); the border case,
+// presence and in-image tests use the frame's rows and columns and its
+// height full_h and width full_w; the rows just above and below the tile
+// come from ghost (B, 2, nbx, 2), and on 2-D tiles the columns just left
+// and right of it from ghost_cols (B, 2, nby + 2, 2), over rows -1 .. nby,
+// so the diagonal neighbours' corner cells come with them.  The caller
+// refreshes both from the neighbouring tiles before every step, so a tiled
+// round is a launch a step (a span of one), never one cooperative launch.
+// Row strips are tiles with col0_b and ghost_cols null (column 0, the
+// frame's width); without row0_b (null) an entry is a whole frame, as
+// before.  Tiles run their own instantiation (kStrips).
 // What bounds it now (PERF.md): latency.  A block works its tiles one after
 // another (stage, barrier, cells), 2-3 blocks an SM, so a level-0 step
 // takes many times what its bytes need; at the coarse levels a step costs
@@ -174,9 +180,12 @@ struct RoundArgs {
   int k_slots, nch, chunk;  // compact: K, chunks a frame, parents a chunk
   int step0, nsteps;    // the span: colour index of its first step, its steps
   float lam[kMaxSweeps];  // lambda x multiplier of each sweep the span touches
-  const int* row0_b;    // strips: (B,) the frame's grid row of each entry's row 0; null: whole frames
-  const int2* ghost;    // strips: (B, 2, nbx) the grid rows just above and below each strip
+  const int* row0_b;    // tiles: (B,) the frame's grid row of each entry's row 0; null: whole frames
+  const int2* ghost;    // tiles: (B, 2, nbx) the grid rows just above and below each tile
   int nby_total, full_h;  // the frame's grid rows and pixel rows (nby, h for whole frames)
+  const int* col0_b;    // 2-D tiles: (B,) the frame's grid column of each entry's column 0
+  const int2* ghost_cols;  // 2-D tiles: (B, 2, nby + 2) the grid columns left and right, rows -1 .. nby
+  int nbx_total, full_w;  // the frame's grid columns and pixel columns (nbx, w unless 2-D tiles)
 };
 
 // sum of |a - b| over the four bytes, plus c: VABSDIFF4.U8.ACC
@@ -338,9 +347,9 @@ __device__ __forceinline__ void recompute_warp(uint32_t redo, const uintptr_t (&
 
 // A cell of a tile: entry b, local grid cell (i, j), its place (ly, lx) in
 // the staged halo, the first parent row and column staged, and the entry's
-// first grid row in its frame.
+// first grid row and column in its frame.
 struct CellAt {
-  int b, i, j, ly, lx, pr0, pc0, r0;  // r0: the frame's grid row of the entry's row 0
+  int b, i, j, ly, lx, pr0, pc0, r0, c0;  // r0, c0: the frame's grid row, column of (0, 0)
 };
 
 // One cell's colour step: the 9 candidates from the staged halo, every
@@ -358,22 +367,25 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
   const int cur = CUR > 0 ? CUR : a.cur;
   const int i = at.i;
   const int j = at.j;
-  // the cell's row in its frame, the frame's rows and height (whole
-  // frames read the fields they read before strips)
+  // the cell's row and column in its frame, the frame's rows, columns,
+  // height and width (whole frames read the fields they read before tiles)
   const int gi0 = i + at.r0;
+  const int gj0 = j + at.c0;
   const int nby_t = kStrips ? a.nby_total : a.nby;
+  const int nbx_t = kStrips ? a.nbx_total : a.nbx;
   const int full_h = kStrips ? a.full_h : a.h;
-  const int* rank = s_rank + border_case(gi0, j, nby_t, a.nbx) * 9;
+  const int full_w = kStrips ? a.full_w : a.w;
+  const int* rank = s_rank + border_case(gi0, gj0, nby_t, nbx_t) * 9;
   int cx[9], cy[9];
   uint32_t present = 0;
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const int2 mv = s_mv[at.ly + kSlotDy[k]][at.lx + kSlotDx[k]];
     const int gi = gi0 + kSlotDy[k];
-    const int gj = j + kSlotDx[k];
+    const int gj = gj0 + kSlotDx[k];
     cx[k] = mv.x;
     cy[k] = mv.y;
-    if (valid && rank[k] < kBigRank && gi >= 0 && gi < nby_t && gj >= 0 && gj < a.nbx) {
+    if (valid && rank[k] < kBigRank && gi >= 0 && gi < nby_t && gj >= 0 && gj < nbx_t) {
       present |= 1u << k;
     }
   }
@@ -414,7 +426,7 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
     if (!(covered & 1)) covered = 0;  // the own MV in no slot: every candidate excluded
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
-      if (((present & covered) >> k) & 1 && in_image(gi0, j, cur, full_h, a.w, cx[k], cy[k])) {
+      if (((present & covered) >> k) & 1 && in_image(gi0, gj0, cur, full_h, full_w, cx[k], cy[k])) {
         usable |= 1u << k;
       }
     }
@@ -436,7 +448,7 @@ __device__ __forceinline__ void cell_step(const RoundArgs& a, int2 (*s_mv)[kHalo
     const int rdy = cy[k] - rpmv.y;
     const bool in_rival = rival && rdx >= -a.r2 && rdx <= a.r2 && rdy >= -a.r2 && rdy <= a.r2;
     if (((present >> k) & 1) && (in_window || in_rival) &&
-        in_image(gi0, j, cur, full_h, a.w, cx[k], cy[k])) {
+        in_image(gi0, gj0, cur, full_h, full_w, cx[k], cy[k])) {
       usable |= 1u << k;
       if (kForm != kFused && in_window && ddx >= -cr && ddx <= cr) {
         stored |= 1u << k;
@@ -588,8 +600,9 @@ __device__ __forceinline__ int2 parent_of(const int* centres, const TileAt& T, i
 }
 
 // Stage a tile: its halo of MVs (read past L1, ld.global.cg: other SMs
-// wrote the grid in the previous step; a strip's rows -1 and nby from its
-// ghost rows) and its parents' window centres.
+// wrote the grid in the previous step; a tiled entry's rows -1 and nby from
+// its ghost rows, and on 2-D tiles its columns -1 and nbx, corners
+// included, from its ghost columns) and its parents' window centres.
 template <bool kStrips>
 __device__ __forceinline__ void stage(const RoundArgs& a, const TileAt& T, int2 (*s_mv)[kHaloC],
                                       int2* s_pm, int2* s_rpm) {
@@ -611,6 +624,10 @@ __device__ __forceinline__ void stage(const RoundArgs& a, const TileAt& T, int2 
     } else if constexpr (kStrips) {
       if (e < kHaloR * kHaloC && gj >= 0 && gj < a.nbx && (gi == -1 || gi == a.nby)) {
         mv[m] = __ldcg(a.ghost + (static_cast<size_t>(T.b) * 2 + (gi < 0 ? 0 : 1)) * a.nbx + gj);
+      } else if (e < kHaloR * kHaloC && a.ghost_cols != nullptr && (gj == -1 || gj == a.nbx) &&
+                 gi >= -1 && gi <= a.nby) {
+        mv[m] = __ldcg(a.ghost_cols + (static_cast<size_t>(T.b) * 2 + (gj < 0 ? 0 : 1)) *
+                                          (a.nby + 2) + gi + 1);
       }
     }
   }
@@ -652,8 +669,9 @@ __device__ __forceinline__ void stage(const RoundArgs& a, const TileAt& T, int2 
 // registers (no shared recomputes) and gain from more warps.
 __host__ __device__ constexpr int min_blocks(int cur) { return cur == 2 ? 3 : 2; }
 
-// kStrips: the entries are row strips (row0_b and ghost given); a separate
-// instantiation, so whole frames run the code they ran before strips.
+// kStrips: the entries are tiles (row0_b and ghost given; on 2-D tiles also
+// col0_b and ghost_cols); a separate instantiation, so whole frames run the
+// code they ran before tiles.
 template <Form kForm, int CUR, bool kStrips>
 __global__ void __launch_bounds__(kThreads, min_blocks(CUR)) round_kernel(const RoundArgs a) {
   __shared__ int2 s_mv[kHaloR][kHaloC];
@@ -674,15 +692,19 @@ __global__ void __launch_bounds__(kThreads, min_blocks(CUR)) round_kernel(const 
     float lam = a.lam[0];  // a.lam[g >> 2], without a local copy of the array
 #pragma unroll
     for (int q = 1; q < kMaxSweeps; ++q) lam = (g >> 2) == q ? a.lam[q] : lam;
-    // strips: an entry's local colour row is (ci + its first row) % 2, so
-    // every entry gets the tiles of the larger count (local row 0)
-    const Tiles tl = tiles_of(a.nby, a.nbx, kStrips ? 0 : ci, cj);
+    // tiles: an entry's local colour row is (ci + its first row) % 2 and
+    // its local colour column (cj + its first column) % 2, so every entry
+    // gets the tiles of the larger counts (local row and column 0)
+    const Tiles tl = tiles_of(a.nby, a.nbx, kStrips ? 0 : ci, kStrips ? 0 : cj);
     const int ntiles = a.batch * tl.per_frame;
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
       const int r0 = kStrips ? __ldg(a.row0_b + t / tl.per_frame) : 0;
+      const int c0 = kStrips && a.col0_b != nullptr ? __ldg(a.col0_b + t / tl.per_frame) : 0;
       const int lci = kStrips ? (ci + r0) & 1 : ci;
+      const int lcj = kStrips ? (cj + c0) & 1 : cj;
       const int mc = kStrips ? (a.nby - lci + 1) / 2 : tl.mc;
-      const TileAt T = tile_at(t, tl, lci, cj, a.f, npy, npx);
+      const int nc = kStrips ? (a.nbx - lcj + 1) / 2 : tl.nc;
+      const TileAt T = tile_at(t, tl, lci, lcj, a.f, npy, npx);
       __syncthreads();  // the previous tile's readers are done
       stage<kStrips>(a, T, s_mv, s_pm, s_rpm);
       __syncthreads();
@@ -690,8 +712,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(CUR)) round_kernel(const 
       // across the warp); lanes past the colour's cells write nothing
       const int ii = kTileR * T.ty + row;
       const int jj = kTileW * T.tx + lane;
-      const bool valid = ii < mc && jj < tl.nc;
-      const CellAt at{T.b, lci + 2 * ii, cj + 2 * jj, 2 * row + 1, 2 * lane + 1, T.pr0, T.pc0, r0};
+      const bool valid = ii < mc && jj < nc;
+      const CellAt at{T.b, lci + 2 * ii, lcj + 2 * jj, 2 * row + 1, 2 * lane + 1, T.pr0, T.pc0,
+                      r0, c0};
       cell_step<kForm, CUR, kStrips>(a, s_mv, s_pm, s_rpm, s_rank, at, valid, lam);
     }
     if (s + 1 < a.nsteps) gg.sync();  // the step's writes, visible to the next
@@ -729,8 +752,9 @@ int prepare(RoundArgs& a, bool reads_im1, int step0, int nsteps, const float* la
   if (a.f < 1 || a.cur < 2 || (a.cur & (a.cur - 1)) || a.nby % a.f || a.nbx % a.f) return bad;
   if (a.nby != a.h / a.cur || a.nbx != a.w / a.cur || a.r < 0 || a.r2 < 0) return bad;
   if (a.full_h % a.cur || a.nby_total != a.full_h / a.cur || a.nby_total < a.nby) return bad;
-  if (static_cast<long long>(a.nby_total) * a.nbx * 2 >= (1LL << 31) ||
-      static_cast<long long>(a.full_h) * a.w >= (1LL << 31)) {
+  if (a.full_w % a.cur || a.nbx_total != a.full_w / a.cur || a.nbx_total < a.nbx) return bad;
+  if (static_cast<long long>(a.nby_total) * a.nbx_total * 2 >= (1LL << 31) ||
+      static_cast<long long>(a.full_h) * a.full_w >= (1LL << 31)) {
     return bad;  // indices inside a frame are 32-bit
   }
   // the recompute's frame-1 words: rows aligned to 4 bytes (2 at cur = 2)
@@ -769,7 +793,7 @@ int launch_cur(RoundArgs& a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Strips or whole frames (the compact form takes no strips).
+// Tiles or whole frames (the compact form takes no tiles).
 template <Form kForm, int CUR>
 int launch_strips(RoundArgs& a, void* stream) {
   if constexpr (kForm != kCompact) {
@@ -821,20 +845,32 @@ RoundArgs args_of(void* grid, const void* cv, int cv16, const void* im1, const v
   a.ssd = ssd;
   a.nby_total = nby;
   a.full_h = h;
+  a.nbx_total = nbx;
+  a.full_w = w;
   return a;
 }
 
-// A single step's strips: row0_b (B,) i32 and ghost (B, 2, nbx, 2) i32 both
+// A single step's tiles: row0_b (B,) i32 and ghost (B, 2, nbx, 2) i32 both
 // given, or both null (whole frames); full_h the frame's height in pixels
-// (h for whole frames).  0 or an error.
-int strip_args(RoundArgs& a, const void* row0_b, const void* ghost, int full_h) {
-  if ((row0_b == nullptr) != (ghost == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  if (row0_b == nullptr && full_h != a.h) return static_cast<int>(cudaErrorInvalidValue);
-  if (a.cur < 1) return static_cast<int>(cudaErrorInvalidValue);
+// (h for whole frames); on 2-D tiles col0_b (B,) i32 and ghost_cols (B, 2,
+// nby + 2, 2) i32 given as well, else both null and full_w = w.  0 or an
+// error.
+int strip_args(RoundArgs& a, const void* row0_b, const void* ghost, int full_h,
+               const void* col0_b, const void* ghost_cols, int full_w) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if ((row0_b == nullptr) != (ghost == nullptr)) return bad;
+  if ((col0_b == nullptr) != (ghost_cols == nullptr)) return bad;
+  if (row0_b == nullptr && (full_h != a.h || col0_b != nullptr)) return bad;
+  if (col0_b == nullptr && full_w != a.w) return bad;
+  if (a.cur < 1) return bad;
   a.row0_b = static_cast<const int*>(row0_b);
   a.ghost = static_cast<const int2*>(ghost);
   a.full_h = full_h;
   a.nby_total = full_h / a.cur;
+  a.col0_b = static_cast<const int*>(col0_b);
+  a.ghost_cols = static_cast<const int2*>(ghost_cols);
+  a.full_w = full_w;
+  a.nbx_total = full_w / a.cur;
   return 0;
 }
 
@@ -861,8 +897,10 @@ int compact_args(RoundArgs& a, const void* smap, int k_slots, int nch, int chunk
 // cv: (B, side^2, nby, nbx) main volume at cur; im1: (B, h, w) u8; rwin:
 // (B, nP, bs + 2 r2, bs + 2 r2) u8 rival windows; pm / rpm: (B, nby/f,
 // nbx/f, 2) i32 window centres; rank_table: (9, 9) i32.  Every single step
-// takes strips: row0_b (B,) i32 and ghost (B, 2, nbx, 2) i32 (see the top of
-// this file) and the frame's height full_h, or null, null and h.
+// takes tiles: row0_b (B,) i32 and ghost (B, 2, nbx, 2) i32 (see the top of
+// this file) and the frame's height full_h, or null, null and h; on 2-D
+// tiles col0_b (B,) i32, ghost_cols (B, 2, nby + 2, 2) i32 and the frame's
+// width full_w, else null, null and w.
 extern "C" int bbme_color_step_hybrid(void* grid, const void* cv, int cv16,
                                       const void* im1, const void* rwin,
                                       const void* pm, const void* rpm,
@@ -870,11 +908,12 @@ extern "C" int bbme_color_step_hybrid(void* grid, const void* cv, int cv16,
                                       int nby, int nbx, int f, int cur, int h,
                                       int w, int r, int r2, int ssd,
                                       const void* row0_b, const void* ghost,
-                                      int full_h, int ci, int cj, float lam,
-                                      void* stream) {
+                                      int full_h, const void* col0_b,
+                                      const void* ghost_cols, int full_w, int ci,
+                                      int cj, float lam, void* stream) {
   RoundArgs a = args_of(grid, cv, cv16, im1, nullptr, rwin, pm, rpm, rank_table, batch, nby,
                         nbx, f, cur, h, w, r, -1, r2, ssd);
-  const int code = strip_args(a, row0_b, ghost, full_h);
+  const int code = strip_args(a, row0_b, ghost, full_h, col0_b, ghost_cols, full_w);
   if (code != 0) return code;
   return launch<kHybrid>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }
@@ -890,12 +929,14 @@ extern "C" int bbme_color_step_hybrid_tail(void* grid, const void* band,
                                            int nby, int nbx, int f, int cur,
                                            int h, int w, int r, int store_r,
                                            int r2, int ssd, const void* row0_b,
-                                           const void* ghost, int full_h, int ci,
-                                           int cj, float lam, void* stream) {
+                                           const void* ghost, int full_h,
+                                           const void* col0_b, const void* ghost_cols,
+                                           int full_w, int ci, int cj, float lam,
+                                           void* stream) {
   if (store_r < 0 || store_r > r) return static_cast<int>(cudaErrorInvalidValue);
   RoundArgs a = args_of(grid, band, band16, im1, win, rwin, pm, rpm, rank_table, batch, nby,
                         nbx, f, cur, h, w, r, store_r, r2, ssd);
-  const int code = strip_args(a, row0_b, ghost, full_h);
+  const int code = strip_args(a, row0_b, ghost, full_h, col0_b, ghost_cols, full_w);
   if (code != 0) return code;
   return launch<kTail>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }
@@ -912,14 +953,15 @@ extern "C" int bbme_color_step_fused(void* grid, const void* im1,
                                      int nby, int nbx, int f, int cur, int h,
                                      int w, int r, int r2, int ssd,
                                      const void* row0_b, const void* ghost,
-                                     int full_h, int ci, int cj, float lam,
-                                     void* stream) {
+                                     int full_h, const void* col0_b,
+                                     const void* ghost_cols, int full_w, int ci,
+                                     int cj, float lam, void* stream) {
   if ((rwin == nullptr) != (rpm == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RoundArgs a = args_of(grid, nullptr, 0, im1, win, rwin, pm, rpm, rank_table, batch, nby, nbx,
                         f, cur, h, w, r, -1, r2, ssd);
-  const int code = strip_args(a, row0_b, ghost, full_h);
+  const int code = strip_args(a, row0_b, ghost, full_h, col0_b, ghost_cols, full_w);
   if (code != 0) return code;
   return launch<kFused>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }
@@ -934,14 +976,15 @@ extern "C" int bbme_color_step(void* grid, const void* cv, int cv16,
                                const void* rpm, const void* rank_table,
                                int batch, int nby, int nbx, int f, int cur,
                                int h, int w, int r, int r2, const void* row0_b,
-                               const void* ghost, int full_h, int ci, int cj,
+                               const void* ghost, int full_h, const void* col0_b,
+                               const void* ghost_cols, int full_w, int ci, int cj,
                                float lam, void* stream) {
   if ((rcv == nullptr) != (rpm == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   RoundArgs a = args_of(grid, cv, cv16, nullptr, nullptr, nullptr, pm, rpm, rank_table, batch,
                         nby, nbx, f, cur, h, w, r, -1, r2, 0);
   a.rcv = rcv;
   a.rcv16 = rcv16;
-  const int code = strip_args(a, row0_b, ghost, full_h);
+  const int code = strip_args(a, row0_b, ghost, full_h, col0_b, ghost_cols, full_w);
   if (code != 0) return code;
   return launch<kStored>(a, colour_index(ci, cj), 1, &lam, 1, stream);
 }

@@ -43,8 +43,9 @@ tensors they launch ``csrc/fused_step.cu`` (one kernel template for the
 four), one colour step a launch, or one cooperative launch a round with a
 grid barrier between its steps (up to ``MAX_SWEEPS`` sweeps a launch; more
 take several launches).  Nothing falls back from one to the other.  The
-single steps take row strips (``strips``) as ``reg_step.color_step`` does,
-and each round wrapper names its single step as ``.step``.
+single steps take tiles (``strips``: row strips or 2-D tiles) as
+``reg_step.color_step`` does, and each round wrapper names its single step
+as ``.step``.
 """
 
 from __future__ import annotations
@@ -153,15 +154,15 @@ def color_step_hybrid_tail_plain(
 
 # bbme_color_step_hybrid(grid, cv, cv16, im1, rwin, pm, rpm, rank_table, batch,
 #                        nby, nbx, f, cur, h, w, r, r2, ssd, row0_b, ghost,
-#                        full_h, ci, cj, lam, stream)
+#                        full_h, col0_b, ghost_cols, full_w, ci, cj, lam, stream)
 ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 10 + rs.STEP_END
 )
 # bbme_color_step_hybrid_tail(grid, band, band16, im1, win, rwin, pm, rpm,
 #                             rank_table, batch, nby, nbx, f, cur, h, w, r,
-#                             store_r, r2, ssd, row0_b, ghost, full_h, ci, cj,
-#                             lam, stream)
+#                             store_r, r2, ssd, row0_b, ghost, full_h, col0_b,
+#                             ghost_cols, full_w, ci, cj, lam, stream)
 TAIL_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 11 + rs.STEP_END
@@ -245,7 +246,7 @@ def color_step_hybrid(
 ) -> None:
     """Kernel E: one colour step, in place; see the module docstring."""
     f = _checked(grid, cv, pm, im1, None, rwin, rpm, cur, h, w, r, r, r2, ci, cj, cost)
-    tile = rs.strip_args(strips, grid, cur, h)
+    tile = rs.strip_args(strips, grid, cur, h, w)
     if grid.device.type == "cpu":
         on_strips(color_step_hybrid_plain, grid, cv, pm, im1=im1, rwin=rwin, rpm=rpm, cur=cur,
                   h=h, w=w, r=r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost,
@@ -289,7 +290,7 @@ def color_step_hybrid_tail(
     """Kernel F: one colour step on the stored band, in place; see the
     module docstring."""
     f = _checked(grid, band, pm, im1, win, rwin, rpm, cur, h, w, r, store_r, r2, ci, cj, cost)
-    tile = rs.strip_args(strips, grid, cur, h)
+    tile = rs.strip_args(strips, grid, cur, h, w)
     if grid.device.type == "cpu":
         on_strips(
             color_step_hybrid_tail_plain, grid, band, pm, im1=im1, win=win, rwin=rwin, rpm=rpm,
@@ -456,7 +457,7 @@ def color_step_fused_rival_plain(grid, pm, *, im1, win, rwin, rpm, cur, h, w, r,
 
 # bbme_color_step_fused(grid, im1, win, rwin, pm, rpm, rank_table, batch, nby,
 #                       nbx, f, cur, h, w, r, r2, ssd, row0_b, ghost, full_h,
-#                       ci, cj, lam, stream)
+#                       col0_b, ghost_cols, full_w, ci, cj, lam, stream)
 FUSED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + rs.STEP_END
 
 
@@ -470,7 +471,7 @@ def _launch_fused(wrapper, grid, pm, im1, win, rwin, rpm, cur, h, w, r, r2, ci, 
     """Check a fused step's inputs; run the plain version on the CPU, else
     launch the kernel and count the launch on ``wrapper``."""
     f = _checked(grid, None, pm, im1, win, rwin, rpm, cur, h, w, r, r, r2, ci, cj, cost)
-    tile = rs.strip_args(strips, grid, cur, h)
+    tile = rs.strip_args(strips, grid, cur, h, w)
     if grid.device.type == "cpu":
         on_strips(_fused_plain, grid, pm, im1=im1, win=win, rwin=rwin, rpm=rpm, cur=cur, h=h,
                   w=w, r=r, r2=r2, ci=ci, cj=cj, lam_mult=lam_mult, cost=cost, strips=strips)

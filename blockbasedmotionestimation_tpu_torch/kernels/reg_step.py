@@ -36,14 +36,15 @@ Layouts (batch written out):
         slots: (B, nch, K, 2) its chunks' slot lists and smap: (B, nch,
         side^2) uint16 their ``ops.compact.slot_map`` (10).
 
-Row strips (the tiled engine): the single steps take ``strips``
+Tiles (the tiled engine): the single steps take ``strips``
 (``ops.regularize.Strips``: each entry's first row in its frame, the
-frame's height and the ghost rows the caller refreshed before the step);
-``ci`` is then the frame's colour row.  On the card that is the round
-kernel's span of one step with the strips' arguments; on the CPU the plain
-step under ``ops.regularize.on_strips``.  A tiled round is a loop of single
-steps (``ops.windowed.rounds_loop``), so each round wrapper names its
-single step as ``.step``.
+frame's height and the ghost rows the caller refreshed before the step; on
+2-D tiles also its first column, the frame's width and the ghost columns
+with their corners); ``(ci, cj)`` is then the frame's colour.  On the card
+that is the round kernel's span of one step with the tiles' arguments; on
+the CPU the plain step under ``ops.regularize.on_strips``.  A tiled round
+is a loop of single steps (``ops.windowed.rounds_loop``), so each round
+wrapper names its single step as ``.step``.
 
 For CPU tensors the wrappers run ``color_step_plain`` (the XLA branch of the
 reference's ``_rounds_loop`` body, in torch; a round loops it) and
@@ -189,13 +190,13 @@ def color_step_plain(
     step_commit(grid, ci, cj, cands, costs, in_window, present, in_img, rank, lam_mult)
 
 
-# a single step's strips (row0_b, ghost, full_h) and its colour, multiplier
-# and stream
-STEP_END = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p]
+# a single step's tiles (row0_b, ghost, full_h, col0_b, ghost_cols, full_w)
+# and its colour, multiplier and stream
+STEP_END = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 # bbme_color_step(grid, cv, cv16, rcv, rcv16, pm, rpm, rank_table, batch, nby,
-#                 nbx, f, cur, h, w, r, r2, row0_b, ghost, full_h, ci, cj, lam,
-#                 stream)
+#                 nbx, f, cur, h, w, r, r2, row0_b, ghost, full_h, col0_b,
+#                 ghost_cols, full_w, ci, cj, lam, stream)
 _STORED_HEAD = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 ARGTYPES = _STORED_HEAD + [ctypes.c_int] * 9 + STEP_END
@@ -229,27 +230,43 @@ def _check_grid(grid, cur, h, w, ci, cj):
         raise ValueError(f"unsupported device {grid.device}")
 
 
-def strip_args(strips: Strips | None, grid: torch.Tensor, cur: int, h: int) -> tuple:
-    """Validate a single step's strips; returns the C entry points'
-    (row0_b, ghost, full_h): (None, None, h) for whole frames."""
+def _check_tile_tensor(name, t, shape, grid):
+    if t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != grid.device:
+        raise ValueError(f"strips.{name} must be {shape} int32 on {grid.device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def strip_args(strips: Strips | None, grid: torch.Tensor, cur: int, h: int, w: int) -> tuple:
+    """Validate a single step's tiles; returns the C entry points'
+    (row0_b, ghost, full_h, col0_b, ghost_cols, full_w): (None, None, h,
+    None, None, w) for whole frames, the last three so for row strips."""
     if strips is None:
-        return None, None, h
-    b, _, nbx, _ = grid.shape
-    row0_b, full_h, ghost = strips
-    if row0_b.dtype != torch.int32 or tuple(row0_b.shape) != (b,) or row0_b.device != grid.device:
-        raise ValueError(f"strips.row0_b must be ({b},) int32 on {grid.device}, got "
-                         f"{row0_b.dtype} {tuple(row0_b.shape)} on {row0_b.device}")
-    if ghost.dtype != torch.int32 or tuple(ghost.shape) != (b, 2, nbx, 2) \
-            or ghost.device != grid.device:
-        raise ValueError(f"strips.ghost must be ({b}, 2, {nbx}, 2) int32 on {grid.device}, got "
-                         f"{ghost.dtype} {tuple(ghost.shape)} on {ghost.device}")
-    if full_h % cur or full_h < h:
-        raise ValueError(f"strips.full_h={full_h} must be a multiple of cur={cur} and >= {h}")
+        return None, None, h, None, None, w
+    b, nby, nbx, _ = grid.shape
+    _check_tile_tensor("row0_b", strips.row0_b, (b,), grid)
+    _check_tile_tensor("ghost", strips.ghost, (b, 2, nbx, 2), grid)
+    if strips.full_h % cur or strips.full_h < h:
+        raise ValueError(f"strips.full_h={strips.full_h} must be a multiple of cur={cur} "
+                         f"and >= {h}")
+    tensors = [strips.row0_b, strips.ghost]
+    cols = strips.col0_b is not None
+    if cols != (strips.ghost_cols is not None) or cols != (strips.full_w is not None):
+        raise ValueError("strips.col0_b, full_w and ghost_cols go together")
+    if cols:
+        _check_tile_tensor("col0_b", strips.col0_b, (b,), grid)
+        _check_tile_tensor("ghost_cols", strips.ghost_cols, (b, 2, nby + 2, 2), grid)
+        if strips.full_w % cur or strips.full_w < w:
+            raise ValueError(f"strips.full_w={strips.full_w} must be a multiple of cur={cur} "
+                             f"and >= {w}")
+        tensors += [strips.col0_b, strips.ghost_cols]
     if grid.device.type != "cuda":
         return ()
-    if not (row0_b.is_contiguous() and ghost.is_contiguous()):
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the strips' tensors must be contiguous")
-    return row0_b.data_ptr(), ghost.data_ptr(), full_h
+    if not cols:
+        return strips.row0_b.data_ptr(), strips.ghost.data_ptr(), strips.full_h, None, None, w
+    return (strips.row0_b.data_ptr(), strips.ghost.data_ptr(), strips.full_h,
+            strips.col0_b.data_ptr(), strips.ghost_cols.data_ptr(), strips.full_w)
 
 
 def _check_volume(name, vol, b, nd, nby, nbx, dev):
@@ -332,7 +349,7 @@ def color_step(
     """One colour step, in place; see the module docstring for layouts
     and ``strips``."""
     args = _stored_args(grid, cv, pm, cur, h, w, r, rcv, rpm, r2, ci, cj)
-    tile = strip_args(strips, grid, cur, h)
+    tile = strip_args(strips, grid, cur, h, w)
     if grid.device.type == "cpu":
         on_strips(color_step_plain, grid, cv, pm, cur=cur, h=h, w=w, r=r, ci=ci, cj=cj,
                   lam_mult=lam_mult, rcv=rcv, rpm=rpm, r2=r2, strips=strips)

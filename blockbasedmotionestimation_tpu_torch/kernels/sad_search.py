@@ -13,9 +13,9 @@ strict-< update); for a CUDA tensor it launches ``csrc/sad_search.cu``
 pixels an instruction), which visits the offsets in no set order with
 (cost, spiral rank) compares.  The two formulations check each other.
 
-``im1`` may be a row strip of its frame (the tiled engine): the centres
-are then the frame's rows and ``full_h`` the frame's height, which the
-in-frame test uses (default: im1's own height).
+``im1`` may be a tile of its frame (the tiled engine): the centres are
+then the frame's rows and columns, and ``full_h`` / ``full_w`` the frame's
+height and width, which the in-frame test uses (default: im1's own).
 
 The kernel computes sad and ssd.  ``cost="zsad"`` (f32 zero-mean SAD,
 ``block_cost``) has no kernel, here or in the reference, which runs it in
@@ -95,14 +95,16 @@ def sad_spiral_argmin_plain(
     ss: int,
     cost: str,
     full_h: int | None = None,
+    full_w: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(best_dy, best_dx), each (B, nblk) int32 in window coordinates
     (0 .. 2S, centre S): the offsets in spiral order, strict < wins.  Costs
     are int32, f32 for zsad (the reference's ``cdt``), masked offsets
     I32_MAX in either.  An offset is masked where its block leaves the
-    frame of ``full_h`` rows (default: im1's)."""
+    frame of ``full_h`` rows and ``full_w`` columns (default: im1's)."""
     _, h, w = im1.shape
     h = h if full_h is None else full_h
+    w = w if full_w is None else full_w
     dys, dxs, ext = spiral_offsets(ss - bs)
     blocks = extract_blocks(im1, bs).to(torch.int32)
     wins = windows.to(torch.int32)
@@ -124,8 +126,9 @@ def sad_spiral_argmin_plain(
 
 
 # bbme_sad_spiral_argmin(im1, windows, cy, cx, rank, out_dy, out_dx, nblk,
-#                        n_per_frame, nbx, h, w, full_h, bs, ext, ssd, stream)
-ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+#                        n_per_frame, nbx, h, w, full_h, full_w, bs, ext, ssd,
+#                        stream)
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 # the launch's shared memory (window + block) must fit a thread block
 SMEM_LIMIT = 227 * 1024
@@ -159,9 +162,10 @@ def sad_spiral_argmin(
     ss: int,
     cost: str,
     full_h: int | None = None,
+    full_w: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 7; see ``sad_spiral_argmin_plain`` for shapes and
-    ``full_h``.  Window k of frame b has its pixel (0, 0) at frame position
+    """Kernel 7; see ``sad_spiral_argmin_plain`` for shapes, ``full_h`` and
+    ``full_w``.  Window k of frame b has its pixel (0, 0) at frame position
     (cy - S, cx - S)."""
     if cost not in ("sad", "ssd"):
         raise NotImplementedError(
@@ -176,6 +180,9 @@ def sad_spiral_argmin(
     full_h = h if full_h is None else int(full_h)
     if full_h < h:
         raise ValueError(f"full_h={full_h} is less than the strip's {h} rows")
+    full_w = w if full_w is None else int(full_w)
+    if full_w < w:
+        raise ValueError(f"full_w={full_w} is less than the tile's {w} columns")
     ext = spiral_offsets(ss - bs)[2]
     win = bs + 2 * ext
     nblk = (h // bs) * (w // bs)
@@ -191,7 +198,7 @@ def sad_spiral_argmin(
         if t.dtype != torch.int32 or tuple(t.shape) != (b, nblk):
             raise ValueError(f"{name} must be ({b}, {nblk}) int32, got {t.dtype} {tuple(t.shape)}")
     if im1.device.type == "cpu":
-        return sad_spiral_argmin_plain(im1, windows, cy, cx, bs, ss, cost, full_h)
+        return sad_spiral_argmin_plain(im1, windows, cy, cx, bs, ss, cost, full_h, full_w)
     if im1.device.type != "cuda":
         raise ValueError(f"unsupported device {im1.device}")
     if smem_bytes(bs, ext) > SMEM_LIMIT:
@@ -207,7 +214,7 @@ def sad_spiral_argmin(
         code = _kernel()(
             im1.data_ptr(), windows.data_ptr(), cy.data_ptr(), cx.data_ptr(),
             _rank_on(ss - bs, im1.device).data_ptr(), out_dy.data_ptr(), out_dx.data_ptr(),
-            b * nblk, nblk, w // bs, h, w, full_h, bs, ext, int(cost == "ssd"), stream,
+            b * nblk, nblk, w // bs, h, w, full_h, full_w, bs, ext, int(cost == "ssd"), stream,
         )
     _build.check(code, "sad_spiral_argmin")
     sad_spiral_argmin.launches += 1

@@ -21,14 +21,15 @@ device, as the reference computes them in XLA:
 ``step_candidates`` and ``step_commit`` are shared with the windowed
 colour steps (``kernels.reg_step``, ``kernels.fused_step``).
 
-Row strips (``parallel.tiled``): a batch entry may be a strip of grid rows
-of its frame, described at each colour step by ``Strips`` (its first row in
-the frame, the frame's height, and the frame's rows just above and below
-it, which the tiled engine's ``cell_exchange`` refreshes before every
-step).  Border cases, presence and the in-frame test then use the frame's
-rows, and a colour row ci of the frame sits at the strip's local rows
-(ci + first row) % 2, ... (``on_strips``).  ``exact`` does not decompose
-into strips.
+Tiles (``parallel.tiled``): a batch entry may be a row strip of its frame,
+or a 2-D tile of it, described at each colour step by ``Strips`` (its first
+row in the frame, the frame's height and the frame's rows just above and
+below it; on 2-D tiles also its first column, the frame's width and the
+frame's columns just left and right of it, corners included), which the
+tiling's exchange (``ops.search.Tiling``) refreshes before every step.  Border cases, presence and the in-frame test then use the
+frame's rows and columns, and a colour (ci, cj) of the frame sits at the
+tile's local rows (ci + first row) % 2, ... and columns (cj + first
+column) % 2, ... (``on_strips``).  ``exact`` does not decompose into tiles.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from blockbasedmotionestimation_tpu_torch.kernels.sad_search import block_cost, extract_blocks
+from blockbasedmotionestimation_tpu_torch.ops.search import Tiling
 
 _BIG_RANK = 127
 _F32_MAX = float(np.finfo(np.float32).max)
@@ -129,41 +131,57 @@ def subdivide(grid: torch.Tensor) -> torch.Tensor:
 
 
 class Strips(NamedTuple):
-    """A batch of row strips at one colour step: entry b holds the rows
+    """A batch of tiles at one colour step: entry b holds the rows
     row0_b[b] .. of its frame (in cells of the step's size), whose height
     is full_h pixels, and ghost[b] the frame's rows just above and below
-    the strip (zeros past the frame's edge)."""
+    the tile (zeros past the frame's edge).  Row strips span the frame's
+    columns and leave the last three fields None; a 2-D tile holds the
+    columns col0_b[b] .. of a frame full_w pixels wide, and ghost_cols[b]
+    the frame's columns just left and right of it over the tile's rows -1
+    .. nby (the corners: the diagonal neighbours' cells)."""
 
     row0_b: torch.Tensor  # (B,) int32
     full_h: int
     ghost: torch.Tensor   # (B, 2, nbx, 2) int32
+    col0_b: torch.Tensor | None = None      # (B,) int32
+    full_w: int | None = None
+    ghost_cols: torch.Tensor | None = None  # (B, 2, nby + 2, 2) int32
+
+    def take(self, idx: torch.Tensor) -> "Strips":
+        """The entries ``idx`` of the batch."""
+        return Strips(*(f[idx] if isinstance(f, torch.Tensor) else f for f in self))
 
 
-def strips_at(grid: torch.Tensor, row0: torch.Tensor, cur: int, full_h: int,
-              cell_exchange) -> Strips:
+def strips_at(grid: torch.Tensor, tiling: Tiling, cur: int) -> Strips:
     """The ``Strips`` of ``grid`` (B, nby, nbx, 2) at one step: its first
-    and last rows sent to the neighbouring strips by ``cell_exchange``,
-    theirs received as the ghost rows; row0 (B,) the strips' first pixel
-    rows."""
-    north, south = cell_exchange(grid[:, 0], grid[:, -1])
-    return Strips(row0 // cur, full_h, torch.stack([north, south], dim=1).contiguous())
+    and last rows (and on 2-D tiles its first and last columns) sent to
+    the neighbouring tiles, theirs received as the ghost rows (columns)."""
+    north, south, west, east = tiling.exchange(grid)
+    ghost = torch.stack([north, south], dim=1).contiguous()
+    if west is None:
+        return Strips(tiling.row0 // cur, tiling.full_h, ghost)
+    return Strips(tiling.row0 // cur, tiling.full_h, ghost, tiling.col0 // cur, tiling.full_w,
+                  torch.stack([west, east], dim=1).contiguous())
 
 
-def on_strips(step, grid: torch.Tensor, *args, ci: int, strips: Strips | None, **kw) -> None:
+def on_strips(step, grid: torch.Tensor, *args, ci: int, cj: int, strips: Strips | None,
+              **kw) -> None:
     """Run the plain colour step ``step`` (in place on ``grid``, colour
-    row ``ci`` in the grid's own rows) for the frame's colour row ``ci``:
-    a strip whose first row is odd takes local colour row 1 - ci.  Entries
-    of one local colour run together; the others (and their batch-first
+    (ci, cj) in the grid's own rows and columns) for the frame's colour
+    (ci, cj): a tile whose first row is odd takes local colour row 1 - ci,
+    one whose first column is odd local colour column 1 - cj.  Entries of
+    one local colour run together; the others (and their batch-first
     tensor arguments) are taken apart and written back."""
     if strips is None:
-        step(grid, *args, ci=ci, **kw)
+        step(grid, *args, ci=ci, cj=cj, **kw)
         return
     b = grid.shape[0]
     lci = (ci + strips.row0_b) % 2
-    for p in (0, 1):
-        sel = lci == p
+    lcj = cj if strips.col0_b is None else (cj + strips.col0_b) % 2
+    for p, q in COLORS:
+        sel = (lci == p) & (lcj == q)
         if bool(sel.all()):
-            step(grid, *args, ci=p, strips=strips, **kw)
+            step(grid, *args, ci=p, cj=q, strips=strips, **kw)
             return
         if not bool(sel.any()):
             continue
@@ -177,8 +195,7 @@ def on_strips(step, grid: torch.Tensor, *args, ci: int, strips: Strips | None, *
             return t[idx]
 
         sub = grid[idx]
-        step(sub, *map(take, args), ci=p,
-             strips=Strips(strips.row0_b[idx], strips.full_h, strips.ghost[idx]),
+        step(sub, *map(take, args), ci=p, cj=q, strips=strips.take(idx),
              **{k: take(v) for k, v in kw.items()})
         grid[idx] = sub
 
@@ -193,9 +210,11 @@ def step_candidates(
     the grid), rank (m, n, 9) tie-break ranks, present (m, n, 9) and in_img
     (B, m, n, 9): the candidate's target block lies in the h x w frame.
     The cells are rows ci::stride, cols cj::stride (stride 1: every cell).
-    With ``strips`` the grid is a batch of row strips: rows -1 and nby read
-    the ghost rows, the frame's rows and height (``strips.full_h``) decide,
-    and rank and present gain the batch dim.
+    With ``strips`` the grid is a batch of tiles: rows -1 and nby read the
+    ghost rows (on 2-D tiles columns -1 and nbx the ghost columns, corners
+    included), the frame's rows and height (``strips.full_h``; columns and
+    width ``strips.full_w``) decide, and rank and present gain the batch
+    dim.
     """
     _, nby, nbx, _ = grid.shape
     dev = grid.device
@@ -209,6 +228,11 @@ def step_candidates(
         gp[:, -1, 1:-1] = strips.ghost[:, 1]
         gi = strips.row0_b.long()[:, None, None] + gi  # (B, m, 1) the frame's rows
         h = strips.full_h
+        if strips.col0_b is not None:
+            gp[:, :, 0] = strips.ghost_cols[:, 0]
+            gp[:, :, -1] = strips.ghost_cols[:, 1]
+            gj = strips.col0_b.long()[:, None, None] + gj  # (B, 1, n) the frame's cols
+            w = strips.full_w
     nby_t, nbx_t = h // cur, w // cur
     cands = torch.stack(
         [
@@ -260,13 +284,14 @@ def step_commit(
 
 def target_costs(
     blocks: torch.Tensor,  # (B, m, n, cur, cur) frame-1 blocks of the cells
-    im2: torch.Tensor,     # (B, hb, w) u8 frame 2 (a strip's buffer: rows from im2_row0)
+    im2: torch.Tensor,     # (B, hb, wb) u8 frame 2 (a tile's buffer: from im2_row0, im2_col0)
     cands: torch.Tensor,   # (B, m, n, 9, 2) int32 candidate MVs
     gi: torch.Tensor,      # (m, 1) or (B, m, 1) block rows of the cells in the frame
-    gj: torch.Tensor,      # (1, n) block cols
+    gj: torch.Tensor,      # (1, n) or (B, 1, n) block cols
     cur: int,
     cost: str,
     im2_row0=0,            # int or (B,): the frame's row of im2's row 0
+    im2_col0=0,            # int or (B,): the frame's column of im2's column 0
 ) -> torch.Tensor:
     """(B, m, n, 9) int32 cost of each cell's block against the frame-2
     block at origin + candidate, its position clipped into the buffer (an
@@ -275,8 +300,10 @@ def target_costs(
     ar = torch.arange(cur, device=im2.device)
     if isinstance(im2_row0, torch.Tensor):
         im2_row0 = im2_row0.reshape(b, 1, 1, 1)
+    if isinstance(im2_col0, torch.Tensor):
+        im2_col0 = im2_col0.reshape(b, 1, 1, 1)
     by = ((gi * cur)[..., None] + cands[..., 1] - im2_row0).clamp(0, h - cur)
-    bx = ((gj * cur)[..., None] + cands[..., 0]).clamp(0, w - cur)
+    bx = ((gj * cur)[..., None] + cands[..., 0] - im2_col0).clamp(0, w - cur)
     bidx = torch.arange(b, device=im2.device).reshape(b, 1, 1, 1, 1, 1)
     flat = (bidx * h + (by[..., None, None] + ar[:, None])) * w + (bx[..., None, None] + ar)
     tgt = im2.reshape(-1)[flat]  # (B, m, n, 9, cur, cur)
@@ -296,13 +323,14 @@ def update_color(
     cost: str,
     strips: Strips | None = None,
     im2_row0=0,
+    im2_col0=0,
 ) -> None:
     """One step: the cells of rows ci::stride, cols cj::stride take their
     winning candidate (stride 2: a fourcolor colour; stride 1: a Jacobi
     pass).  Candidates are read before any cell is written.  With
-    ``strips``, im2 is each strip's frame-2 buffer, whose row 0 is the
-    frame's row ``im2_row0``."""
-    w = im2.shape[2]
+    ``strips``, im2 is each tile's frame-2 buffer, whose row 0 is the
+    frame's row ``im2_row0`` and column 0 the frame's column ``im2_col0``."""
+    w = grid.shape[2] * cur
     h = grid.shape[1] * cur
     cands, rank, present, in_img = step_candidates(grid, cur, h, w, ci, cj, stride, strips)
     m, n = cands.shape[1:3]
@@ -313,8 +341,10 @@ def update_color(
     gj = cj + stride * torch.arange(n, device=dev)[None, :]
     if strips is not None:
         gi = strips.row0_b.long()[:, None, None] + gi
+        if strips.col0_b is not None:
+            gj = strips.col0_b.long()[:, None, None] + gj
     costs = target_costs(blocks[:, ci::stride, cj::stride], im2, cands, gi, gj, cur, cost,
-                         im2_row0)
+                         im2_row0, im2_col0)
     # every candidate inside the frame is evaluable
     step_commit(grid, ci, cj, cands, costs, in_img, present, in_img, rank, lam_mult, stride)
 
@@ -407,10 +437,7 @@ def run_schedule(
     mode: str,
     *,
     cost: str = "sad",
-    full_h: int | None = None,
-    row0=0,
-    im2_row0=0,
-    cell_exchange=None,
+    tiling: Tiling | None = None,
 ) -> torch.Tensor:
     """The level's regularization (``motion_framework.cpp:141-152``): while
     the block size is > 1, ``sweeps_per_round`` sweeps with lambda
@@ -422,16 +449,15 @@ def run_schedule(
     Odd grids need no padding here: a colour's cells are sliced from the
     real grid, and the global bounds mask candidates beyond it.
 
-    Row strips (the tiled engine): ``cell_exchange(top, bottom)`` returns
-    the neighbouring strips' (north, south) edge rows, called before every
-    step (the reference's ``make_gp``: the grid with its neighbours' rows);
-    ``full_h`` is the frame's height, ``row0`` (B,) each strip's first
-    pixel row in it and ``im2_row0`` (B,) the first row of its frame-2
-    buffer ``im2``.  ``exact`` refuses strips.
+    Tiles (the tiled engine, ``tiling``): ``im2`` is each tile's frame-2
+    buffer, and the tiling's exchange gives the neighbouring tiles' edge
+    rows (on 2-D tiles also their edge columns with the corners) before
+    every step (the reference's ``make_gp`` / ``cell_exchange_2d``).
+    ``exact`` refuses tiles.
     """
-    tiled = cell_exchange is not None
+    b = grid.shape[0]
     if mode == "exact":
-        if tiled:
+        if tiling is not None:
             raise ValueError("regularizer='exact' is a whole-frame raster sweep and cannot be "
                              "row-tiled")
         cur, lam = bs, lam0
@@ -448,24 +474,21 @@ def run_schedule(
         colors, stride = COLORS, 2
     else:
         raise ValueError(f"unknown regularizer mode: {mode}")
-    b = grid.shape[0]
     grid = grid.clone()
+    im2_row0, im2_col0 = (0, 0) if tiling is None else (tiling.im2_row0, tiling.im2_col0)
     cur, lam = bs, lam0
-    if tiled:
-        row0 = torch.as_tensor(row0, dtype=torch.int32, device=grid.device).expand(b)
     while cur > 1:
         nby, nbx = grid.shape[1:3]
         blocks = extract_blocks(im1, cur).reshape(b, nby, nbx, cur, cur)
         for sweep in range(sweeps_per_round):
             for ci, cj in colors:
-                strips = strips_at(grid, row0, cur, full_h, cell_exchange) if tiled else None
-                step = dict(cur=cur, lam_mult=lam * (sweep + 1), cj=cj, stride=stride, cost=cost)
+                strips = strips_at(grid, tiling, cur) if tiling is not None else None
+                step = dict(cur=cur, lam_mult=lam * (sweep + 1), stride=stride, cost=cost,
+                            strips=strips, im2_row0=im2_row0, im2_col0=im2_col0)
                 if stride == 1:
-                    update_color(grid, blocks, im2, ci=ci, strips=strips, im2_row0=im2_row0,
-                                 **step)
+                    update_color(grid, blocks, im2, ci=ci, cj=cj, **step)
                 else:
-                    on_strips(update_color, grid, blocks, im2, ci=ci, strips=strips,
-                              im2_row0=im2_row0, **step)
+                    on_strips(update_color, grid, blocks, im2, ci=ci, cj=cj, **step)
         grid = subdivide(grid)
         cur >>= 1
         lam *= 2.0

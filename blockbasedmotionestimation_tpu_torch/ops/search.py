@@ -12,15 +12,17 @@ argmin is ``kernels.sad_search`` (kernel 7), or the exhaustive raster scan
 spiral argmin's plain version on every device, with f32 costs, as the
 reference runs zsad in XLA only.
 
-On a row strip (the tiled engine) ``im1`` is the strip, ``im2`` its frame-2
-buffer (the strip and its halo rows), ``full_h`` the frame's height,
-``row0`` (int or (B,) per entry) the strip's first row in the frame and
-``im2_row0`` the buffer's: block origins, centres and the in-frame tests
-are the frame's, windows are cut from the buffer at centre - im2_row0
-(reference ``block_search_level(full_h=, row0=, im2_row0=)``).
+On tiles (the tiled engine, ``tiling``: a ``Tiling``) ``im1`` is a batch
+of tiles, ``im2`` their frame-2 buffers (each tile and its halo rows, and
+on 2-D tiles its halo columns): block origins, centres and the in-frame
+tests are the frame's, windows are cut from the buffer at centre -
+(im2_row0, im2_col0) (reference ``block_search_level(full_h=, row0=,
+im2_row0=, full_w=, col0=, im2_col0=)``).
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +39,37 @@ from blockbasedmotionestimation_tpu_torch.kernels.sad_search import (
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
 
 _I32_MAX = int(np.iinfo(np.int32).max)
+
+
+class Tiling(NamedTuple):
+    """A level's batch of tiles in its frame (``parallel.tiled``): each
+    entry's first pixel row (B,) and its frame-2 buffer's, the frame's
+    height, the same for columns (ints 0 and the tiles' width on row
+    strips, which span the frame's columns), ``exchange(grid) -> (north,
+    south, west, east)``, the ghost rows of a (B, nby, nbx, 2) grid and on
+    2-D tiles its ghost columns over rows -1 .. nby (the corners; None on
+    row strips), refreshed before every colour step, and
+    ``rival_extend(vals)``, the search winners with a ring of one from the
+    neighbouring tiles (``ops.windowed.pick_rival``)."""
+
+    row0: torch.Tensor
+    im2_row0: torch.Tensor
+    full_h: int
+    col0: torch.Tensor | int
+    im2_col0: torch.Tensor | int
+    full_w: int
+    exchange: Callable
+    rival_extend: Callable
+
+
+def frame_of(tiling: Tiling | None, ht: int, wt: int):
+    """(full_h, row0, im2_row0, full_w, col0, im2_col0) of a level's batch
+    of ht x wt entries: the tiling's, or a whole frame's (ht, 0, 0, wt, 0,
+    0)."""
+    if tiling is None:
+        return ht, 0, 0, wt, 0, 0
+    return (tiling.full_h, tiling.row0, tiling.im2_row0, tiling.full_w, tiling.col0,
+            tiling.im2_col0)
 
 
 def gather_windows(
@@ -57,21 +90,33 @@ def gather_windows(
     return wins, by, bx
 
 
-def block_origins(npy: int, npx: int, bs: int, dev, row0=0) -> tuple[torch.Tensor, torch.Tensor]:
+def block_origins(npy: int, npx: int, bs: int, dev, row0=0,
+                  col0=0) -> tuple[torch.Tensor, torch.Tensor]:
     """(1, npy, 1) and (1, 1, npx) int32 block origin rows and cols in the
-    frame; rows (B, npy, 1) where ``row0`` is a (B,) tensor of strips'
-    first rows."""
+    frame; rows (B, npy, 1) where ``row0`` is a (B,) tensor of tiles'
+    first rows, cols (B, 1, npx) where ``col0`` is one of first cols."""
     oy = (torch.arange(npy, device=dev, dtype=torch.int32) * bs)[None, :, None]
     ox = (torch.arange(npx, device=dev, dtype=torch.int32) * bs)[None, None, :]
-    return shift_rows(oy, row0), ox
+    return shifted(oy, row0), shifted(ox, col0)
 
 
-def shift_rows(t: torch.Tensor, rows) -> torch.Tensor:
-    """t (B, npy, npx) + rows: an int, or a (B,) tensor of strips'
-    offsets; t itself for 0 (whole frames launch nothing more)."""
-    if isinstance(rows, torch.Tensor):
-        return t + rows.reshape(-1, 1, 1).to(torch.int32)
-    return t + rows if rows else t
+def shifted(t: torch.Tensor, off) -> torch.Tensor:
+    """t (B, npy, npx) + off: an int, or a (B,) tensor of tiles' row or
+    column offsets; t itself for 0 (whole frames launch nothing more)."""
+    if isinstance(off, torch.Tensor):
+        return t + off.reshape(-1, 1, 1).to(torch.int32)
+    return t + off if off else t
+
+
+def frame_cols(cx: torch.Tensor, full_w: int, bs: int, im2_col0) -> torch.Tensor:
+    """Window origin columns cx (frame columns) in a tile's frame-2 buffer:
+    clipped to the frame's block range first, then moved to the buffer
+    (reference ``clip(clip(cx, 0, w - bs) - im2_col0, ...)``; the gather
+    clips into the buffer).  For whole frames and row strips the buffer's
+    columns are the frame's, and cx itself is returned."""
+    if isinstance(im2_col0, torch.Tensor) or im2_col0:
+        return shifted(cx.clamp(0, full_w - bs), -im2_col0)
+    return cx
 
 
 def block_search_level(
@@ -83,27 +128,25 @@ def block_search_level(
     *,
     order: str = "spiral",
     cost: str = "sad",
-    full_h: int | None = None,
-    row0=0,
-    im2_row0=0,
+    tiling: Tiling | None = None,
 ) -> torch.Tensor:
     """One level's search: (B, nby, nbx, 2) int32 winning MVs (u, v).
 
     Spiral: the centre is origin + the prediction truncated toward zero; a
     centre whose block leaves the frame gives a zero MV; otherwise the
     minimum cost over the centre's [-S, S]^2 offsets, ties to the earliest
-    spiral visit, out-of-frame offsets skipped.  Row strips: see the module
+    spiral visit, out-of-frame offsets skipped.  Tiles: see the module
     docstring.
     """
     if order == "raster":
-        return _raster_search_level(im1, im2, pred, bs, ss, cost, full_h, row0, im2_row0)
+        return _raster_search_level(im1, im2, pred, bs, ss, cost, tiling)
     if order != "spiral":
         raise ValueError(f"unknown search order: {order}")
-    b, ht, w = im1.shape
-    h = ht if full_h is None else full_h
-    nby, nbx = ht // bs, w // bs
+    b, ht, wt = im1.shape
+    h, row0, im2_row0, w, col0, im2_col0 = frame_of(tiling, ht, wt)
+    nby, nbx = ht // bs, wt // bs
     ext = spiral_extent(ss - bs)
-    oy, ox = block_origins(nby, nbx, bs, im1.device, row0)
+    oy, ox = block_origins(nby, nbx, bs, im1.device, row0, col0)
     cy = oy + pred[..., 1].to(torch.int32)
     cx = ox + pred[..., 0].to(torch.int32)
     center_ok = (cy >= 0) & (cy <= h - bs) & (cx >= 0) & (cx <= w - bs)
@@ -112,12 +155,12 @@ def block_search_level(
     # these centres lie in the frame, and inside the buffer while the halo
     # covers the reach: the gather's clip leaves them be, so each window is
     # centred on its (cy, cx)
-    windows = gather_windows(im2, shift_rows(cy, -im2_row0), cx, bs, ext)[0]
+    windows = gather_windows(im2, shifted(cy, -im2_row0), shifted(cx, -im2_col0), bs, ext)[0]
     # zsad has no kernel (nor in the reference, which runs it in XLA): its
     # argmin is the plain version on every device
     argmin = sad_spiral_argmin_plain if cost == "zsad" else _sad_argmin
     best_dy, best_dx = argmin(im1, windows, cy.reshape(b, -1).contiguous(),
-                              cx.reshape(b, -1).contiguous(), bs, ss, cost, h)
+                              cx.reshape(b, -1).contiguous(), bs, ss, cost, h, w)
     u = cx + best_dx.reshape(b, nby, nbx) - ext - ox
     v = cy + best_dy.reshape(b, nby, nbx) - ext - oy
     return torch.where(center_ok[..., None], torch.stack([u, v], dim=-1), 0).to(torch.int32)
@@ -130,9 +173,7 @@ def _raster_search_level(
     bs: int,
     ss: int,
     cost: str,
-    full_h: int | None = None,
-    row0=0,
-    im2_row0=0,
+    tiling: Tiling | None = None,
 ) -> torch.Tensor:
     """The reference's exhaustive raster search (``motion_framework.cpp:246-294``).
 
@@ -143,23 +184,24 @@ def _raster_search_level(
     zero-MV early-out: a window clipped away entirely keeps the predicted
     position.  Plain torch on every device (the reference runs it in XLA).
     """
-    b, ht, w = im1.shape
-    h = ht if full_h is None else full_h
-    nby, nbx = ht // bs, w // bs
+    b, ht, wt = im1.shape
+    h, row0, im2_row0, w, col0, im2_col0 = frame_of(tiling, ht, wt)
+    nby, nbx = ht // bs, wt // bs
     sp = (ss - bs) >> 1
-    oy, ox = block_origins(nby, nbx, bs, im1.device, row0)
+    oy, ox = block_origins(nby, nbx, bs, im1.device, row0, col0)
     cy = (oy + pred[..., 1].to(torch.int32)).reshape(b, -1)  # unclamped centres
     cx = (ox + pred[..., 0].to(torch.int32)).reshape(b, -1)
     blocks = extract_blocks(im1, bs).to(torch.int32)
-    # the reference clips the column twice (the tiled form's local buffer)
+    # the reference clips the column twice: to the frame, then to the buffer
     wins, by, bx = gather_windows(
-        im2, shift_rows(cy.reshape(b, nby, nbx), -im2_row0),
-        cx.clamp(0, w - bs).reshape(b, nby, nbx), bs, sp
+        im2, shifted(cy.reshape(b, nby, nbx), -im2_row0),
+        shifted(cx.clamp(0, w - bs).reshape(b, nby, nbx), -im2_col0), bs, sp
     )
     wins = wins.to(torch.int32)
-    cyc, cxc = shift_rows(by, im2_row0).reshape(b, -1), bx.reshape(b, -1)
+    cyc = shifted(by, im2_row0).reshape(b, -1)
+    cxc = shifted(bx, im2_col0).reshape(b, -1)
     oy1 = oy.expand(oy.shape[0], nby, nbx).reshape(oy.shape[0], -1)
-    ox1 = ox.expand(1, nby, nbx).reshape(1, -1)
+    ox1 = ox.expand(ox.shape[0], nby, nbx).reshape(ox.shape[0], -1)
     lo_y, hi_y = cy.sub(sp).clamp(min=0), cy.add(sp).clamp(max=h - bs)
     lo_x, hi_x = cx.sub(sp).clamp(min=0), cx.add(sp).clamp(max=w - bs)
     cdt = torch.float32 if cost == "zsad" else torch.int32  # zsad is f32-valued

@@ -96,7 +96,20 @@ Phases (any failure raises and the script exits non-zero):
      B=2 (``B9``) equal to untiled, launches counted, each timed beside its
      untiled batch (and the auto pair beside its untiled run); then one colour step
      of D, E and F and kernel 7 on those strips (strips starting on odd
-     frame rows) against their plain versions, timed beside them.
+     frame rows) against their plain versions, timed beside them.  Then the
+     2-D tiling on a (ty=2, tx=2) mesh (the ghost rows and the ghost
+     columns with their corners exchanged between steps): the default on
+     phase 4's B=8 pairs (levels 0-2 on 2-D tiles, level 3 whole-frame; each
+     level's rows_ok / cols_ok printed) equal to untiled, its launches
+     counted from 0 as written down before the run (8 single steps a round
+     on the 3 tiled levels), its fields/s and idle share beside the untiled
+     batch's; the two-motion pairs; ``estimate_flow_tiled_auto`` with
+     ``axis_x`` (2 pairs, no cap needed); fourcolor, search-centred and
+     cv_fused=4 at B=2, each equal to untiled with its launches counted;
+     and one colour step of D, E, F and 12 and kernel 7 on 2-D tiles whose
+     first row and column are odd, against their plain versions, timed
+     beside them (rows D, E, F, 12 and 7 of the JSON line gain
+     ``tiles2d_*`` keys).
 The line before the last is a JSON object with one entry per TPU kernel
 row (A, B, C, D, D', E, F, 8, 9, 7, 11, 12, 13, 14, 10; ``launches`` from
 the default path, else from the first path that runs the row); the last is
@@ -1260,13 +1273,20 @@ def _median_s(torch, run, reps: int) -> float:
     return float(np.median(times))
 
 
-def _tiled_kernels(torch, dev, cfg, im1, im2, card: str, results: dict) -> None:
-    """Phase 9's kernel checks: one colour step of D, E and F on the row
-    strips of the tiled default path (the calls recorded on one batch; D at
-    level 2, whose 5-row strips start on odd rows, E and F at level 0 moved
-    one row down the frame, so their strips start on odd rows too), and
-    kernel 7 on the strips of the tiled fourcolor path (level 0), each
-    against its plain version on the same CUDA inputs, timed beside it."""
+def _tiled_kernels(torch, dev, cfg, im1, im2, card: str, results: dict, mesh, axis_x=None,
+                   key: str = "tiled") -> None:
+    """Phase 9's kernel checks on ``mesh``'s tiles (row strips, or 2-D
+    tiles with ``axis_x``): one colour step of D, E and F on the tiles of
+    the tiled default path (the calls recorded on the main path's B pairs,
+    so on as many tiles as it runs; D at level 2, E and F at level 0), 12
+    on those of the cv_fused=4 path on 2-D tiles and kernel 7 on those of
+    the tiled fourcolor path (level 0; both recorded on the B9 pairs those
+    paths run), each against its plain version on the same CUDA inputs,
+    timed beside it.
+    Row strips: E and F moved one row down the frame, so their strips start
+    on odd rows (D's 5-row strips at level 2 alternate); 2-D tiles: every
+    step moved one row down and one column right, so the first tile's first
+    row and column are odd.  The results go to the rows' ``key``_* entries."""
     from blockbasedmotionestimation_tpu_torch.kernels import fused_step, reg_step, sad_search
     from blockbasedmotionestimation_tpu_torch.ops import regularize, search, windowed
     from blockbasedmotionestimation_tpu_torch.parallel import tiled
@@ -1279,38 +1299,51 @@ def _tiled_kernels(torch, dev, cfg, im1, im2, card: str, results: dict) -> None:
             return fn(*a, **k)
         return wrapped
 
-    mesh = tiled.Mesh((1, TILES))
-    # the rounds call each round wrapper's .step on strips: spy on those
-    rounds = {n: getattr(windowed, n) for n in ("color_round_stored", "color_round_hybrid",
-                                                "color_round_hybrid_tail")}
+    def run(c, n):
+        tiled.estimate_flow_padded_batch_tiled(im1[:n], im2[:n], c, mesh, axis_x=axis_x)
+
+    # the rounds call each round wrapper's .step on tiles: spy on those
+    names = ["color_round_stored", "color_round_hybrid", "color_round_hybrid_tail"]
+    if axis_x:
+        names.append("color_round_fused_rival")
+    rounds = {n: getattr(windowed, n) for n in names}
     saved = {n: fn.step for n, fn in rounds.items()}
     for n, fn in rounds.items():
         fn.step = spy(STEP_OF[n], saved[n])
     try:
-        tiled.estimate_flow_padded_batch_tiled(im1[:B9], im2[:B9], cfg, mesh)
+        run(cfg, B)
+        if axis_x:
+            run(cfg.replace(cv_fused=FUSE), B9)
     finally:
         for n, fn in rounds.items():
             fn.step = saved[n]
-    # kernel 7 on the fourcolor path's strips
-    argmin = search._sad_argmin
-    with _swapped(search, _sad_argmin=spy("sad_spiral_argmin", argmin)):
-        tiled.estimate_flow_padded_batch_tiled(im1[:B9], im2[:B9],
-                                               cfg.replace(regularizer="fourcolor"), mesh)
+    # kernel 7 on the fourcolor path's tiles
+    with _swapped(search, _sad_argmin=spy("sad_spiral_argmin", search._sad_argmin)):
+        run(cfg.replace(regularizer="fourcolor"), B9)
     torch.cuda.synchronize()
 
     def shifted(st, cur):
-        """The strips moved one row down a frame one row taller: odd first rows."""
-        return regularize.Strips(st.row0_b + 1, st.full_h + cur, st.ghost)
+        """The tiles moved one row down (and on 2-D tiles one column right)
+        a frame one row (column) larger: odd first rows (columns)."""
+        if st.col0_b is None:
+            return regularize.Strips(st.row0_b + 1, st.full_h + cur, st.ghost)
+        return regularize.Strips(st.row0_b + 1, st.full_h + cur, st.ghost, st.col0_b + 1,
+                                 st.full_w + cur, st.ghost_cols)
 
-    checks = (
+    checks = [
         ("D", "color_step", reg_step.color_step, reg_step.color_step_plain,
-         lambda ks: [k for k in ks if k[1]["cur"] == 32 and k[0][0].shape[1] % 2][0], False),
+         lambda ks: [k for k in ks if k[1]["cur"] == 32 and k[0][0].shape[1] % 2][0],
+         bool(axis_x)),
         ("E", "color_step_hybrid", fused_step.color_step_hybrid,
          fused_step.color_step_hybrid_plain, lambda ks: [k for k in ks if k[1]["cur"] == 4][-4],
          True),
         ("F", "color_step_hybrid_tail", fused_step.color_step_hybrid_tail,
          fused_step.color_step_hybrid_tail_plain, lambda ks: ks[-4], True),
-    )
+    ]
+    if axis_x:
+        checks.append(("12", "color_step_fused_rival", fused_step.color_step_fused_rival,
+                       fused_step.color_step_fused_rival_plain,
+                       lambda ks: [k for k in ks if k[1]["cur"] == 4][-4], True))
     for row, name, kernel, plain, pick, shift in checks:
         a, k = pick(calls[name])
         k = dict(k)
@@ -1318,6 +1351,7 @@ def _tiled_kernels(torch, dev, cfg, im1, im2, card: str, results: dict) -> None:
             k["strips"] = shifted(k["strips"], k["cur"])
         st = k["strips"]
         odd = int((st.row0_b % 2).sum())
+        odd_c = 0 if st.col0_b is None else int((st.col0_b % 2).sum())
         g0 = a[0].clone()
         gk, gp = g0.clone(), g0.clone()
         kernel(gk, *a[1:], **k)
@@ -1327,24 +1361,26 @@ def _tiled_kernels(torch, dev, cfg, im1, im2, card: str, results: dict) -> None:
         ms = _cuda_ms(torch, lambda: kernel(g0.clone(), *a[1:], **k), 5)
         pms = _cuda_ms(torch, lambda: regularize.on_strips(plain, g0.clone(), *a[1:], strips=st,
                                                            **kw), 1)
-        print(f"[tiled] {row} on {g0.shape[0]} strips at cur={k['cur']}, colour "
-              f"({k['ci']}, {k['cj']}), {odd} strips starting on odd rows: max_abs_err {err}; "
-              f"{ms:.4f} ms, plain {pms:.4f} ms ({card})")
-        results[row].update(tiled_max_abs_err=err, tiled_step_ms=ms, tiled_step_plain_ms=pms)
+        print(f"[{key}] {row} on {g0.shape[0]} tiles of {g0.shape[1]}x{g0.shape[2]} cells at "
+              f"cur={k['cur']}, colour ({k['ci']}, {k['cj']}), {odd} tiles starting on odd "
+              f"rows, {odd_c} on odd columns: max_abs_err {err}; {ms:.4f} ms, plain "
+              f"{pms:.4f} ms ({card})")
+        results[row].update({f"{key}_max_abs_err": err, f"{key}_step_ms": ms,
+                             f"{key}_step_plain_ms": pms})
         if err:
-            raise AssertionError(f"[tiled] {row} on strips differs from its plain version")
+            raise AssertionError(f"[{key}] {row} on tiles differs from its plain version")
     a, k = calls["sad_spiral_argmin"][-1]
-    full_h = a[-1]
+    full_h, full_w = a[-2], a[-1]
     got = sad_search.sad_spiral_argmin(*a, **k)
     want = sad_search.sad_spiral_argmin_plain(*a, **k)
     err = max(_max_abs_err(torch, got[0], want[0]), _max_abs_err(torch, got[1], want[1]))
     ms = _cuda_ms(torch, lambda: sad_search.sad_spiral_argmin(*a, **k), 5)
     pms = _cuda_ms(torch, lambda: sad_search.sad_spiral_argmin_plain(*a, **k), 1)
-    print(f"[tiled] 7 on {a[0].shape[0]} strips of {a[0].shape[1]} rows (frame {full_h}): "
-          f"max_abs_err {err}; {ms:.4f} ms, plain {pms:.4f} ms ({card})")
-    results["7"].update(tiled_max_abs_err=err, tiled_ms=ms, tiled_plain_ms=pms)
+    print(f"[{key}] 7 on {a[0].shape[0]} tiles of {a[0].shape[1]}x{a[0].shape[2]} (frame "
+          f"{full_h}x{full_w}): max_abs_err {err}; {ms:.4f} ms, plain {pms:.4f} ms ({card})")
+    results["7"].update({f"{key}_max_abs_err": err, f"{key}_ms": ms, f"{key}_plain_ms": pms})
     if err:
-        raise AssertionError("[tiled] kernel 7 on strips differs from its plain version")
+        raise AssertionError(f"[{key}] kernel 7 on tiles differs from its plain version")
 
 
 def _tiling_phase(torch, engine, cfg, counters: dict, dev, card: str, main_rate: float,
@@ -1449,7 +1485,107 @@ def _tiling_phase(torch, engine, cfg, counters: dict, dev, card: str, main_rate:
               f"{time.time() - t0:.1f} s")
     del got
     torch.cuda.empty_cache()
-    _tiled_kernels(torch, dev, cfg, a, b, card, results)
+    _tiled_kernels(torch, dev, cfg, a, b, card, results, mesh)
+    torch.cuda.empty_cache()
+    _tiles_2d(torch, engine, cfg, counters, card, results, a, b, p, main_rate)
+
+
+TY2, TX2 = 2, 2  # phase 9's 2-D mesh
+
+
+def _tiles_2d(torch, engine, cfg, counters: dict, card: str, results: dict, a, b, p,
+              main_rate: float) -> None:
+    """Phase 9, 2-D part: the (ty=2, tx=2) tiling on the in-process
+    transport at 1080x1920 (padded a, b: phase 4's B=8 pairs)."""
+    from blockbasedmotionestimation_tpu_torch.ops import pad as pad_ops
+    from blockbasedmotionestimation_tpu_torch.parallel import tiled
+
+    t0 = time.time()
+    mesh = tiled.Mesh((1, TY2, TX2), ("batch", "ty", "tx"))
+    plan = tiled.plan_tiling(cfg, p.padded_h, p.padded_w, TY2, TX2)
+    print(f"[tiled 2d] default, {TY2}x{TX2} tiles, {p.padded_h}x{p.padded_w}: "
+          + ", ".join(f"level {e['level']} rows_ok {e['rows_ok']} cols_ok {e['cols_ok']} (halo "
+                      f"{e['halo']}, tile {e['strip_h']}x{e['strip_w']})" for e in plan))
+    if [(e["rows_ok"], e["cols_ok"]) for e in plan] != [(True, True)] * 3 + [(False, True)]:
+        raise AssertionError("levels 0-2 should run on 2-D tiles and level 3 whole-frame")
+    # levels 0-2 run as single steps (8 a round), on 2-D tiles; level 3's
+    # rounds stay one launch each
+    want = _want_tiled(WANT_LAUNCHES, cfg.num_levels, 3, cfg.sweeps_per_round)
+    print(f"[tiled 2d] launches expected a batch of {B}: { {n: c for n, c in want.items() if c} }")
+
+    def run():
+        return tiled.estimate_flow_padded_batch_tiled(a, b, cfg, mesh, axis_x="tx")
+
+    def untiled_run():
+        return engine.estimate_flow_padded(a, b, cfg)
+
+    got = _counted(counters, want, "tiled 2d", run)
+    _equal_flows(torch, got, untiled_run(), f"the untiled flow ({TY2}x{TX2} tiles, default)",
+                 "tiled 2d")
+    del got
+    tiled_s = _median_s(torch, run, 5)
+    untiled_s = _median_s(torch, untiled_run, 5)
+    dev_t = _device_ms(torch, run)
+    dev_u = _device_ms(torch, untiled_run)
+    print(f"[tiled 2d] B={B}: {TY2}x{TX2} tiles {B / tiled_s:.3f} fields/s (median of 5, "
+          f"{tiled_s * 1e3:.3f} ms), device {dev_t:.3f} ms, idle share "
+          f"{1 - dev_t / (tiled_s * 1e3):.4f}; untiled {B / untiled_s:.3f} fields/s "
+          f"({untiled_s * 1e3:.3f} ms), device {dev_u:.3f} ms, idle share "
+          f"{1 - dev_u / (untiled_s * 1e3):.4f}; phase 4 {main_rate:.3f} fields/s ({card})")
+    torch.cuda.empty_cache()
+
+    # the two-motion pairs: the rival windows decide cells at tile edges and
+    # corners too
+    tm1, tm2, _ = _two_motion(H, W, B, np.random.default_rng(1))
+    t1 = pad_ops.pad_frame(torch.as_tensor(tm1, device=a.device), p)
+    t2 = pad_ops.pad_frame(torch.as_tensor(tm2, device=a.device), p)
+    _equal_flows(torch, tiled.estimate_flow_padded_batch_tiled(t1, t2, cfg, mesh, axis_x="tx"),
+                 engine.estimate_flow_padded(t1, t2, cfg), "the untiled flow (two motions)",
+                 "tiled 2d")
+    del t1, t2
+    torch.cuda.empty_cache()
+
+    # estimate_flow_tiled_auto with axis_x on 2x2: at 1080p the uncapped
+    # level-0 halo fits the 640 x 1024 tiles, so no cap is derived
+    cap = tiled.derive_mv_cap(cfg, H, W, TY2, TX2)
+    print(f"[tiled 2d auto] {TY2}x{TX2} tiles: derived mv_cap {cap}")
+    if cap is not None:
+        raise AssertionError("no cap should be needed on 2x2 tiles at 1080p")
+    auto_mesh = tiled.Mesh((TY2, TX2), ("ty", "tx"))
+    im1 = a[:, p.pad_y:p.pad_y + H, p.pad_x:p.pad_x + W]
+    im2 = b[:, p.pad_y:p.pad_y + H, p.pad_x:p.pad_x + W]
+    for bi in range(B9):
+        got = tiled.estimate_flow_tiled_auto(im1[bi], im2[bi], cfg, auto_mesh, axis_x="tx")
+        want_f = engine.estimate_flow_padded(a[bi:bi + 1], b[bi:bi + 1], cfg)
+        _equal_flows(torch, got[None], want_f[:, p.pad_y:p.pad_y + H, p.pad_x:p.pad_x + W],
+                     f"the untiled flow (pair {bi})", "tiled 2d auto")
+
+    # the search-then-regularize and capacity configurations on 2x2, B=2
+    for tag, c, w0 in (("fourcolor", cfg.replace(regularizer="fourcolor"), WANT_FOURCOLOR),
+                       ("search", cfg.replace(window_center="search"), WANT_SEARCH),
+                       ("fused", cfg.replace(cv_fused=FUSE), WANT_FUSED)):
+        cplan = tiled.plan_tiling(c, p.padded_h, p.padded_w, TY2, TX2)
+        # a level with rows_ok runs as single steps, on 2-D tiles or strips
+        want_c = _want_tiled(w0, c.num_levels, sum(e["rows_ok"] for e in cplan),
+                             c.sweeps_per_round)
+        t1 = time.time()
+        got = _counted(counters, want_c, f"tiled 2d {tag}",
+                       lambda: tiled.estimate_flow_padded_batch_tiled(a[:B9], b[:B9], c, mesh,
+                                                                      axis_x="tx"))
+        _equal_flows(torch, got, engine.estimate_flow_padded(a[:B9], b[:B9], c),
+                     f"the untiled flow ({TY2}x{TX2} tiles, rows_ok/cols_ok "
+                     f"{[(e['rows_ok'], e['cols_ok']) for e in cplan]}, B={B9})",
+                     f"tiled 2d {tag}")
+        ts = _median_s(torch, lambda: tiled.estimate_flow_padded_batch_tiled(
+            a[:B9], b[:B9], c, mesh, axis_x="tx"), 3)
+        us = _median_s(torch, lambda: engine.estimate_flow_padded(a[:B9], b[:B9], c), 3)
+        print(f"[tiled 2d {tag}] B={B9}: tiled {B9 / ts:.3f} fields/s ({ts * 1e3:.3f} ms), "
+              f"untiled {B9 / us:.3f} ({us * 1e3:.3f} ms), medians of 3 ({card}); "
+              f"{time.time() - t1:.1f} s")
+    del got
+    torch.cuda.empty_cache()
+    _tiled_kernels(torch, a.device, cfg, a, b, card, results, mesh, axis_x="tx", key="tiles2d")
+    print(f"[tiled 2d] took {time.time() - t0:.1f} s")
 
 
 def _counted(counters: dict, want: dict, tag: str, run):
@@ -1813,7 +1949,7 @@ def main() -> int:
     print(f"[sequence] phase 8 took {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
 
-    # 9. the row tiling on one card (in-process transport)
+    # 9. the row and 2-D tiling on one card (in-process transport)
     t0 = time.time()
     _tiling_phase(torch, engine, cfg, counters, dev, card, main_rate, results)
     print(f"[tiled] phase 9 took {time.time() - t0:.1f} s")

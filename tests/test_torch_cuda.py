@@ -846,3 +846,132 @@ def test_cuda_row_tiled_equals_untiled(cuda, override):
     assert torch.equal(got, want)
     cpu = tiled.estimate_flow_padded_batch_tiled(im1, im2, cfg, mesh, device="cpu")
     assert torch.equal(got.cpu(), cpu)
+
+
+def _tiles_2d(cuda, gen, n, tx, nby, nbx, cur, first_row=1, first_col=1):
+    """n 2-D tiles of one frame, entry k tile (k // tx, k % tx), whose first
+    grid row and column are first_row + (k // tx) * nby and first_col +
+    (k % tx) * nbx (odd for the first tile), in a frame one row and one
+    column larger than the tiles reach, with random ghost rows and ghost
+    columns (corners included)."""
+    k = torch.arange(n, device=cuda)
+    row0_b = (first_row + k // tx * nby).to(torch.int32)
+    col0_b = (first_col + k % tx * nbx).to(torch.int32)
+
+    def ints(shape):
+        return torch.randint(-30, 31, shape, generator=gen, device=cuda,
+                             dtype=torch.int64).to(torch.int32)
+
+    ty = -(-n // tx)
+    return Strips(row0_b, (first_row + ty * nby + 1) * cur, ints((n, 2, nbx, 2)), col0_b,
+                  (first_col + tx * nbx + 1) * cur, ints((n, 2, nby + 2, 2)))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cur", [2, 4, 16])
+@pytest.mark.parametrize("form", ["D", "D'", "8", "9", "E", "F", "11", "12"])
+def test_cuda_round_kernel_on_2d_tiles_equals_plain(cuda, form, cur):
+    # one colour step of each form on 2-D tiles (a span of one launch with
+    # row0_b, col0_b, ghost rows and ghost columns): tiles whose first row
+    # and column are odd, an odd number of cells on each axis at f = 1,
+    # random ghost rows and columns (so candidates across a tile's corner
+    # read the ghost columns' end cells), against the plain step on the
+    # same CUDA tensors under on_strips; each of the four frame colours, sad
+    # and ssd; then the same grid as whole frames (no tiles) against the
+    # plain step too
+    gen = torch.Generator(device=cuda).manual_seed(11 * cur + len(form))
+    rng = np.random.default_rng(37 * cur + len(form))
+    stored = form in ("D", "D'", "8", "9")
+    if stored:
+        b, npy, npx, r, r2 = 6, 5, 21, 7, 5
+        f = 1 if form in ("D", "8") else 2
+        nby, nbx = npy * f, npx * f
+        h, w = nby * cur, nbx * cur
+
+        def ints(lo, hi, shape, dtype=torch.int32):
+            return torch.randint(lo, hi, shape, generator=gen, device=cuda,
+                                 dtype=torch.int64).to(dtype)
+
+        cv = ints(0, 2**16, (b, (2 * r + 1) ** 2, nby, nbx), torch.uint16)
+        pm = ints(-4, 5, (b, npy, npx, 2))
+        kw = dict(cur=cur, h=h, w=w, r=r)
+        if form in ("D", "D'"):
+            kw.update(rcv=ints(0, 2**24, (b, (2 * r2 + 1) ** 2, nby, nbx)),
+                      rpm=(pm + ints(-12, 13, pm.shape)).contiguous(), r2=r2)
+        g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
+        g0 = (g0 + ints(-20, 21, g0.shape)).contiguous()
+        wrapper, step_plain, args = reg_step.color_step, reg_step.color_step_plain, (cv, pm)
+        costs = ("sad",)
+    else:
+        costs = ("sad", "ssd")
+    for cost in costs:
+        if not stored:
+            g0, forms = _round_inputs(cuda, rng, 32, cur, cost)
+            round_fn, step_plain, args, kw = forms[form]
+            wrapper = round_fn.step
+            nby, nbx = g0.shape[1:3]
+            tiles = _tiles_2d(cuda, gen, 2, 2, nby, nbx, cur)
+        else:
+            tiles = _tiles_2d(cuda, gen, 6, 3, nby, nbx, cur)
+        for ci, cj in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            for strips in (tiles, None):
+                gk, gp = g0.clone(), g0.clone()
+                before = wrapper.launches
+                wrapper(gk, *args, ci=ci, cj=cj, lam_mult=2.5, strips=strips, **kw)
+                assert wrapper.launches == before + 1
+                on_strips(step_plain, gp, *args, ci=ci, cj=cj, lam_mult=2.5, strips=strips,
+                          **kw)
+                assert not torch.equal(gp, g0)
+                assert torch.equal(gk, gp), (form, cur, cost, ci, cj, strips is None)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bs,ss", [(32, 64), (8, 24), (4, 12)])
+def test_cuda_sad_spiral_argmin_on_2d_tiles_equals_plain(cuda, bs, ss):
+    # kernel 7 on a 2-D tile: blocks from the tile, centres and the
+    # in-frame test in the frame's rows and columns (full_h and full_w
+    # three tiles across), centres near and past the frame's four edges
+    rng = np.random.default_rng(11 * bs + ss)
+    b, h, w = 2, 3 * bs, 4 * bs
+    full_h, full_w = 3 * h, 3 * w
+    ext = spiral_extent(ss - bs)
+    win, nblk = bs + 2 * ext, 12
+    im1 = torch.as_tensor(rng.integers(0, 256, size=(b, h, w), dtype=np.uint8), device=cuda)
+    wins = torch.as_tensor(rng.integers(0, 256, size=(b, nblk, win, win), dtype=np.uint8),
+                           device=cuda)
+    cy = rng.integers(-ext - 2, full_h - bs + ext + 3, size=(b, nblk)).astype(np.int32)
+    cx = rng.integers(-ext - 2, full_w - bs + ext + 3, size=(b, nblk)).astype(np.int32)
+    cx[:, :3] = full_w - bs - rng.integers(0, ext + 1, size=3)  # the frame's right columns
+    args = [im1, wins, torch.as_tensor(cy, device=cuda), torch.as_tensor(cx, device=cuda)]
+    for cost in ("sad", "ssd"):
+        got = sad_search.sad_spiral_argmin(*args, bs, ss, cost, full_h, full_w)
+        want = sad_search.sad_spiral_argmin_plain(*args, bs, ss, cost, full_h, full_w)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), cost
+        strip = sad_search.sad_spiral_argmin_plain(*args, bs, ss, cost, full_h)
+        assert not torch.equal(strip[1], want[1])  # the tile's own width masks other columns
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("override", [dict(), dict(regularizer="fourcolor"),
+                                      dict(window_center="search"), dict(cv_fused=4)])
+def test_cuda_2d_tiled_equals_untiled(cuda, override):
+    # the in-process 2-D tiling on the card (2 x 2 tiles, 5 blocks wide at
+    # level 1, so half the tiles start on an odd block column; ghost rows
+    # and columns between steps) equals the untiled engine, and the CPU
+    from blockbasedmotionestimation_tpu_torch.parallel import tiled
+
+    cfg = MotionConfig(block_sizes=(8, 8), search_sizes=(24, 24), interp_factor=1, mv_cap=16,
+                       **override)
+    rng = np.random.default_rng(13)
+    base = rng.integers(0, 256, size=(2, 288, 192), dtype=np.uint8)
+    im1, im2 = base[:, :256, :160].copy(), base[:, 3:259, 5:165].copy()
+    mesh = tiled.Mesh((1, 2, 2), ("batch", "ty", "tx"))
+    plan = tiled.plan_tiling(cfg, 256, 160, 2, 2)
+    assert [(e["rows_ok"], e["cols_ok"], e["strip_w"]) for e in plan] == [(True, True, 80),
+                                                                          (True, True, 40)]
+    got = tiled.estimate_flow_padded_batch_tiled(im1, im2, cfg, mesh, axis_x="tx", device=cuda)
+    want = engine.estimate_flow_padded(torch.as_tensor(im1, device=cuda),
+                                       torch.as_tensor(im2, device=cuda), cfg)
+    assert torch.equal(got, want)
+    cpu = tiled.estimate_flow_padded_batch_tiled(im1, im2, cfg, mesh, axis_x="tx", device="cpu")
+    assert torch.equal(got.cpu(), cpu)

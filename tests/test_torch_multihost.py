@@ -5,7 +5,9 @@
 then two real processes joined by gloo on the CPU
 (tests/_torch_distributed_worker.py): the row-tiled and batch-split engine
 through the point-to-point transport equals the in-process transport and
-the untiled engine (mirror of tests/test_multihost.py).
+the untiled engine (mirror of tests/test_multihost.py); and four processes
+on a (ty=2, tx=2) mesh: the 2-D tiling through the same transport equals
+them too.
 """
 
 import os
@@ -58,8 +60,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_two_process_gloo_batch_tiled():
-    nproc = 2
+def _run_workers(nproc: int) -> list[str]:
+    """Start ``nproc`` gloo workers on a free local port; their outputs, each
+    checked for a 0 exit."""
     addr = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
@@ -81,4 +84,16 @@ def test_two_process_gloo_batch_tiled():
         pytest.fail("distributed workers timed out:\n" + "\n".join(outs))
     for pid, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"worker {pid} failed:\n{out}"
+    return outs
+
+
+def test_two_process_gloo_batch_tiled():
+    for out in _run_workers(2):
+        assert "checked 6 OK" in out, out
+
+
+def test_four_process_gloo_2d_tiled():
+    # a (ty=2, tx=2) mesh of 4 processes: halos, ghost rows and ghost
+    # columns (corners included) swapped point to point along both lines
+    for out in _run_workers(4):
         assert "checked 6 OK" in out, out

@@ -6,10 +6,11 @@ search-then-regularize schedules on row strips (the in-process transport,
 8 strips on the CPU) equal JAX's UNTILED engine bit for bit, as
 ``tests/test_tiled.py`` holds JAX's tiled engine to its untiled one:
 fourcolor and jacobi, a coarse level too small to tile, strips of an odd
-number of block rows, and batches over the batch axis.  ``exact`` and
-2-D tiling raise; a mesh on which no level shards warns.  Pairs made from
-a seed with numpy; the port runs on CPU tensors (the kernels' plain
-versions).
+number of block rows, and batches over the batch axis.  ``exact`` raises,
+and the three entry points with ``axis_x`` run 2-D tiles (the 2-D cases
+are in ``tests/test_torch_tiled_2d.py``); a mesh on which no level shards
+warns.  Pairs made from a seed with numpy; the port runs on CPU tensors
+(the kernels' plain versions).
 """
 
 import numpy as np
@@ -176,6 +177,8 @@ def test_batch_sharded_matches_jax_driver(rng):
 
 
 def test_exact_and_2d_are_refused(rng):
+    # exact raises on any mesh; the 2-D entry points (axis_x) run and equal
+    # JAX's untiled engine on the same inputs
     im1, im2 = _pair(rng, 64, 64)
     exact = _port(MotionConfig(block_sizes=(4, 4), search_sizes=(6, 6), regularizer="exact"))
     with pytest.raises(ValueError, match="raster sweep"):
@@ -184,14 +187,18 @@ def test_exact_and_2d_are_refused(rng):
         tiled.estimate_flow_padded_batch_tiled(im1[None], im2[None], exact, tiled.Mesh((1, 4)),
                                                device="cpu")
     fc = exact.replace(regularizer="fourcolor")
+    jfc = MotionConfig(block_sizes=(4, 4), search_sizes=(6, 6), regularizer="fourcolor")
+    want = np.asarray(jeng.estimate_flow_padded(im1, im2, jfc))
     mesh2d = tiled.Mesh((2, 2), ("ty", "tx"))
-    with pytest.raises(NotImplementedError, match="2-D"):
-        tiled.estimate_flow_padded_tiled(im1, im2, fc, mesh2d, axis_x="tx", device="cpu")
-    with pytest.raises(NotImplementedError, match="2-D"):
-        tiled.estimate_flow_tiled_auto(im1, im2, fc, mesh2d, axis_x="tx", device="cpu")
-    with pytest.raises(NotImplementedError, match="2-D"):
-        tiled.estimate_flow_padded_batch_tiled(im1[None], im2[None], fc, tiled.Mesh(
-            (1, 2, 2), ("batch", "ty", "tx")), axis_x="tx", device="cpu")
+    got = tiled.estimate_flow_padded_tiled(im1, im2, fc, mesh2d, axis_x="tx", device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    got = tiled.estimate_flow_tiled_auto(im1, im2, fc, mesh2d, axis_x="tx", device="cpu")
+    assert tiled.derive_mv_cap(fc, 64, 64, 2, 2) is None
+    assert jpad.compute_padding(64, 64, jfc, row_tiles=2).padded_h == 64
+    np.testing.assert_array_equal(got.numpy(), want)
+    got = tiled.estimate_flow_padded_batch_tiled(im1[None], im2[None], fc, tiled.Mesh(
+        (1, 2, 2), ("batch", "ty", "tx")), axis_x="tx", device="cpu")
+    np.testing.assert_array_equal(got[0].numpy(), want)
 
 
 def test_tiled_warns_when_fully_replicated(rng):
@@ -211,7 +218,7 @@ def test_in_process_exchanges(rng):
     # the in-process transport: entry b * t + i is strip i of frame b;
     # halos and ghost rows from the neighbouring strips of the same frame,
     # zeros (edge copies for the rival extension) at the frame's edges
-    rows = tiled.LocalRows(3)
+    rows = tiled.LocalTiles(3)
     x = torch.as_tensor(rng.integers(0, 99, size=(2, 12, 5)), dtype=torch.int32)
     s = rows.split(x)
     assert s.shape == (6, 4, 5) and torch.equal(rows.join(s), x)
@@ -226,6 +233,13 @@ def test_in_process_exchanges(rng):
     edge = rows.exchange_rows_edge(s)
     assert torch.equal(edge[3, 0], s[3, 0]) and torch.equal(edge[5, -1], s[5, -1])
     assert torch.equal(edge[4, 0], s[3, -1]) and torch.equal(edge[4, -1], s[5, 0])
+    # the rival ring on strips: rows from the neighbours, the edge columns replicated
+    g = torch.as_tensor(rng.integers(0, 99, size=(2, 12, 5, 2)), dtype=torch.int32)
+    ring = rows.rival_extend(rows.split(g))
+    edge_g = g[:, torch.arange(-1, 13).clamp(0, 11)][:, :, torch.arange(-1, 6).clamp(0, 4)]
+    for b in range(2):
+        for i in range(3):
+            assert torch.equal(ring[3 * b + i], edge_g[b, 4 * i : 4 * i + 6])
     assert torch.equal(rows.row0(6, 4, "cpu"), torch.tensor([0, 4, 8] * 2, dtype=torch.int32))
 
 
