@@ -15,9 +15,9 @@ device, as the reference computes them in XLA:
   * ``fourcolor``: the cells of colour (row % 2, col % 2) update together,
     the four colours in turn;
   * ``jacobi``: every cell updates from the previous iterate at once;
-  * ``exact``: one block at a time in raster order, in place, bit-exact
-    with the reference program's sweep (small frames: nby * nbx steps per
-    sweep, vectorised over the batch only).
+  * ``exact``: bit-exact with the reference program's in-place raster
+    sweep, computed in wavefronts of blocks with equal 2 * row + column
+    (2 nby + nbx - 2 steps a sweep).
 ``step_candidates`` and ``step_commit`` are shared with the windowed
 colour steps (``kernels.reg_step``, ``kernels.fused_step``).
 
@@ -360,12 +360,16 @@ def _edge_pad(grid: torch.Tensor) -> torch.Tensor:
 def regularize_exact(
     im1: torch.Tensor, im2: torch.Tensor, grid: torch.Tensor, bs: int, lam_mult
 ) -> torch.Tensor:
-    """One sequential raster sweep, in place on a copy: each block reads its
-    already-updated west and north neighbours (the reference's in-place
-    Gauss-Seidel, ``:616``).  The cost is SAD whatever the level's search
-    cost, as in the reference.  The carried grid is edge-padded once; the
-    ring keeps the entry values (the reference never updates it).  Returns
-    the (B, nby, nbx, 2) int32 grid."""
+    """One sweep with the values of the reference's in-place raster sweep
+    (Gauss-Seidel, ``:616``): each block reads its west and north
+    neighbours already updated and its east and south ones not yet.  A
+    block (i, j) thus depends only on blocks of smaller 2i + j, and no two
+    blocks of one 2i + j are neighbours, so the blocks of each such
+    wavefront update together: 2 nby + nbx - 2 steps a sweep, vectorised
+    over the wavefront and the batch.  The cost is SAD whatever the level's
+    search cost, as in the reference.  The carried grid is edge-padded
+    once; the ring keeps the entry values (the reference never updates
+    it).  Returns the (B, nby, nbx, 2) int32 grid."""
     b, nby, nbx, _ = grid.shape
     _, h, w = im1.shape
     dev = grid.device
@@ -376,24 +380,29 @@ def regularize_exact(
     case = border_case(
         torch.arange(nby, device=dev)[:, None], torch.arange(nbx, device=dev)[None, :], nby, nbx
     )
-    ranks = torch.as_tensor(_RANK_TABLE, device=dev)[case]  # (nby, nbx, 9)
+    ranks = torch.as_tensor(_RANK_TABLE, device=dev)[case].reshape(nby * nbx, 9)
     ar = torch.arange(bs, device=dev)
-    bidx = torch.arange(b, device=dev)
-    for k in range(nby * nbx):
-        i, j = divmod(k, nbx)
-        cands = gp[:, i + 1 + slot_dy, j + 1 + slot_dx]  # (B, 9, 2)
-        rank = ranks[i, j]
+    bidx = torch.arange(b, device=dev)[:, None, None, None, None]
+    wave = (2 * np.arange(nby)[:, None] + np.arange(nbx)[None, :]).ravel()
+    order = torch.as_tensor(np.argsort(wave, kind="stable"), device=dev)
+    start = 0
+    for end in np.cumsum(np.bincount(wave)).tolist():
+        k = order[start:end]  # the wavefront's blocks (n,), row-major ids
+        start = end
+        i, j = k // nbx, k % nbx
+        cands = gp[:, (i + 1)[:, None] + slot_dy, (j + 1)[:, None] + slot_dx]  # (B, n, 9, 2)
+        rank = ranks[k]
         present = rank < _BIG_RANK
-        tx = j * bs + cands[..., 0]
-        ty = i * bs + cands[..., 1]
+        tx = (j * bs)[:, None] + cands[..., 0]
+        ty = (i * bs)[:, None] + cands[..., 1]
         in_img = (tx >= 0) & (tx <= w - bs) & (ty >= 0) & (ty <= h - bs)
-        rows = ty.clamp(0, h - bs)[..., None] + ar  # (B, 9, bs)
+        rows = ty.clamp(0, h - bs)[..., None] + ar  # (B, n, 9, bs)
         cols = tx.clamp(0, w - bs)[..., None] + ar
-        tgt = im2[bidx[:, None, None, None], rows[..., :, None], cols[..., None, :]]
+        tgt = im2[bidx, rows[..., :, None], cols[..., None, :]]
         sad = block_cost(blocks[:, k, None], tgt, (-2, -1), "sad")
         e = energy(sad, cands, present, present & in_img, lam_mult)
         winner = select_lexicographic(e, rank.expand_as(e))
-        gp[:, i + 1, j + 1] = cands[bidx, winner]
+        gp[:, i + 1, j + 1] = torch.take_along_dim(cands, winner[..., None, None], dim=2)[:, :, 0]
     return gp[:, 1:-1, 1:-1].contiguous()
 
 

@@ -282,7 +282,7 @@ def _sass_loops() -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    # exact is sequential over the blocks: for small frames, not for 1080p
+    # exact loops over wavefronts of blocks in Python: for small frames, not for 1080p
     ap.add_argument("--regularizer", default="windowed",
                     choices=["windowed", "fourcolor", "jacobi"])
     ap.add_argument("--window-center", default="pred", choices=["pred", "search"])

@@ -1,0 +1,299 @@
+"""Tracing and performance accounting.
+
+The port's counterpart of the JAX package's ``utils/profiling.py``:
+
+  * ``phase`` - a context-manager timer (host clock) that synchronises the
+    CUDA devices of the tensors it is given before it stops, so the work
+    they wait on is inside the phase;
+  * ``trace`` - ``torch.profiler`` around a block, a Chrome trace written
+    into a directory (view in perfetto or chrome://tracing);
+  * ``speed_of_light`` - the block search's useful operations against a
+    measured time;
+  * ``windowed_pipeline_roofline`` / ``windowed_pipeline_floor`` - the JAX
+    package's work models of its fused windowed pipeline, the same counts
+    term by term, at the H100's rates.
+
+The card's peaks (``HBM_BYTES_PER_S``, ``CORE_OPS_PER_S``, ``INSTR_PER_S``)
+live here; ``chip_smoke.py`` computes its kernels' bounds from them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+CORE_OPS_PER_S = 67e12     # H100 SXM CUDA-core peak, used for integer operations
+# the most thread-instructions an H100 SXM issues a second: 132 SMs x 4
+# schedulers x 32 lanes x 1.98 GHz, half of the float32 rate above (an FMA
+# counts two); kernel 7's packed VABSDIFF4 and dp4a are counted against it
+INSTR_PER_S = CORE_OPS_PER_S / 2
+
+
+def sync(*tensors) -> None:
+    """Wait for every CUDA device the tensors live on; CPU tensors need
+    nothing."""
+    for dev in {t.device for t in tensors if t.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+
+
+@dataclass
+class PhaseTimes:
+    times: dict = field(default_factory=dict)
+
+    def report(self) -> str:
+        total = sum(self.times.values())
+        lines = [f"{name:<28} {t*1000:9.2f} ms" for name, t in self.times.items()]
+        lines.append(f"{'total':<28} {total*1000:9.2f} ms")
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def phase(name: str, times: PhaseTimes, *sync_tensors):
+    """Add the block's host-clock seconds to ``times.times[name]``, after
+    synchronising the devices of ``sync_tensors``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if sync_tensors:
+            sync(*sync_tensors)
+        times.times[name] = times.times.get(name, 0.0) + (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """torch.profiler around a block: the CPU activity, and the CUDA
+    activity when a card is present; a Chrome trace
+    (``<worker>.<ms>.pt.trace.json``) is written into ``logdir`` when the
+    block ends.  Yields the profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)
+    )
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+
+
+def search_sad_ops(h: int, w: int, bs: int, ss: int) -> int:
+    """Useful absdiff ops of one level's full spiral search."""
+    ext = spiral_extent(ss - bs)
+    nblk = (h // bs) * (w // bs)
+    return nblk * (2 * ext + 1) ** 2 * bs * bs
+
+
+def speed_of_light(
+    h: int, w: int, bs: int, ss: int, seconds: float,
+    ops_per_sec: float = CORE_OPS_PER_S,
+) -> dict:
+    """One search level's useful operations, their rate in ``seconds`` and
+    that rate's fraction of ``ops_per_sec``."""
+    ops = search_sad_ops(h, w, bs, ss)
+    achieved = ops / max(seconds, 1e-12)
+    return {
+        "useful_ops": ops,
+        "achieved_ops_per_sec": achieved,
+        "fraction_of_nominal": achieved / ops_per_sec,
+    }
+
+
+def windowed_pipeline_roofline(
+    cfg,
+    padded_h: int,
+    padded_w: int,
+    ops_per_sec: float = CORE_OPS_PER_S,
+    hbm_bytes_per_sec: float = HBM_BYTES_PER_S,
+) -> dict:
+    """The JAX package's per-component work model of its fused windowed
+    pipeline, per field: the same operations and bytes term by term, the
+    time of each at the given rates (the H100's by default).
+
+    These terms count the TPU design's traffic: the 8 row-shifted staging
+    copies and the bf16 column extract of its gather, the window slabs its
+    hybrid step streams to every colour step, every sub-size volume
+    streamed once a sweep.  The port's kernels do not move most of that, so
+    the terms are NOT lower bounds of the port's kernels; ``chip_smoke.py``
+    phase 10 prints each beside the port's measured stage and marks those
+    that exceed it.
+
+    Components (all per field; each term is max(ops, bytes) of its own):
+
+      pyramid       pyrDown levels: 2 separable 5-tap passes per output px.
+      gather        per-level window fetch: u8 window bytes written + the
+                    row-shifted staging copies + bf16 column extract;
+                    rival adds its second gather.
+      cv_build      the pooled diff pass: ~4 int ops per (pixel, delta)
+                    (sub, |.|, acc, amortized pooling) + every volume
+                    written once.
+      search        lexicographic (cost, spiral-rank) argmin over the
+                    cur == bs volume: 2 read passes + 2 ops/entry.
+      cv_stream     colour steps reading the dense volumes: each sweep's 4
+                    colours together stream each round's volume once.
+      step_operands colour-step traffic besides the volumes: candidate MVs
+                    (9 x 2 i32), present/rank masks, parent MVs, winner
+                    write-back, and the candidate-slab build (~9 grid reads
+                    + slab write per cell per step).
+      step_compute  9-candidate energy: smoothness (9x2 L1 terms), energy
+                    add, masked lexicographic winner ~ 60 ops/cell.
+      rival         rival pick + second window slab streamed per fused
+                    colour step (patches + rival slab per step; recompute
+                    loops are data-dependent, floor 0).
+      rival_build   the rival window's pooled diff pass, the 4-op model.
+      mv_bookkeeping subdivide/transfer: each round's grid written x2.
+
+    Returns {"components": {name: {ops_s, hbm_s, floor_s, int_ops,
+    hbm_bytes}}, "total_floor_s": sum of the floors}.
+    """
+    comp = {}
+
+    def add(name, int_ops=0.0, hbm_bytes=0.0):
+        c = comp.setdefault(name, {"int_ops": 0.0, "hbm_bytes": 0.0})
+        c["int_ops"] += int_ops
+        c["hbm_bytes"] += hbm_bytes
+
+    sweeps = cfg.sweeps_per_round
+    for level in range(cfg.num_levels):
+        h = padded_h >> level
+        w = padded_w >> level
+        bs = cfg.block_sizes[level]
+        ext = spiral_extent(cfg.search_sizes[level] - bs)
+        side = 2 * ext + 1
+        side2 = side * side
+        nblk = (h // bs) * (w // bs)
+        win = bs + 2 * ext
+
+        if level + 1 < cfg.num_levels:
+            add("pyramid", int_ops=20 * (h * w) // 4,
+                hbm_bytes=h * w + (h * w) // 4)
+
+        # window gather: staging copies (8 row-shifted u8 images written
+        # once) amortize over the level; per window: superwindow write (u8)
+        # + bf16 extract read+write
+        add(
+            "gather",
+            hbm_bytes=16 * h * w + nblk * win * win * (1 + 2 + 2),
+        )
+
+        # CV build: diff+pool ops + all volumes written once
+        add("cv_build", int_ops=4 * side2 * h * w)
+        store = getattr(cfg, "cv_store_radius", None)
+        cur = bs
+        while cur >= 2:
+            peak = (255 * 255 if cfg.cost == "ssd" else 255) * cur * cur
+            nbytes = 2 if peak < (1 << 16) else 4
+            entries = side2 * (h // cur) * (w // cur)
+            if cur == 2 and store is not None and store < ext:
+                # r_store: the cur=2 volume keeps a dx band only
+                entries = entries * (2 * store + 1) // side
+            add("cv_build", hbm_bytes=entries * nbytes)
+            if cur < bs:
+                # each sweep's 4 colours stream the round's volume once
+                add("cv_stream", hbm_bytes=entries * nbytes * sweeps)
+            cur >>= 1
+
+        # search argmin over the cur == bs volume (i32): min + rank-min
+        add("search", int_ops=2 * side2 * nblk,
+            hbm_bytes=2 * side2 * nblk * 4)
+
+        # per-round colour-step operands + compute (+ rival slabs)
+        rr_lvl = cfg.rival_radius_at(level)
+        rr = ext if rr_lvl is None else min(rr_lvl, ext)
+        rwin = bs + 2 * rr
+        if cfg.rival_window:
+            add("rival", hbm_bytes=nblk * rwin * rwin * (1 + 2 + 2))
+            # rival CV build: pixel-level diffs over all (2*rr+1)^2 rival
+            # deltas, the same 4-op model as the main build
+            add("rival_build", int_ops=4 * (2 * rr + 1) ** 2 * h * w)
+        cur = bs
+        while cur > 1:
+            cells = (h // cur) * (w // cur)  # per colour step: cells/4
+            steps = 4 * sweeps
+            add("step_operands",
+                hbm_bytes=steps * (cells // 4) * (136 + 80))
+            add("step_compute", int_ops=steps * (cells // 4) * 60)
+            if cfg.rival_window:
+                # the hybrid step streams patches + rival slab every step
+                add("rival",
+                    hbm_bytes=steps * nblk * (bs * bs + rwin * rwin) * 2)
+            if cur == 2 and store is not None and store < ext:
+                # r_store: the cur=2 steps also stream the MAIN window
+                # slab for the tail recompute
+                add("rival", hbm_bytes=steps * nblk * win * win * 2)
+            cur >>= 1
+            add("mv_bookkeeping", hbm_bytes=2 * cells * 8)
+
+    out = {}
+    total = 0.0
+    for name, c in comp.items():
+        ops_s = c["int_ops"] / ops_per_sec
+        hbm_s = c["hbm_bytes"] / hbm_bytes_per_sec
+        floor_s = max(ops_s, hbm_s)
+        out[name] = {
+            "ops_s": ops_s, "hbm_s": hbm_s, "floor_s": floor_s,
+            "int_ops": c["int_ops"], "hbm_bytes": c["hbm_bytes"],
+        }
+        total += floor_s
+    return {"components": out, "total_floor_s": total}
+
+
+def windowed_pipeline_floor(
+    cfg,
+    padded_h: int,
+    padded_w: int,
+    ops_per_sec: float = CORE_OPS_PER_S,
+    hbm_bytes_per_sec: float = HBM_BYTES_PER_S,
+) -> dict:
+    """The JAX package's per-field "floor" of its fused windowed pipeline
+    (seconds), the same counts, at the given rates (the H100's by default).
+
+    Two bounds, summed over the pyramid levels:
+
+    * int ops: the pooled cost-volume diff pass evaluates every pixel of
+      the level against every delta in the (2R+1)^2 square, ~4 int ops per
+      (pixel, delta): subtract, |.|, accumulate into the cur=2 cell, plus
+      amortized deeper pooling;
+    * memory traffic: each round's cost volume (entries = (2R+1)^2 blocks at
+      that granularity, u16 below the i32 overflow size) written once by
+      the build and read once per regularization sweep.
+
+    floor = max(ops, bytes).  The byte count is the TPU design's (every
+    cur-2 volume written and read ``1 + sweeps`` times): the port's default
+    never writes most of those volumes (the band and the tail recompute),
+    so this is NOT a lower bound of the port's batch; ``chip_smoke.py``
+    phase 10 prints it beside the batch's device time.
+    """
+    int_ops = 0
+    hbm_bytes = 0
+    for level in range(cfg.num_levels):
+        h = padded_h >> level
+        w = padded_w >> level
+        bs = cfg.block_sizes[level]
+        r = spiral_extent(cfg.search_sizes[level] - bs)
+        side2 = (2 * r + 1) ** 2
+        int_ops += 4 * side2 * h * w
+        cur = bs
+        while cur >= 2:
+            peak = (255 * 255 if cfg.cost == "ssd" else 255) * cur * cur
+            nbytes = 2 if peak < (1 << 16) else 4
+            entries = side2 * (h // cur) * (w // cur)
+            hbm_bytes += entries * nbytes * (1 + cfg.sweeps_per_round)
+            cur >>= 1
+    ops_s = int_ops / ops_per_sec
+    hbm_s = hbm_bytes / hbm_bytes_per_sec
+    return {
+        "int_ops": int_ops,
+        "hbm_bytes": hbm_bytes,
+        "ops_s": ops_s,
+        "hbm_s": hbm_s,
+        "floor_s": max(ops_s, hbm_s),
+    }

@@ -109,7 +109,25 @@ Phases (any failure raises and the script exits non-zero):
      and one colour step of D, E, F and 12 and kernel 7 on 2-D tiles whose
      first row and column are odd, against their plain versions, timed
      beside them (rows D, E, F, 12 and 7 of the JSON line gain
-     ``tiles2d_*`` keys).
+     ``tiles2d_*`` keys);
+ 10. (a) the CUDA engine against the port's own NumPy/OpenCV oracle
+     (``models/oracle.py``, a sequential re-derivation of the reference
+     program that shares no code with the engine), bit for bit:
+     ``regularizer="exact"`` at the four configurations of
+     ``tests/test_engine.py``'s engine-vs-oracle test and its raster one on
+     32x48 pairs (``estimate_flow_padded``), the driver at interp 2 on a
+     20x26 pair, and the reference's structure (4 levels of 32 px blocks,
+     64 px search, interp 2) on 192x224 frames, padded to 512x512, the
+     least size at which level 3 keeps a 2x2 block grid; the oracle runs in
+     worker processes while the engine runs on the card, each case's oracle
+     and port seconds printed, its launches counted from 0 (every spiral
+     case must launch A and kernel 7); (b) the JAX package's work model of
+     the windowed pipeline (``utils/profiling.py``, at the H100's rates)
+     for phase 4's batch, term by term beside the time of the port's
+     stages that do that work (each stage's calls of one batch replayed
+     under CUDA events, queued behind a sleep), every term above its stage
+     marked (work the port does not do), and the model's floor beside the
+     batch's device time (torch.profiler): a record, not a check.
 The line before the last is a JSON object with one entry per TPU kernel
 row (A, B, C, D, D', E, F, 8, 9, 7, 11, 12, 13, 14, 10; ``launches`` from
 the default path, else from the first path that runs the row); the last is
@@ -144,14 +162,15 @@ import time
 
 import numpy as np
 
+# the card's peaks, kept in one place
+from blockbasedmotionestimation_tpu_torch.utils.profiling import (
+    CORE_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    INSTR_PER_S,
+)
+
 H, W, B = 1080, 1920, 8
 SHIFT_Y, SHIFT_X = 5, 9  # frame 2 = frame 1 moved by (-5, -9): flow (u, v) = (-9, -5)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-CORE_OPS_PER_S = 67e12     # H100 SXM CUDA-core peak, used for integer operations
-# the most thread-instructions an H100 SXM issues a second: 132 SMs x 4
-# schedulers x 32 lanes x 1.98 GHz, half of the float32 rate above (an FMA
-# counts two); kernel 7's packed VABSDIFF4 and dp4a are counted against it
-INSTR_PER_S = CORE_OPS_PER_S / 2
 FUSE = 4          # cv_fused of phases 4e, 4f
 COMPACT_K = 64    # cv_compact of phase 4g (ring 3): DESIGN.md's quality-viable point
 # per-batch launches of MotionConfig(interp_factor=1): 4 levels of bs 32,
@@ -192,6 +211,15 @@ def _cmd_line(cmd: list[str], pick=None) -> str:
     if pick is not None:
         lines = [ln for ln in lines if pick in ln] or lines
     return lines[0]
+
+
+def _main_pairs(torch, dev):
+    """Phase 4's B=8 pairs at 1080p, made as bench.py makes them: seeded
+    noise, frame 2 = frame 1 moved by (-5, -9)."""
+    noise = np.random.default_rng(0).integers(0, 256, size=(B, H + 16, W + 16), dtype=np.uint8)
+    im1 = torch.as_tensor(noise[:, :H, :W].copy(), device=dev)
+    im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
+    return im1, im2
 
 
 def _texture(h: int, w: int, rng: np.random.Generator) -> np.ndarray:
@@ -302,6 +330,30 @@ def _dense_rival_form():
     from blockbasedmotionestimation_tpu_torch.ops import windowed
 
     return _swapped(windowed, hybrid_form=lambda bs, rival: False)
+
+
+def _kernel_counters() -> dict:
+    """Every kernel wrapper by name; each counts its own launches
+    (``.launches``)."""
+    from blockbasedmotionestimation_tpu_torch.kernels import (
+        cv_diff,
+        fused_step,
+        gather,
+        reg_step,
+        sad_search,
+    )
+
+    counters = {f.__name__: f for f in (
+        gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs, reg_step.color_step,
+        reg_step.color_round_stored, fused_step.color_step_hybrid, fused_step.color_step_hybrid_tail,
+        fused_step.color_round_hybrid, fused_step.color_round_hybrid_tail,
+        sad_search.sad_spiral_argmin, fused_step.color_step_fused,
+        fused_step.color_step_fused_rival, fused_step.color_round_fused,
+        fused_step.color_round_fused_rival, cv_diff.full_block_volume, cv_diff.compact_tables,
+        reg_step.color_step_compact, reg_step.color_round_compact)}
+    if sorted(counters) != sorted(WANT_LAUNCHES):
+        raise AssertionError(f"kernel wrappers {sorted(counters)} vs {sorted(WANT_LAUNCHES)}")
+    return counters
 
 
 def _two_motion(h: int, w: int, b: int, rng: np.random.Generator):
@@ -1677,6 +1729,207 @@ def _sequence_phase(torch, engine, cfg, counters: dict, dev, card: str,
         print("[cli] estimate on two PNG frames == estimate_flow_driver; evaluate returned 0")
 
 
+PHASE10_S = 180  # phase 10's time budget
+# phase 10(a): the exact configurations of tests/test_engine.py's
+# engine-vs-oracle test (32x48, moved by (1, -2)), its raster one, its
+# driver one (20x26, interp 2) and the reference's structure (4 levels of
+# 32 px blocks, 64 px search, interp 2: 192x224 frames pad to 512x512, the
+# least size at which level 3 keeps the 2x2 block grid the reference needs)
+ORACLE_EXACT = [((4,), (8,)), ((4, 4), (8, 8)), ((4, 4), (12, 8)), ((2, 4, 4), (6, 8, 12))]
+STRUCTURE = (192, 224)
+# phase 10(b): the port's stages, in pipeline order: the work they do
+# (what the line names), the functions that do it (module, name), each call
+# of one batch replayed under CUDA events, and JAX's model terms that count
+# that work
+MODEL_STAGES = {
+    "pyramid": ("the resample ops", [("resample", "build_pyramid")], ("pyramid",)),
+    "gather": ("A", [("search", "_gather")], ("gather",)),
+    "cv_build": ("B", [("windowed", "pooled_cvs")], ("cv_build",)),
+    "rival_build": ("C", [("windowed", "deep_pooled_cvs")], ("rival_build",)),
+    "search": ("the spiral argmin ops", [("windowed", "spiral_argmin")], ("search",)),
+    "rounds": ("the rounds D, E, F", [("windowed", "color_round_stored"),
+                                      ("windowed", "color_round_hybrid"),
+                                      ("windowed", "color_round_hybrid_tail")],
+               ("cv_stream", "rival", "step_operands", "step_compute")),
+    "mv_bookkeeping": ("subdivide and transfer", [("windowed", "subdivide"),
+                                                  ("engine", "transfer_mvs")],
+                       ("mv_bookkeeping",)),
+}
+
+
+def _shifted_pair(rng: np.random.Generator, h: int, w: int, dy: int, dx: int, margin: int = 8):
+    """A random base image and a crop pair moved by (dy, dx), as the JAX
+    package's engine-vs-oracle tests make them (uint8)."""
+    base = rng.integers(0, 256, size=(h + 2 * margin, w + 2 * margin), dtype=np.uint8)
+    im1 = base[margin:margin + h, margin:margin + w].copy()
+    im2 = base[margin + dy:margin + dy + h, margin + dx:margin + dx + w].copy()
+    return im1, im2
+
+
+def _oracle_run(kind: str, cfg, im1: np.ndarray, im2: np.ndarray):
+    """One case of the port's oracle (in a worker process): (flow, seconds)."""
+    from blockbasedmotionestimation_tpu_torch.models import oracle
+
+    fn = oracle.calc_motion_block_matching if kind == "padded" else oracle.estimate_flow_driver
+    t0 = time.perf_counter()
+    out = fn(im1, im2, cfg)
+    return out, time.perf_counter() - t0
+
+
+def _oracle_cases(MotionConfig, pad_ops) -> list:
+    """(tag, kind, cfg, im1, im2, spiral) of phase 10(a), the longest first."""
+    rng = np.random.default_rng(14)
+    exact = MotionConfig(interp_factor=1, regularizer="exact")
+    structure = exact.replace(block_sizes=(32,) * 4, search_sizes=(64,) * 4, interp_factor=2)
+    cases = [(f"structure {STRUCTURE[0]}x{STRUCTURE[1]}", "driver", structure,
+              *_shifted_pair(rng, *STRUCTURE, 2, -3), True)]
+    configs = [(f"exact {bs}/{ss}", exact.replace(block_sizes=bs, search_sizes=ss), True)
+               for bs, ss in ORACLE_EXACT]
+    configs.append(("raster (4, 4)/(12, 12)", exact.replace(
+        block_sizes=(4, 4), search_sizes=(12, 12), search_order="raster"), False))
+    for tag, cfg, spiral in configs:
+        a, b = _shifted_pair(rng, 32, 48, 1, -2)
+        p = pad_ops.compute_padding(32, 48, cfg)
+        pad = ((p.pad_y, p.pad_y), (p.pad_x, p.pad_x))
+        cases.append((f"{tag} 32x48", "padded", cfg, np.pad(a, pad), np.pad(b, pad), spiral))
+    cases.append(("driver (4, 4)/(8, 8) 20x26", "driver",
+                  exact.replace(block_sizes=(4, 4), search_sizes=(8, 8), interp_factor=2),
+                  *_shifted_pair(rng, 20, 26, 1, -1), True))
+    return cases
+
+
+def _oracle_phase(torch, engine, MotionConfig, counters: dict, dev, card: str) -> None:
+    """10(a): the CUDA engine against the port's oracle, bit for bit.  The
+    oracle runs in worker processes while the engine runs on the card; each
+    case's launches of A and kernel 7 are counted from 0 around its engine
+    run, and every spiral case must launch both."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    cases = _oracle_cases(MotionConfig, engine.pad_ops)
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=3, mp_context=ctx) as pool:
+        pending = [pool.submit(_oracle_run, kind, cfg, a, b) for _, kind, cfg, a, b, _ in cases]
+        ran = []
+        for tag, kind, cfg, a, b, spiral in cases:
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "padded":
+                got = engine.estimate_flow_padded(torch.as_tensor(a, device=dev)[None],
+                                                  torch.as_tensor(b, device=dev)[None], cfg)[0]
+            else:
+                got = engine.estimate_flow_driver(a, b, cfg, device=dev)
+            torch.cuda.synchronize()
+            port_s = time.perf_counter() - t0
+            if got.device.type != "cuda":
+                raise AssertionError(f"[oracle] {tag}: the engine ran on {got.device}")
+            launches = {n: fn.launches for n, fn in counters.items() if fn.launches}
+            ran.append((got.cpu().numpy(), port_s, launches))
+        bad = []
+        for (tag, kind, cfg, a, b, spiral), fut, (got, port_s, launches) in zip(cases, pending, ran):
+            want, oracle_s = fut.result()
+            if got.shape != want.shape or not np.isfinite(got).all():
+                raise AssertionError(f"[oracle] {tag}: engine {got.shape} vs oracle {want.shape}")
+            err = float(np.abs(got - want).max())
+            a_n, k7 = launches.get("gather_windows", 0), launches.get("sad_spiral_argmin", 0)
+            print(f"[oracle] {tag}, {kind}, {tuple(a.shape)} frames: max_abs_err {err} "
+                  f"({int((got != want).any(-1).sum())} pixels differ); oracle {oracle_s:.3f} s, "
+                  f"port on the card {port_s:.3f} s; launches {launches} ({card})")
+            if err != 0:
+                bad.append(tag)
+            if spiral and (a_n == 0 or k7 == 0):
+                bad.append(f"{tag}: A {a_n}, kernel 7 {k7} launches")
+    if bad:
+        raise AssertionError(f"[oracle] the CUDA engine and the oracle disagree: {bad}")
+
+
+def _stage_calls(torch, engine, cfg, im1, im2) -> list:
+    """(term, fn, args, kwargs) of each call one batch makes to a stage of
+    ``MODEL_STAGES``, the rounds with a copy of the grid they met."""
+    from blockbasedmotionestimation_tpu_torch.ops import resample, search, windowed
+
+    modules = {"resample": resample, "search": search, "windowed": windowed, "engine": engine}
+    calls = []
+
+    def spy(term, fn, in_place):
+        def call(*args, **kw):
+            rec = (args[0].clone(), *args[1:]) if in_place else args
+            calls.append((term, fn, rec, kw))
+            return fn(*args, **kw)
+        call.per_round = getattr(fn, "per_round", False)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for stage, (_, fns, _) in MODEL_STAGES.items():
+            for mod, name in fns:
+                fn = getattr(modules[mod], name)
+                stack.enter_context(_swapped(modules[mod],
+                                             **{name: spy(stage, fn, stage == "rounds")}))
+        engine.estimate_flow_batched(im1, im2, cfg)
+    return calls
+
+
+def _work_model_phase(torch, engine, cfg, im1, im2, card: str) -> None:
+    """10(b): JAX's work model of the windowed pipeline, term by term,
+    beside the time of the port's stages that do that work on phase 4's
+    batch (each stage's calls of one batch replayed, the rounds on copies
+    of their grids, under CUDA events queued behind a sleep as ``_cuda_ms``
+    times them: the card's time wherever the stage does not wait for the
+    host; the plain stages that upload a table, the pyramid, the spiral
+    argmin and the transfer, wait there, so theirs include host time), then
+    the model's floor beside the batch's device time (torch.profiler).  A
+    term whose model exceeds its measured time is marked: it counts work
+    the port does not do.  A record: nothing raises on the marks."""
+    from blockbasedmotionestimation_tpu_torch.utils import profiling
+
+    pad = engine.pad_ops.compute_padding(H, W, cfg)
+    per_batch = 1e3 * B  # the models count one field, in seconds
+    roof = profiling.windowed_pipeline_roofline(cfg, pad.padded_h, pad.padded_w)["components"]
+    floor = profiling.windowed_pipeline_floor(cfg, pad.padded_h, pad.padded_w)
+    calls = _stage_calls(torch, engine, cfg, im1, im2)
+    print(f"[model] JAX's work model of the windowed pipeline (utils/profiling.py) at the H100's "
+          f"rates ({profiling.HBM_BYTES_PER_S:.3g} B/s, {profiling.CORE_OPS_PER_S:.3g} ops/s), "
+          f"{pad.padded_h}x{pad.padded_w}, B={B}, per batch; measured: CUDA events around each "
+          f"stage's calls of one batch of phase 4's pairs, replayed behind a sleep ({card})")
+    over, stages_ms = [], 0.0
+    for stage, (work, _, terms) in MODEL_STAGES.items():
+        mine = [(fn, args, kw) for t, fn, args, kw in calls if t == stage]
+
+        def replay(mine=mine, in_place=stage == "rounds"):
+            for fn, args, kw in mine:
+                if in_place:
+                    args = (args[0].clone(), *args[1:])
+                fn(*args, **kw)
+
+        ms = _cuda_ms(torch, replay, 3, queued=True)
+        stages_ms += ms
+        rows = [(t, roof[t]) for t in terms]
+        if len(terms) > 1:
+            rows.append((f"{stage} (sum)", {k: sum(roof[t][k] for t in terms)
+                                            for k in ("hbm_bytes", "int_ops", "floor_s")}))
+        for term, c in rows:
+            model = c["floor_s"] * per_batch
+            if model > ms:
+                over.append(term)
+            print(f"[model] {term:<15} model {model:8.4f} ms ({c['hbm_bytes'] * B / 1e9:.4f} GB, "
+                  f"{c['int_ops'] * B / 1e9:.4f} G ops) | {work}: {ms:8.4f} ms over {len(mine)} "
+                  f"calls | {'OVER' if model > ms else 'under'}, {model / ms:.2f}x ({card})")
+    del calls
+    batch_ms = _device_ms(torch, lambda: engine.estimate_flow_batched(im1, im2, cfg))
+    if batch_ms <= 0:
+        raise AssertionError("[model] the profiler saw no device time in the batch")
+    total = sum(roof[t]["floor_s"] for t in roof) * per_batch
+    fl = floor["floor_s"] * per_batch
+    print(f"[model] roofline total {total:.4f} ms; windowed_pipeline_floor {fl:.4f} ms "
+          f"({floor['hbm_bytes'] * B / 1e9:.4f} GB, {floor['int_ops'] * B / 1e9:.4f} G ops, "
+          f"bound by {'bytes' if floor['hbm_s'] >= floor['ops_s'] else 'operations'}) | the batch's "
+          f"device time {batch_ms:.4f} ms (the stages above {stages_ms:.4f}) | floor "
+          f"{'OVER' if fl > batch_ms else 'under'} the batch, {fl / batch_ms:.2f}x ({card})")
+    print(f"[model] terms above their measured stage (work the port does not do): {over}")
+
+
 def main() -> int:
     import torch
 
@@ -1684,14 +1937,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from blockbasedmotionestimation_tpu_torch import MotionConfig
-    from blockbasedmotionestimation_tpu_torch.kernels import (
-        _build,
-        cv_diff,
-        fused_step,
-        gather,
-        reg_step,
-        sad_search,
-    )
+    from blockbasedmotionestimation_tpu_torch.kernels import _build
     from blockbasedmotionestimation_tpu_torch.models import engine
 
     dev = torch.device("cuda", 0)
@@ -1723,9 +1969,7 @@ def main() -> int:
 
     # 4. the main path: default config, 8 pairs at 1080p, made as bench.py
     #    makes them (seeded noise; frame 2 = frame 1 moved by (-5, -9))
-    noise = np.random.default_rng(0).integers(0, 256, size=(B, H + 16, W + 16), dtype=np.uint8)
-    im1 = torch.as_tensor(noise[:, :H, :W].copy(), device=dev)
-    im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
+    im1, im2 = _main_pairs(torch, dev)
     # 3 (end). B and C at each level's shapes of this path, per-batch sums
     for row, timed in _volume_levels(torch, engine, cfg, im1, im2, card).items():
         results[row].update(timed)
@@ -1743,15 +1987,7 @@ def main() -> int:
         err = max(results[row]["max_abs_err"], timed.pop("max_abs_err"))
         results[row].update(timed, max_abs_err=err)
     torch.cuda.empty_cache()
-    counters = {f.__name__: f for f in (
-        gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs, reg_step.color_step,
-        reg_step.color_round_stored, fused_step.color_step_hybrid, fused_step.color_step_hybrid_tail,
-        fused_step.color_round_hybrid, fused_step.color_round_hybrid_tail,
-        sad_search.sad_spiral_argmin, fused_step.color_step_fused,
-        fused_step.color_step_fused_rival, fused_step.color_round_fused,
-        fused_step.color_round_fused_rival, cv_diff.full_block_volume, cv_diff.compact_tables,
-        reg_step.color_step_compact, reg_step.color_round_compact)}
-    assert sorted(counters) == sorted(WANT_LAUNCHES)
+    counters = _kernel_counters()
     by_path, by_row = {}, {}
     by_path["main"], by_row["main"], main_flow, main_rate = _drive(
         torch, engine, cfg, im1, im2, counters, WANT_LAUNCHES, "main", card)
@@ -1953,6 +2189,20 @@ def main() -> int:
     t0 = time.time()
     _tiling_phase(torch, engine, cfg, counters, dev, card, main_rate, results)
     print(f"[tiled] phase 9 took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 10. the CUDA engine against the port's oracle; JAX's work model
+    #     against the measured stages of phase 4's batch
+    t0 = time.time()
+    _oracle_phase(torch, engine, MotionConfig, counters, dev, card)
+    print(f"[oracle] 10(a) took {time.time() - t0:.1f} s ({card})")
+    im1, im2 = _main_pairs(torch, dev)
+    _work_model_phase(torch, engine, cfg, im1, im2, card)
+    del im1, im2
+    took = time.time() - t0
+    print(f"[model] phase 10 took {took:.1f} s (budget {PHASE10_S} s) ({card})")
+    if took > PHASE10_S:
+        raise AssertionError(f"phase 10 took {took:.1f} s, over its {PHASE10_S} s budget")
 
     print(card)
     print(json.dumps({"kernels": list(results.values())}))

@@ -310,6 +310,18 @@ def test_port_never_imports_jax():
         rows = tiled.estimate_flow_padded_tiled(b, np.roll(b, 1, axis=0), cfg,
                                                 tiled.Mesh((1, 2)), device="cpu")
         assert rows.shape == (64, 64, 2)
+        # the oracle and the work models, run too
+        from blockbasedmotionestimation_tpu_torch.models import oracle
+        from blockbasedmotionestimation_tpu_torch.utils import profiling
+        ex = port.MotionConfig(block_sizes=(4,), search_sizes=(8,), interp_factor=1,
+                               regularizer="exact")
+        o = oracle.calc_motion_block_matching(b[:16, :16].copy(), b[1:17, :16].copy(), ex)
+        assert o.shape == (16, 16, 2)
+        times = profiling.PhaseTimes()
+        with profiling.phase("model", times):
+            roof = profiling.windowed_pipeline_roofline(port.MotionConfig(), 1280, 2048)
+        assert roof["total_floor_s"] > 0 and "model" in times.times
+        assert profiling.windowed_pipeline_floor(port.MotionConfig(), 1280, 2048)["floor_s"] > 0
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
         assert not bad, bad
         # nor any module of the JAX package, jax-free ones included
