@@ -1,0 +1,314 @@
+"""One run of one cell: set-up, the measured window, the check, the result.
+
+Everything a cell is made of is data found by name: the cell in
+``BENCHMARK.json``, its configuration file, its traffic file under
+``traffic/`` (read by the one generator, ``gen.py``) and one reader a
+per-layer metric under ``metrics/<name>.py``.
+
+A run:
+  1. loads the program and its kernel library (the first run of a checkout
+     builds it into ``build/kernels/`` there);
+  2. makes the request pool on the device from the seed (and, where the
+     traffic hands frames from the host, downloads it once);
+  3. warms up on the pool's first requests;
+  4. serves requests in a closed loop for ``seconds``: one request is one
+     call of the reference driver's entry on one batch of pairs, timed from
+     issue until its flow is synchronised (or downloaded);
+  5. with ``trace``, from a quarter of the window on, profiles
+     ``trace_requests`` requests on the device alone and reads the
+     per-layer metrics from them, then as many on host and device with
+     the layer calls in spans, for the breakdown's idle gaps;
+  6. frees the program's state and holds a sample of the fields that the
+     window produced, drawn from the seed, to the plain reference.
+"""
+
+from __future__ import annotations
+
+import gc
+import importlib.util
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+BENCH = Path(__file__).resolve().parent
+FOREIGN = ("jax", "jaxlib", "flax", "blockbasedmotionestimation_tpu")
+LIST_FIELDS = ("block_sizes", "search_sizes", "rival_radius")
+
+
+@dataclass
+class Cell:
+    name: str
+    config: dict
+    traffic: dict
+    end_to_end: list
+    per_layer: list
+
+
+def _for_cell(metrics: list, cell: str) -> list:
+    return [m for m in metrics if "workloads" not in m or cell in m["workloads"]]
+
+
+def load_cell(name: str, spec_path: Path = ROOT / "BENCHMARK.json") -> Cell:
+    spec = json.loads(spec_path.read_text())
+    cells = {w["name"]: w for w in spec["workloads"]}
+    if name not in cells:
+        raise KeyError(f"no workload {name!r}; the benchmark has {sorted(cells)}")
+    w = cells[name]
+    cfg = {c["name"]: c for c in spec["configs"]}[w["config"]]
+    return Cell(
+        name=name,
+        config=json.loads((ROOT / cfg["file"]).read_text()),
+        traffic=json.loads((BENCH / "traffic" / f"{w['traffic']}.json").read_text()),
+        end_to_end=_for_cell(spec["end_to_end"], name),
+        per_layer=_for_cell(spec["per_layer"], name),
+    )
+
+
+def foreign_modules() -> list[str]:
+    """Loaded modules whose top-level name is JAX's or the JAX package's."""
+    return sorted(n for n in list(sys.modules) if n.split(".")[0] in FOREIGN)
+
+
+def motion_fields(config: dict) -> dict:
+    """The configuration's MotionConfig fields, lists as tuples."""
+    return {k: tuple(v) if k in LIST_FIELDS and isinstance(v, list) else v
+            for k, v in config["motion_config"].items()}
+
+
+def p95(values: list[float]) -> float:
+    """95th percentile of all values (inclusive quantiles)."""
+    if len(values) == 1:
+        return values[0]
+    return statistics.quantiles(values, n=100, method="inclusive")[94]
+
+
+def load_metric(name: str):
+    """The reader of one per-layer metric: ``metrics/<name>.py``'s ``read``."""
+    path = BENCH / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"bench_metric_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+class Sample:
+    """A sample of ``k`` fields of all the fields the window completes,
+    drawn from the seed, spread over the batch slots: slot j keeps
+    ``k // batch`` fields, one more for the first ``k % batch`` slots, each
+    drawn from all that slot's fields (reservoir sampling).  A fault in
+    one slot of every batch is then always in the sample.  Each field is
+    kept with the pool request and batch slot that produced it; a field on
+    the card is kept as a copy, so that the rest of its batch's flow can be
+    freed."""
+
+    def __init__(self, k: int, batch: int, seed: int):
+        self.quota = [k // batch + (j < k % batch) for j in range(batch)]
+        self.rng = np.random.default_rng([seed, 0x5EED])
+        self.seen = [0] * batch
+        self.slots: list[list[tuple[int, int, object]]] = [[] for _ in range(batch)]
+
+    @property
+    def kept(self) -> list[tuple[int, int, object]]:
+        return [f for slot in self.slots for f in slot]
+
+    def offer(self, pool_index: int, flow) -> None:
+        for j in range(flow.shape[0]):
+            kept, k = self.slots[j], self.quota[j]
+            at = len(kept) if len(kept) < k else int(self.rng.integers(0, self.seen[j] + 1))
+            if at < k:
+                field = (pool_index, j, flow[j].clone() if flow.is_cuda else flow[j])
+                if at == len(kept):
+                    kept.append(field)
+                else:
+                    kept[at] = field
+            self.seen[j] += 1
+
+
+def _power_limit() -> str | None:
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=20)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() \
+        else None
+
+
+def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
+        t_start: float) -> tuple[dict, list[str]]:
+    """One run; returns the result line's object and the check lines."""
+    import torch
+
+    from blockbasedmotionestimation_tpu_torch.config import MotionConfig
+    from blockbasedmotionestimation_tpu_torch.models import engine
+
+    from benchmark import gen, tracing
+    from benchmark.reference import flow as reference
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    fields_cfg = motion_fields(cell.config)
+    cfg = MotionConfig.from_fields(fields_cfg)
+    tr = cell.traffic
+    height, width = cell.config["frame"]["height"], cell.config["frame"]["width"]
+    batch, n_pool = int(tr["batch"]), int(tr["pool_requests"])
+    host_inputs = tr["inputs"] == "host"
+    download = bool(tr["download"])
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    if cuda:
+        from blockbasedmotionestimation_tpu_torch.kernels import _build
+
+        _build.library()
+    frames = gen.pool(tr, height, width, seed, dev)
+    host = frames.cpu().numpy() if host_inputs else None
+    pool_bytes = 0 if host_inputs else frames.numel() * frames.element_size()
+    if host_inputs:
+        del frames
+        frames = None
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def inputs(k: int):
+        src = host if host_inputs else frames
+        return src[k * batch:(k + 1) * batch], src[k * batch + 1:(k + 1) * batch + 1]
+
+    def request(k: int):
+        im1, im2 = inputs(k)
+        # host frames go to the card inside the entry, as a decoder's would
+        flow = engine.estimate_flow_driver_batched(
+            im1, im2, cfg, device=None if cuda or not host_inputs else dev)
+        if download:
+            return flow.cpu()
+        sync()
+        return flow
+
+    for k in range(min(int(tr["warmup_requests"]), n_pool)):
+        request(k)
+    sample = Sample(int(tr["check_fields"]), batch, seed)
+    latencies: list[float] = []
+    tmp = tempfile.TemporaryDirectory(prefix="bench-trace-") if trace else None
+    tracer = tracing.Tracer(int(tr["trace_requests"]), Path(tmp.name) / "device.json",
+                            Path(tmp.name) / "spanned.json") if trace else None
+    start = time.perf_counter()
+    setup_s = start - t_start
+    deadline = start + seconds
+    done = start
+    i = 0
+    while True:
+        t0 = time.perf_counter()
+        if t0 >= deadline and not (tracer and not tracer.done):
+            break
+        if tracer and not tracer.started and (t0 - start >= 0.25 * seconds or t0 >= deadline):
+            tracer.start()
+            t0 = time.perf_counter()
+        k = i % n_pool
+        if tracer and tracer.open:
+            with tracer.span():
+                out = request(k)
+        else:
+            out = request(k)
+        done = time.perf_counter()
+        latencies.append(done - t0)
+        sample.offer(k, out)
+        del out
+        i += 1
+        if tracer and tracer.open:
+            tracer.step()
+    window_s = done - start
+    n_fields = i * batch
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    held = sum(math.ceil(f.numel() * f.element_size() / 512) * 512
+               for _, _, f in sample.kept if f.is_cuda)
+
+    result_metrics: dict = {}
+    breakdown = None
+    busy = None
+    if not trace:
+        values = {"fields_per_s": n_fields / window_s, "latency_ms_p95": p95(latencies) * 1e3,
+                  "peak_mem_gb": (peak - pool_bytes - held) / 1e9, "setup_s": setup_s}
+        for m in cell.end_to_end:
+            result_metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
+    else:  # the loop ran until the traced requests were done
+        import blockbasedmotionestimation_tpu_torch as port
+
+        args = (tracer.active, tracer.active * batch,
+                tracing.port_kernel_names(Path(port.__file__).parent), tracer.launches_counted,
+                {"fields": fields_cfg, "height": height, "width": width, "batch": batch})
+        st = tracing.Stretch(tracing.read_trace(tracer.device_path), *args, request=None)
+        spanned = tracing.Stretch(tracing.read_trace(tracer.spanned_path), *args)
+        tmp.cleanup()
+        breakdown = {"device_ops": st.breakdown()["device_ops"],
+                     "idle_gaps": spanned.breakdown()["idle_gaps"]}
+        busy = (st.busy_us * 1e-6, st.window_us * 1e-6)
+        idle = [100 * (1 - s.busy_us / s.window_us) if s.window_us > 0 else float("nan")
+                for s in (st, spanned)]
+        print(f"trace: device idle {idle[0]:.2f}% over {tracer.active} requests traced on the "
+              f"device alone, {idle[1]:.2f}% over the next {tracer.active} traced on host and "
+              f"device with the layer and wrapper spans", file=sys.stderr)
+        if tracer.spans.missing:
+            print(f"spans: the program has no {tracer.spans.missing}", file=sys.stderr)
+        if not st.launches_agree():
+            print(f"trace: {st.port_launches} of the program's kernels in the trace, "
+                  f"{st.launches_counted} launches counted by its wrappers: per-layer metrics "
+                  f"not measured", file=sys.stderr)
+        else:
+            for m in cell.per_layer:
+                value = load_metric(m["name"])(st)
+                if value is not None:
+                    result_metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+
+    # the check, after the window and the peak: the program's state freed
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    mismatched = checked = 0
+    t_check = time.perf_counter()
+    for k, j, flow in sorted(sample.kept, key=lambda s: (s[0], s[1])):
+        im1, im2 = inputs(k)
+        a = torch.as_tensor(im1[j:j + 1]).to(dev)
+        b = torch.as_tensor(im2[j:j + 1]).to(dev)
+        want = reference.estimate(a, b, fields_cfg)
+        mismatched += reference.mismatched_pixels(flow[None].to(dev), want)
+        checked += 1
+        del want
+    check_s = time.perf_counter() - t_check
+    checks = {
+        "mismatched_px": {"value": mismatched, "limit": 0, "rule": "<="},
+        "fields_checked": {"value": checked, "limit": 1, "rule": ">="},
+    }
+    correct = mismatched == 0 and checked >= 1
+    lines = [f"check {name}: {c['value']} (limit {c['rule']} {c['limit']})"
+             for name, c in checks.items()]
+    lines.append(f"check: {checked} fields of {n_fields} compared with the plain reference in "
+                 f"{check_s:.3f} s; correct={str(correct).lower()}")
+
+    device_info = {
+        "platform": "gpu" if cuda else "cpu",
+        "kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
+        "count": 1,
+        "memory_peak_bytes": peak,
+    }
+    if cuda:
+        device_info["power_limit"] = _power_limit()
+    if busy is not None:
+        device_info["busy_s"], device_info["window_s"] = busy
+    result = {"correct": correct, "attempted": i, "failed": 0, "metrics": result_metrics,
+              "device": device_info}
+    if breakdown is not None:
+        result["breakdown"] = breakdown
+    result["checks"] = checks
+    return result, lines
