@@ -106,14 +106,15 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
 
 def cmd_estimate(args) -> int:
     from blockbasedmotionestimation_tpu_torch.models.engine import estimate_flow_driver
-    from blockbasedmotionestimation_tpu_torch.utils import flowio
+    from blockbasedmotionestimation_tpu_torch.utils import flowio, profiling
 
     im1 = flowio.read_gray(args.frame1)
     im2 = flowio.read_gray(args.frame2)
     cfg = _cfg_from_args(args)
 
     t0 = time.time()
-    flow = estimate_flow_driver(im1, im2, cfg, device=args.device).cpu().numpy()
+    flow = profiling.host_read(estimate_flow_driver(im1, im2, cfg, device=args.device),
+                               "download").numpy()
     print(f"Seconds: {time.time() - t0:.3f}")  # parity: main_class.cpp:55
 
     flowio.write_flo(args.out, flow)

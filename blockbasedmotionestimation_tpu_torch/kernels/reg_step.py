@@ -72,6 +72,7 @@ from blockbasedmotionestimation_tpu_torch.ops.regularize import (
     step_candidates,
     step_commit,
 )
+from blockbasedmotionestimation_tpu_torch.utils import profiling
 
 # sweeps one round launch takes (csrc/fused_step.cu kMaxSweeps: the f32
 # multipliers ride by value in the kernel's argument struct)
@@ -216,7 +217,7 @@ def _kernel(per_round: bool = False):
 
 @functools.lru_cache(maxsize=None)
 def _rank_table_on(device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(reg._RANK_TABLE, device=device).contiguous()
+    return profiling.upload(reg._RANK_TABLE, device, "tables").contiguous()
 
 
 def _check_grid(grid, cur, h, w, ci, cj):

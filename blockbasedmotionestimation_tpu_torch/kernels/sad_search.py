@@ -33,6 +33,7 @@ import torch
 
 from blockbasedmotionestimation_tpu_torch.kernels import _build
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_offsets, spiral_rank
+from blockbasedmotionestimation_tpu_torch.utils import profiling
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 
@@ -65,7 +66,7 @@ def zero_mean_sad(d: torch.Tensor) -> torch.Tensor:
     most 255 * count); at 32 x 32 and above the reference's XLA order may
     round the last place differently."""
     df = d.to(torch.float32)
-    n = torch.tensor(float(df.shape[-1]), dtype=torch.float32, device=df.device)
+    n = profiling.upload(float(df.shape[-1]), df.device, "zsad", dtype=torch.float32)
     mean = pairwise_sum(df) / n
     return pairwise_sum((df - mean[..., None]).abs())
 
@@ -150,7 +151,7 @@ def _kernel():
 
 @functools.lru_cache(maxsize=None)
 def _rank_on(shift: int, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(spiral_rank(shift).reshape(-1), device=device).contiguous()
+    return profiling.upload(spiral_rank(shift).reshape(-1), device, "tables").contiguous()
 
 
 def sad_spiral_argmin(

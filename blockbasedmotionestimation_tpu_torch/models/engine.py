@@ -42,6 +42,14 @@ on every device; no kernel computes zsad, so on the card only the window
 gathers (A) launch one.  The route follows from ``cfg.cost`` before any
 work.  On a CUDA device, a level whose shapes no kernel can take
 (``cuda_refusals``) raises ``ValueError`` before any work.
+
+Every public entry point counts its outermost call, its fields and its
+host time (``utils.profiling.entry``); each copy of a host table to the
+device is a counted sync (``utils.profiling.upload``).  The entry's
+stages run in the program's spans, ``mf.driver`` around ``mf.upscale``,
+``mf.pad``, ``mf.pyramid``, one ``mf.level`` a level and ``mf.subsample``,
+which cost a flag test unless ``utils.profiling.spans`` or ``trace``
+turns them on.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from blockbasedmotionestimation_tpu_torch.ops.regularize import run_schedule, su
 from blockbasedmotionestimation_tpu_torch.ops.search import block_search_level
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
 from blockbasedmotionestimation_tpu_torch.ops.windowed import windowed_level, windowed_schedule
+from blockbasedmotionestimation_tpu_torch.utils import profiling
 
 __all__ = [
     "check_config",
@@ -142,7 +151,7 @@ def _as_frames(x, device, ndim: int) -> torch.Tensor:
     else:
         # numpy frames run on the card unless the caller asks for another
         # device; without CUDA this raises, as device="cuda" does
-        t = torch.as_tensor(np.asarray(x), device="cuda" if device is None else device)
+        t = profiling.upload(np.asarray(x), "cuda" if device is None else device, "frames")
     if t.dtype != torch.uint8 or t.dim() != ndim:
         raise ValueError(f"expected {ndim}-d uint8 frames, got {t.dtype} {tuple(t.shape)}")
     return t
@@ -152,11 +161,14 @@ def transfer_mvs(dense_coarse: torch.Tensor, coarse_bs: int, fine_bs: int) -> to
     """Cross-level MV prediction (``copyMVs``): (B, Hc, Wc, 2) f32 stride-1
     coarse grid -> (B, 2*Hc//fine_bs, 2*Wc//fine_bs, 2) f32 predictions."""
     hc, wc = dense_coarse.shape[1:3]
-    sampled = dense_coarse[:, ::coarse_bs, ::coarse_bs] * 2.0
-    dev = dense_coarse.device
-    iy = torch.as_tensor((np.arange(2 * hc // fine_bs) * fine_bs) // (2 * coarse_bs), device=dev)
-    jx = torch.as_tensor((np.arange(2 * wc // fine_bs) * fine_bs) // (2 * coarse_bs), device=dev)
-    return sampled[:, iy][:, :, jx]
+    with profiling.span("transfer"):
+        sampled = dense_coarse[:, ::coarse_bs, ::coarse_bs] * 2.0
+        dev = dense_coarse.device
+        iy = profiling.upload((np.arange(2 * hc // fine_bs) * fine_bs) // (2 * coarse_bs), dev,
+                              "transfer")
+        jx = profiling.upload((np.arange(2 * wc // fine_bs) * fine_bs) // (2 * coarse_bs), dev,
+                              "transfer")
+        return sampled[:, iy][:, :, jx]
 
 
 def _run_level(
@@ -191,37 +203,45 @@ def _run_level(
     )
 
 
+@profiling.entry
 def estimate_flow_padded(im1p: torch.Tensor, im2p: torch.Tensor, cfg: MotionConfig) -> torch.Tensor:
     """Dense (B, H, W, 2) f32 flow of pre-padded (B, H, W) u8 frames."""
     check_config(cfg, im1p.device)
     levels = cfg.num_levels
-    pyr1 = resample.build_pyramid(im1p, levels)
-    pyr2 = resample.build_pyramid(im2p, levels)
+    with profiling.span("pyramid"):
+        pyr1 = resample.build_pyramid(im1p, levels)
+        pyr2 = resample.build_pyramid(im2p, levels)
     dense = None
     for level in range(levels - 1, -1, -1):
-        im1, im2 = pyr1[level], pyr2[level]
-        b, h, w = im1.shape
-        bs, ss = cfg.block_sizes[level], cfg.search_sizes[level]
-        if dense is None:
-            pred = torch.zeros((b, h // bs, w // bs, 2), dtype=torch.float32, device=im1.device)
-        else:
-            pred = transfer_mvs(dense, cfg.block_sizes[level + 1], bs)
-            if cfg.mv_cap is not None:
-                pred = pred.clamp(-float(cfg.mv_cap), float(cfg.mv_cap))
-        dense = _run_level(im1, im2, pred, bs, ss, cfg, level).to(torch.float32)
+        with profiling.span("level", level=level):
+            im1, im2 = pyr1[level], pyr2[level]
+            b, h, w = im1.shape
+            bs, ss = cfg.block_sizes[level], cfg.search_sizes[level]
+            if dense is None:
+                pred = torch.zeros((b, h // bs, w // bs, 2), dtype=torch.float32,
+                                   device=im1.device)
+            else:
+                pred = transfer_mvs(dense, cfg.block_sizes[level + 1], bs)
+                if cfg.mv_cap is not None:
+                    pred = pred.clamp(-float(cfg.mv_cap), float(cfg.mv_cap))
+            dense = _run_level(im1, im2, pred, bs, ss, cfg, level).to(torch.float32)
     return dense
 
 
+@profiling.entry
 def estimate_flow_batched(
     im1s, im2s, cfg: MotionConfig, device=None
 ) -> tuple[torch.Tensor, pad_ops.Padding]:
     """Batched pipeline over (B, H, W) pairs: (B-padded flow, padding)."""
     a = _as_frames(im1s, device, 3)
     b = _as_frames(im2s, a.device, 3)
-    p = pad_ops.compute_padding(a.shape[1], a.shape[2], cfg)
-    return estimate_flow_padded(pad_ops.pad_frame(a, p), pad_ops.pad_frame(b, p), cfg), p
+    with profiling.span("pad"):
+        p = pad_ops.compute_padding(a.shape[1], a.shape[2], cfg)
+        a, b = pad_ops.pad_frame(a, p), pad_ops.pad_frame(b, p)
+    return estimate_flow_padded(a, b, cfg), p
 
 
+@profiling.entry
 def estimate_flow(im1, im2, cfg: MotionConfig, device=None) -> tuple[torch.Tensor, pad_ops.Padding]:
     """Pad + engine on one (H, W) pair as given (no interp): (padded flow, padding)."""
     a = _as_frames(im1, device, 2)
@@ -230,6 +250,7 @@ def estimate_flow(im1, im2, cfg: MotionConfig, device=None) -> tuple[torch.Tenso
     return flow[0], p
 
 
+@profiling.entry
 def estimate_flow_driver_batched(im1s, im2s, cfg: MotionConfig, device=None) -> torch.Tensor:
     """The reference driver on (B, H, W) pairs: upsample by interp_factor,
     pad, run, subsample by the factor and divide the MVs by it.  Returns
@@ -238,15 +259,18 @@ def estimate_flow_driver_batched(im1s, im2s, cfg: MotionConfig, device=None) -> 
     b = _as_frames(im2s, a.device, 3)
     f = cfg.interp_factor
     if f > 1:
-        a = resample.resize_scale_u8(a, f)
-        b = resample.resize_scale_u8(b, f)
+        with profiling.span("upscale"):
+            a = resample.resize_scale_u8(a, f)
+            b = resample.resize_scale_u8(b, f)
     flow, p = estimate_flow_batched(a, b, cfg)
-    sub = flow[:, p.pad_y : p.padded_h - p.pad_y : f, p.pad_x : p.padded_w - p.pad_x : f]
-    # a tensor divisor: CUDA turns division by a Python scalar into a
-    # multiply by its reciprocal, which rounds differently for odd f
-    return sub / torch.full_like(sub, float(f))
+    with profiling.span("subsample"):
+        sub = flow[:, p.pad_y : p.padded_h - p.pad_y : f, p.pad_x : p.padded_w - p.pad_x : f]
+        # a tensor divisor: CUDA turns division by a Python scalar into a
+        # multiply by its reciprocal, which rounds differently for odd f
+        return sub / torch.full_like(sub, float(f))
 
 
+@profiling.entry
 def estimate_flow_driver(im1, im2, cfg: MotionConfig, device=None) -> torch.Tensor:
     """The reference driver on one (H, W) pair -> (H, W, 2) f32 flow."""
     a = _as_frames(im1, device, 2)

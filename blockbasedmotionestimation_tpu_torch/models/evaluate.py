@@ -20,7 +20,7 @@ import numpy as np
 
 from blockbasedmotionestimation_tpu_torch.config import MotionConfig
 from blockbasedmotionestimation_tpu_torch.models.engine import estimate_flow_driver
-from blockbasedmotionestimation_tpu_torch.utils import flowio, synth
+from blockbasedmotionestimation_tpu_torch.utils import flowio, profiling, synth
 
 SEQUENCES = (
     "Dimetrodon", "Grove2", "Grove3", "Hydrangea",
@@ -38,7 +38,8 @@ class SequenceResult:
 
 def _timed_flow(im1: np.ndarray, im2: np.ndarray, cfg: MotionConfig, device):
     t0 = time.time()
-    flow = estimate_flow_driver(im1, im2, cfg, device=device).cpu().numpy()
+    flow = profiling.host_read(estimate_flow_driver(im1, im2, cfg, device=device),
+                               "download").numpy()
     return flow, time.time() - t0
 
 

@@ -27,7 +27,7 @@ import torch
 
 from blockbasedmotionestimation_tpu_torch.config import MotionConfig
 from blockbasedmotionestimation_tpu_torch.models.engine import estimate_flow_driver_batched
-from blockbasedmotionestimation_tpu_torch.utils import flowio
+from blockbasedmotionestimation_tpu_torch.utils import flowio, profiling
 
 
 @dataclasses.dataclass
@@ -99,7 +99,7 @@ def run_sequence(
         if i not in cache:
             f = frames[i]
             arr = flowio.read_gray(f) if isinstance(f, (str, os.PathLike)) else np.asarray(f)
-            cache[i] = torch.as_tensor(arr, device=dev)
+            cache[i] = profiling.upload(arr, dev, "frames")
             for k in [k for k in cache if k < i - 2 * batch_size]:
                 del cache[k]
         return cache[i]
@@ -115,7 +115,8 @@ def run_sequence(
 
     def drain(in_flight, pool: ThreadPoolExecutor) -> None:
         batch, flows, t0 = in_flight
-        host = flows.cpu().to(torch.float32).numpy()  # the barrier: the whole batch
+        # the barrier: the whole batch
+        host = profiling.host_read(flows, "download").to(torch.float32).numpy()
         per = (time.time() - t0) / len(batch)
         for (i, path), flow in zip(batch, host):
             write_futs.append(pool.submit(_write_checkpoint, np.ascontiguousarray(flow), path))

@@ -34,6 +34,7 @@ column) % 2, ... (``on_strips``).  ``exact`` does not decompose into tiles.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -42,6 +43,7 @@ import torch.nn.functional as F
 
 from blockbasedmotionestimation_tpu_torch.kernels.sad_search import block_cost, extract_blocks
 from blockbasedmotionestimation_tpu_torch.ops.search import Tiling
+from blockbasedmotionestimation_tpu_torch.utils import profiling
 
 _BIG_RANK = 127
 _F32_MAX = float(np.finfo(np.float32).max)
@@ -77,6 +79,14 @@ def _rank_table() -> np.ndarray:
 
 
 _RANK_TABLE = _rank_table()
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rank table and the slots' dy and dx on a device, copied once."""
+    return (profiling.upload(_RANK_TABLE, device, "tables"),
+            profiling.upload([s[0] for s in SLOTS], device, "tables"),
+            profiling.upload([s[1] for s in SLOTS], device, "tables"))
 
 
 def border_case(i: torch.Tensor, j: torch.Tensor, nby: int, nbx: int) -> torch.Tensor:
@@ -121,7 +131,8 @@ def energy(
     du = (cf[..., :, None, 0] - cf[..., None, :, 0]).abs()
     dv = (cf[..., :, None, 1] - cf[..., None, :, 1]).abs()
     smooth = ((du + dv) * present.to(torch.float32)[..., None, :]).sum(dim=-1)
-    lam = torch.tensor(lam_mult, dtype=torch.float32, device=cands.device)
+    # a CPU scalar: no copy to the device, the same f32 multiply
+    lam = torch.tensor(lam_mult, dtype=torch.float32)
     return torch.where(usable, costs.to(torch.float32) + lam * smooth, _F32_MAX)
 
 
@@ -179,13 +190,13 @@ def on_strips(step, grid: torch.Tensor, *args, ci: int, cj: int, strips: Strips 
     lci = (ci + strips.row0_b) % 2
     lcj = cj if strips.col0_b is None else (cj + strips.col0_b) % 2
     for p, q in COLORS:
-        sel = (lci == p) & (lcj == q)
+        sel = profiling.host_read((lci == p) & (lcj == q), "strips")
         if bool(sel.all()):
             step(grid, *args, ci=p, cj=q, strips=strips, **kw)
             return
         if not bool(sel.any()):
             continue
-        idx = sel.nonzero()[:, 0]
+        idx = profiling.upload(sel.nonzero()[:, 0], grid.device, "strips")
 
         def take(t):
             if not isinstance(t, torch.Tensor) or t.shape[:1] != (b,):
@@ -244,9 +255,8 @@ def step_candidates(
     )  # (B, m, n, 9, 2) int32
 
     case = border_case(gi, gj, nby_t, nbx_t)
-    rank = torch.as_tensor(_RANK_TABLE, device=dev)[case]  # (m, n, 9)
-    slot_dy = torch.tensor([s[0] for s in SLOTS], device=dev)
-    slot_dx = torch.tensor([s[1] for s in SLOTS], device=dev)
+    rank_table, slot_dy, slot_dx = _tables_on(dev)
+    rank = rank_table[case]  # (m, n, 9)
     ty_, tx_ = gi[..., None] + slot_dy, gj[..., None] + slot_dx
     present = (
         (rank < _BIG_RANK)
@@ -375,16 +385,15 @@ def regularize_exact(
     dev = grid.device
     blocks = extract_blocks(im1, bs)
     gp = _edge_pad(grid).contiguous()
-    slot_dy = torch.tensor([s[0] for s in SLOTS], device=dev)
-    slot_dx = torch.tensor([s[1] for s in SLOTS], device=dev)
+    rank_table, slot_dy, slot_dx = _tables_on(dev)
     case = border_case(
         torch.arange(nby, device=dev)[:, None], torch.arange(nbx, device=dev)[None, :], nby, nbx
     )
-    ranks = torch.as_tensor(_RANK_TABLE, device=dev)[case].reshape(nby * nbx, 9)
+    ranks = rank_table[case].reshape(nby * nbx, 9)
     ar = torch.arange(bs, device=dev)
     bidx = torch.arange(b, device=dev)[:, None, None, None, None]
     wave = (2 * np.arange(nby)[:, None] + np.arange(nbx)[None, :]).ravel()
-    order = torch.as_tensor(np.argsort(wave, kind="stable"), device=dev)
+    order = profiling.upload(np.argsort(wave, kind="stable"), dev, "regularize")
     start = 0
     for end in np.cumsum(np.bincount(wave)).tolist():
         k = order[start:end]  # the wavefront's blocks (n,), row-major ids
@@ -471,9 +480,11 @@ def run_schedule(
                              "row-tiled")
         cur, lam = bs, lam0
         while cur > 1:
-            for sweep in range(sweeps_per_round):
-                grid = regularize_sweep(im1, im2, grid, cur, lam, sweep + 1, "exact")
-            grid = subdivide(grid)
+            with profiling.span("round", cur=cur):
+                for sweep in range(sweeps_per_round):
+                    grid = regularize_sweep(im1, im2, grid, cur, lam, sweep + 1, "exact")
+            with profiling.span("subdivide"):
+                grid = subdivide(grid)
             cur >>= 1
             lam *= 2.0
         return grid
@@ -488,17 +499,19 @@ def run_schedule(
     cur, lam = bs, lam0
     while cur > 1:
         nby, nbx = grid.shape[1:3]
-        blocks = extract_blocks(im1, cur).reshape(b, nby, nbx, cur, cur)
-        for sweep in range(sweeps_per_round):
-            for ci, cj in colors:
-                strips = strips_at(grid, tiling, cur) if tiling is not None else None
-                step = dict(cur=cur, lam_mult=lam * (sweep + 1), stride=stride, cost=cost,
-                            strips=strips, im2_row0=im2_row0, im2_col0=im2_col0)
-                if stride == 1:
-                    update_color(grid, blocks, im2, ci=ci, cj=cj, **step)
-                else:
-                    on_strips(update_color, grid, blocks, im2, ci=ci, cj=cj, **step)
-        grid = subdivide(grid)
+        with profiling.span("round", cur=cur):
+            blocks = extract_blocks(im1, cur).reshape(b, nby, nbx, cur, cur)
+            for sweep in range(sweeps_per_round):
+                for ci, cj in colors:
+                    strips = strips_at(grid, tiling, cur) if tiling is not None else None
+                    step = dict(cur=cur, lam_mult=lam * (sweep + 1), stride=stride, cost=cost,
+                                strips=strips, im2_row0=im2_row0, im2_col0=im2_col0)
+                    if stride == 1:
+                        update_color(grid, blocks, im2, ci=ci, cj=cj, **step)
+                    else:
+                        on_strips(update_color, grid, blocks, im2, ci=ci, cj=cj, **step)
+        with profiling.span("subdivide"):
+            grid = subdivide(grid)
         cur >>= 1
         lam *= 2.0
     return grid

@@ -4,8 +4,9 @@ Same fixed-point algorithms as the reference package, on tensors whose last
 two dims are (H, W): ``cv::pyrDown`` (separable 1-4-6-4-1, reflect-101, one
 ``(acc + 128) >> 8`` rounding) and ``cv::resize(INTER_LINEAR)`` 8u (x2048
 coefficients, int32 horizontal pass, OpenCV's 8u vertical cast).  Index and
-coefficient tables are built with numpy; the arithmetic is int32 on the
-frames' device.
+coefficient tables are built with numpy and copied to the frames' device
+at each call (each copy a counted sync, ``utils.profiling.upload``); the
+arithmetic is int32 on the frames' device.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import functools
 
 import numpy as np
 import torch
+
+from blockbasedmotionestimation_tpu_torch.utils import profiling
 
 _PYR_KERNEL = (1, 4, 6, 4, 1)
 
@@ -31,8 +34,8 @@ def pyrdown_u8(image: torch.Tensor) -> torch.Tensor:
     if h % 2 or w % 2:
         raise ValueError(f"pyrdown_u8 requires even dims, got {h}x{w}")
     dev = image.device
-    ridx = torch.as_tensor(_reflect101_indices(h), device=dev)
-    cidx = torch.as_tensor(_reflect101_indices(w), device=dev)
+    ridx = profiling.upload(_reflect101_indices(h), dev, "pyramid")
+    cidx = profiling.upload(_reflect101_indices(w), dev, "pyramid")
     x = image.index_select(-2, ridx).index_select(-1, cidx).to(torch.int32)
     acc_v = sum(k * x[..., t : t + h : 2, :] for t, k in enumerate(_PYR_KERNEL))
     acc = sum(k * acc_v[..., t : t + w : 2] for t, k in enumerate(_PYR_KERNEL))
@@ -86,7 +89,7 @@ def resize_linear_u8(image: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tenso
     dev = image.device
 
     def t(a):
-        return torch.as_tensor(a, device=dev)
+        return profiling.upload(a, dev, "resize")
 
     ys0, ys1, yb0, yb1 = (t(a) for a in _resize_tables_y(src_h, dst_h))
     xs0, xs1, xa0, xa1 = (t(a) for a in _resize_tables_x(src_w, dst_w))

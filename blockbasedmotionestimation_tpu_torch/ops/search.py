@@ -37,6 +37,7 @@ from blockbasedmotionestimation_tpu_torch.kernels.sad_search import (
     sad_spiral_argmin as _sad_argmin,
 )
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
+from blockbasedmotionestimation_tpu_torch.utils import profiling
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 
@@ -83,11 +84,13 @@ def gather_windows(
     window's actual centre.
     """
     _, h, w = im2.shape
-    by = wy.clamp(0, h - bs).to(torch.int32)
-    bx = wx.clamp(0, w - bs).to(torch.int32)
-    b = by.shape[0]
-    wins = _gather(im2, by.reshape(b, -1).contiguous(), bx.reshape(b, -1).contiguous(), bs, ext)
-    return wins, by, bx
+    with profiling.span("gather"):
+        by = wy.clamp(0, h - bs).to(torch.int32)
+        bx = wx.clamp(0, w - bs).to(torch.int32)
+        b = by.shape[0]
+        wins = _gather(im2, by.reshape(b, -1).contiguous(), bx.reshape(b, -1).contiguous(), bs,
+                       ext)
+        return wins, by, bx
 
 
 def block_origins(npy: int, npx: int, bs: int, dev, row0=0,
@@ -139,7 +142,8 @@ def block_search_level(
     docstring.
     """
     if order == "raster":
-        return _raster_search_level(im1, im2, pred, bs, ss, cost, tiling)
+        with profiling.span("search"):
+            return _raster_search_level(im1, im2, pred, bs, ss, cost, tiling)
     if order != "spiral":
         raise ValueError(f"unknown search order: {order}")
     b, ht, wt = im1.shape
@@ -159,8 +163,9 @@ def block_search_level(
     # zsad has no kernel (nor in the reference, which runs it in XLA): its
     # argmin is the plain version on every device
     argmin = sad_spiral_argmin_plain if cost == "zsad" else _sad_argmin
-    best_dy, best_dx = argmin(im1, windows, cy.reshape(b, -1).contiguous(),
-                              cx.reshape(b, -1).contiguous(), bs, ss, cost, h, w)
+    with profiling.span("search"):
+        best_dy, best_dx = argmin(im1, windows, cy.reshape(b, -1).contiguous(),
+                                  cx.reshape(b, -1).contiguous(), bs, ss, cost, h, w)
     u = cx + best_dx.reshape(b, nby, nbx) - ext - ox
     v = cy + best_dy.reshape(b, nby, nbx) - ext - oy
     return torch.where(center_ok[..., None], torch.stack([u, v], dim=-1), 0).to(torch.int32)

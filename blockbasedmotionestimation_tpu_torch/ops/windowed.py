@@ -99,6 +99,7 @@ from blockbasedmotionestimation_tpu_torch.ops.search import (
     shifted,
 )
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent, spiral_offsets
+from blockbasedmotionestimation_tpu_torch.utils import profiling
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 
@@ -163,12 +164,12 @@ def spiral_argmin(
     sad_m = torch.where(ok, sad if sad.dtype == torch.float32 else sad.to(torch.int32), _I32_MAX)
     order = np.full((side, side), _I32_MAX, dtype=np.int32)
     order[dys_np + ext, dxs_np + ext] = np.arange(side * side, dtype=np.int32)
-    order_t = torch.as_tensor(order.reshape(-1), device=dev)[None, :, None, None]
+    order_t = profiling.upload(order.reshape(-1), dev, "argmin")[None, :, None, None]
     best = sad_m.amin(dim=1, keepdim=True)
     oi = torch.where(sad_m == best, order_t, _I32_MAX).amin(dim=1).long()
     return (
-        torch.as_tensor(dys_np, device=dev)[oi],
-        torch.as_tensor(dxs_np, device=dev)[oi],
+        profiling.upload(dys_np, dev, "argmin")[oi],
+        profiling.upload(dxs_np, dev, "argmin")[oi],
     )
 
 
@@ -204,16 +205,18 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
         step, args, kw = round_of(cur)
         if not getattr(step, "per_round", False):
             raise TypeError(f"{step!r} is not a round wrapper (per_round)")
-        if tiling is None:
-            step(grid, *args, cur=cur, h=h, w=w, lam=lam, sweeps=sweeps_per_round, **kw)
-        else:
-            for sweep in range(sweeps_per_round):
-                for ci, cj in COLORS:
-                    step.step(grid, *args, cur=cur, h=h, w=w, ci=ci, cj=cj,
-                              lam_mult=lam * (sweep + 1), strips=strips_at(grid, tiling, cur),
-                              **kw)
+        with profiling.span("round", cur=cur):
+            if tiling is None:
+                step(grid, *args, cur=cur, h=h, w=w, lam=lam, sweeps=sweeps_per_round, **kw)
+            else:
+                for sweep in range(sweeps_per_round):
+                    for ci, cj in COLORS:
+                        step.step(grid, *args, cur=cur, h=h, w=w, ci=ci, cj=cj,
+                                  lam_mult=lam * (sweep + 1),
+                                  strips=strips_at(grid, tiling, cur), **kw)
         del args, kw  # free the round's volumes before the next round
-        grid = subdivide(grid).contiguous()
+        with profiling.span("subdivide"):
+            grid = subdivide(grid).contiguous()
         cur >>= 1
         lam *= 2.0
     return grid
@@ -288,23 +291,26 @@ def windowed_level(
     store_r = None
     if hybrid and store_radius is not None and 0 <= store_radius < ext:
         store_r = store_radius
-    if use_compact:
-        cvs = full_block_volume(im1, windows, bs, ext, cost)
-    elif fuse_eff:
-        cvs = deep_pooled_cvs(im1, windows, bs, ext, cost, fuse_eff)
-    else:
-        cvs = volumes(im1, windows, bs, ext, cost, store_r=store_r)
-        if store_r is None:
-            windows = None  # only the tables, the fused steps and F read them
-    best_dy, best_dx = spiral_argmin(cvs[bs], cy_safe, cx_safe, shift, bs, h, w)
-    u = torch.where(center_ok, cx_safe + best_dx - ox, 0)
-    v = torch.where(center_ok, cy_safe + best_dy - oy, 0)
-    grid0 = torch.stack([u, v], dim=-1).to(torch.int32)
+    with profiling.span("volumes"):
+        if use_compact:
+            cvs = full_block_volume(im1, windows, bs, ext, cost)
+        elif fuse_eff:
+            cvs = deep_pooled_cvs(im1, windows, bs, ext, cost, fuse_eff)
+        else:
+            cvs = volumes(im1, windows, bs, ext, cost, store_r=store_r)
+            if store_r is None:
+                windows = None  # only the tables, the fused steps and F read them
+    with profiling.span("argmin"):
+        best_dy, best_dx = spiral_argmin(cvs[bs], cy_safe, cx_safe, shift, bs, h, w)
+        u = torch.where(center_ok, cx_safe + best_dx - ox, 0)
+        v = torch.where(center_ok, cy_safe + best_dy - oy, 0)
+        grid0 = torch.stack([u, v], dim=-1).to(torch.int32)
 
     if use_compact:
-        slots = chunk_delta_slots(grid0, base_mv, ext, compact, compact_ring)
-        smap = slot_map(slots, ext)
-        tables = compact_tables(im1, windows, slots, bs, ext, cost)
+        with profiling.span("volumes"):
+            slots = chunk_delta_slots(grid0, base_mv, ext, compact, compact_ring)
+            smap = slot_map(slots, ext)
+            tables = compact_tables(im1, windows, slots, bs, ext, cost)
         windows = None
         dense = _stored_round(cvs, base_mv, ext)
 
@@ -322,18 +328,19 @@ def windowed_level(
         # rival centres from the search winners: at a discontinuity the
         # winner snaps to the local motion, so the most-covering neighbour
         # winner is the foreign motion mode
-        rmv = pick_rival(grid0, base_mv, ext, rival_extend)
-        rwindows, rvy, rvx = gather_windows(
-            im2, shifted(oy + rmv[..., 1], -im2_row0),
-            frame_cols(ox + rmv[..., 0], w, bs, im2_col0), bs, r2
-        )
-        rbase = torch.stack([shifted(rvx, im2_col0) - ox, shifted(rvy, im2_row0) - oy],
-                            dim=-1).contiguous()
-        if fuse_eff or hybrid:
-            rcvs = deep_pooled_cvs(im1, rwindows, bs, r2, cost, fuse_eff or fuse_max)
-        else:
-            rcvs = volumes(im1, rwindows, bs, r2, cost)
-            rwindows = None
+        with profiling.span("rival"):
+            rmv = pick_rival(grid0, base_mv, ext, rival_extend)
+            rwindows, rvy, rvx = gather_windows(
+                im2, shifted(oy + rmv[..., 1], -im2_row0),
+                frame_cols(ox + rmv[..., 0], w, bs, im2_col0), bs, r2
+            )
+            rbase = torch.stack([shifted(rvx, im2_col0) - ox, shifted(rvy, im2_row0) - oy],
+                                dim=-1).contiguous()
+            if fuse_eff or hybrid:
+                rcvs = deep_pooled_cvs(im1, rwindows, bs, r2, cost, fuse_eff or fuse_max)
+            else:
+                rcvs = volumes(im1, rwindows, bs, r2, cost)
+                rwindows = None
     stored = _stored_round(cvs, base_mv, ext, rcvs, rbase, r2,
                            step=color_round_stored_plain if plain else color_round_stored)
     if fuse_eff:
@@ -406,19 +413,22 @@ def windowed_schedule(
     # zsad: the plain volumes and rounds (no kernel computes it)
     plain = cost == "zsad"
     volumes = pooled_cvs_plain if plain else pooled_cvs
-    cvs = volumes(im1, windows, bs, r, cost)
+    with profiling.span("volumes"):
+        cvs = volumes(im1, windows, bs, r, cost)
     del windows
 
     rcvs = rbase = None
     r2 = r if rival_radius is None else min(rival_radius, r)
     if rival:
-        rmv = pick_rival(parent_mv, parent_mv, r, None if tiling is None else tiling.rival_extend)
-        rwindows, rvy, rvx = gather_windows(im2, shifted(oy + rmv[..., 1], -im2_row0),
-                                            frame_cols(ox + rmv[..., 0], w, bs, im2_col0), bs,
-                                            r2)
-        rbase = torch.stack([shifted(rvx, im2_col0) - ox, shifted(rvy, im2_row0) - oy],
-                            dim=-1).contiguous()
-        rcvs = volumes(im1, rwindows, bs, r2, cost)
+        with profiling.span("rival"):
+            rmv = pick_rival(parent_mv, parent_mv, r,
+                             None if tiling is None else tiling.rival_extend)
+            rwindows, rvy, rvx = gather_windows(im2, shifted(oy + rmv[..., 1], -im2_row0),
+                                                frame_cols(ox + rmv[..., 0], w, bs, im2_col0),
+                                                bs, r2)
+            rbase = torch.stack([shifted(rvx, im2_col0) - ox, shifted(rvy, im2_row0) - oy],
+                                dim=-1).contiguous()
+            rcvs = volumes(im1, rwindows, bs, r2, cost)
         del rwindows
 
     step = color_round_stored_plain if plain else color_round_stored

@@ -61,6 +61,7 @@ from blockbasedmotionestimation_tpu_torch.ops.regularize import run_schedule
 from blockbasedmotionestimation_tpu_torch.ops.search import Tiling, block_search_level
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
 from blockbasedmotionestimation_tpu_torch.ops.windowed import windowed_level, windowed_schedule
+from blockbasedmotionestimation_tpu_torch.utils import profiling
 
 _NO_EXACT = ("regularizer='exact' is a whole-frame raster sweep and cannot be row-tiled; "
              "use {}, or fourcolor/windowed here")
@@ -505,31 +506,34 @@ def _levels(im1s: torch.Tensor, im2s: torch.Tensor, cfg: MotionConfig, tiles: _T
     columns only); (B, H, W, 2) f32.  For row tiling ``tiles`` is
     ``rows``."""
     levels = cfg.num_levels
-    pyr1 = resample.build_pyramid(im1s, levels)
-    pyr2 = resample.build_pyramid(im2s, levels)
+    with profiling.span("pyramid"):
+        pyr1 = resample.build_pyramid(im1s, levels)
+        pyr2 = resample.build_pyramid(im2s, levels)
     dense = None
     for level in range(levels - 1, -1, -1):
-        im1, im2 = pyr1[level], pyr2[level]
-        b, h, w = im1.shape
-        bs, ss = cfg.block_sizes[level], cfg.search_sizes[level]
-        if dense is None:
-            pred = torch.zeros((b, h // bs, w // bs, 2), dtype=torch.float32, device=im1.device)
-        else:
-            pred = engine.transfer_mvs(dense, cfg.block_sizes[level + 1], bs)
-            if cfg.mv_cap is not None:  # the untiled engine's clamp
-                pred = pred.clamp(-float(cfg.mv_cap), float(cfg.mv_cap))
-        halo = im2_halo(cfg, level)
-        rows_ok = _level_shardable(h, w, bs, rows.ty) and halo < h // rows.ty
-        cols_ok = (tiles.tx > 1 and _level_shardable(w, h, bs, tiles.tx)
-                   and halo < w // tiles.tx)
-        by = tiles if rows_ok and cols_ok else rows if rows_ok else None
-        if by is not None:
-            grid = _tiled_level(by.split(im1), by.split(im2), by.split(pred), bs, ss, cfg,
-                                level, h, w, halo, by)
-            dense = by.join(grid).to(torch.float32)
-        else:
-            # a level too small to tile runs whole-frame (coarse levels are tiny)
-            dense = engine._run_level(im1, im2, pred, bs, ss, cfg, level).to(torch.float32)
+        with profiling.span("level", level=level):
+            im1, im2 = pyr1[level], pyr2[level]
+            b, h, w = im1.shape
+            bs, ss = cfg.block_sizes[level], cfg.search_sizes[level]
+            if dense is None:
+                pred = torch.zeros((b, h // bs, w // bs, 2), dtype=torch.float32,
+                                   device=im1.device)
+            else:
+                pred = engine.transfer_mvs(dense, cfg.block_sizes[level + 1], bs)
+                if cfg.mv_cap is not None:  # the untiled engine's clamp
+                    pred = pred.clamp(-float(cfg.mv_cap), float(cfg.mv_cap))
+            halo = im2_halo(cfg, level)
+            rows_ok = _level_shardable(h, w, bs, rows.ty) and halo < h // rows.ty
+            cols_ok = (tiles.tx > 1 and _level_shardable(w, h, bs, tiles.tx)
+                       and halo < w // tiles.tx)
+            by = tiles if rows_ok and cols_ok else rows if rows_ok else None
+            if by is not None:
+                grid = _tiled_level(by.split(im1), by.split(im2), by.split(pred), bs, ss, cfg,
+                                    level, h, w, halo, by)
+                dense = by.join(grid).to(torch.float32)
+            else:
+                # a level too small to tile runs whole-frame (coarse levels are tiny)
+                dense = engine._run_level(im1, im2, pred, bs, ss, cfg, level).to(torch.float32)
     return dense
 
 
@@ -573,6 +577,7 @@ def _run(im1s, im2s, cfg: MotionConfig, mesh: Mesh, axis: str, axis_x, batch_axi
     return _gather_batch(dense, mesh, batch_axis)
 
 
+@profiling.entry
 def estimate_flow_padded_tiled(im1p, im2p, cfg: MotionConfig, mesh: Mesh, axis: str = "ty",
                                axis_x: str | None = None, device=None) -> torch.Tensor:
     """Tiled, halo-exchanged engine on one pre-padded (H', W') pair: the
@@ -590,6 +595,7 @@ def estimate_flow_padded_tiled(im1p, im2p, cfg: MotionConfig, mesh: Mesh, axis: 
                 "estimate_flow_padded")[0]
 
 
+@profiling.entry
 def estimate_flow_padded_batch_tiled(im1s, im2s, cfg: MotionConfig, mesh: Mesh,
                                      batch_axis: str = "batch", axis: str = "ty",
                                      axis_x: str | None = None, device=None) -> torch.Tensor:
@@ -601,6 +607,7 @@ def estimate_flow_padded_batch_tiled(im1s, im2s, cfg: MotionConfig, mesh: Mesh,
                 "engine.estimate_flow_batched")
 
 
+@profiling.entry
 def estimate_flow_batch(im1s, im2s, cfg: MotionConfig, mesh: Mesh,
                         batch_axis: str = "batch", device=None) -> torch.Tensor:
     """Data-parallel driver over (B, H, W) u8 pairs: each batch chunk
@@ -620,6 +627,7 @@ def estimate_flow_batch(im1s, im2s, cfg: MotionConfig, mesh: Mesh,
     return _gather_batch(flow, mesh, batch_axis)
 
 
+@profiling.entry
 def estimate_flow_tiled_auto(im1, im2, cfg: MotionConfig, mesh: Mesh, axis: str = "ty",
                              axis_x: str | None = None, device=None) -> torch.Tensor:
     """Tiling on an unpadded (H, W) pair: pads with ``row_tiles`` = the

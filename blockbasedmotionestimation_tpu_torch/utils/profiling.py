@@ -1,12 +1,24 @@
 """Tracing and performance accounting.
 
-The port's counterpart of the JAX package's ``utils/profiling.py``:
+The port's counterpart of the JAX package's ``utils/profiling.py``, plus
+the program's own spans and counters:
 
-  * ``phase`` - a context-manager timer (host clock) that synchronises the
-    CUDA devices of the tensors it is given before it stops, so the work
-    they wait on is inside the phase;
-  * ``trace`` - ``torch.profiler`` around a block, a Chrome trace written
-    into a directory (view in perfetto or chrome://tracing);
+  * ``counters`` - always on and cheap (plain ints and ``perf_counter_ns``
+    pairs): the outermost calls of the public entry points (``entry``:
+    requests, fields returned, host nanoseconds from entry to return) and
+    every call by which the program makes the host wait for the device
+    (``upload`` of a host value, ``host_read`` of a device value: syncs,
+    their nanoseconds, and syncs by site).  A host-to-device copy from
+    pageable memory and a device-to-host read synchronise the stream, so
+    the host cannot run ahead of the card there.  Counted on every
+    device, CPU included;
+  * ``span`` - the program's stages as ``torch.profiler.record_function``
+    ranges named ``mf.<name>``, on the profiler's clock beside the
+    device's kernels and copies.  Off by default (``spans``), when a span
+    costs one flag test; ``mf.sync.<site>`` around every counted sync;
+  * ``trace`` - ``torch.profiler`` around a block with the spans on, a
+    Chrome trace written into a directory (view in perfetto or
+    chrome://tracing);
   * ``speed_of_light`` - the block search's useful operations against a
     measured time;
   * ``windowed_pipeline_roofline`` / ``windowed_pipeline_floor`` - the JAX
@@ -20,8 +32,9 @@ live here; ``chip_smoke.py`` computes its kernels' bounds from them.
 from __future__ import annotations
 
 import contextlib
+import functools
+import threading
 import time
-from dataclasses import dataclass, field
 
 import torch
 
@@ -35,40 +48,117 @@ CORE_OPS_PER_S = 67e12     # H100 SXM CUDA-core peak, used for integer operation
 INSTR_PER_S = CORE_OPS_PER_S / 2
 
 
-def sync(*tensors) -> None:
-    """Wait for every CUDA device the tensors live on; CPU tensors need
-    nothing."""
-    for dev in {t.device for t in tensors if t.device.type == "cuda"}:
-        torch.cuda.synchronize(dev)
+class _Counts:
+    """The process's counters (``counters`` reads a snapshot)."""
+
+    def __init__(self):
+        self.requests = self.fields = self.host_ns = 0
+        self.syncs = self.sync_ns = 0
+        self.by_site: dict[str, int] = {}
 
 
-@dataclass
-class PhaseTimes:
-    times: dict = field(default_factory=dict)
-
-    def report(self) -> str:
-        total = sum(self.times.values())
-        lines = [f"{name:<28} {t*1000:9.2f} ms" for name, t in self.times.items()]
-        lines.append(f"{'total':<28} {total*1000:9.2f} ms")
-        return "\n".join(lines)
+_COUNTS = _Counts()
+_ENTRY = threading.local()  # .inside: an entry point's call is open on this thread
+_NULL = contextlib.nullcontext()
+_spans_on = False
 
 
-@contextlib.contextmanager
-def phase(name: str, times: PhaseTimes, *sync_tensors):
-    """Add the block's host-clock seconds to ``times.times[name]``, after
-    synchronising the devices of ``sync_tensors``."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if sync_tensors:
-            sync(*sync_tensors)
-        times.times[name] = times.times.get(name, 0.0) + (time.perf_counter() - t0)
+def counters() -> dict:
+    """A snapshot: ``requests``, ``fields`` and ``host_ns`` of the
+    outermost entry calls, ``syncs``, ``sync_ns`` and ``syncs_by_site``
+    (site name -> syncs).  Counts only grow; a reader takes differences."""
+    c = _COUNTS
+    return {"requests": c.requests, "fields": c.fields, "host_ns": c.host_ns,
+            "syncs": c.syncs, "sync_ns": c.sync_ns, "syncs_by_site": dict(c.by_site)}
+
+
+def spans(on: bool) -> bool:
+    """Turn the program's spans on or off; returns the previous state."""
+    global _spans_on
+    prev, _spans_on = _spans_on, bool(on)
+    return prev
+
+
+def span(name: str, **args):
+    """The range ``mf.<name>`` while spans are on, ``args`` its ``k=v``
+    argument string (kept where the profiler records a range's inputs; a
+    Chrome trace shows the name, and the ranges' order tells the level or
+    round); otherwise one shared null context, no string formatted."""
+    if not _spans_on:
+        return _NULL
+    return torch.profiler.record_function(
+        "mf." + name, ", ".join(f"{k}={v}" for k, v in args.items()) or None)
+
+
+def _sync_span(site: str):
+    return torch.profiler.record_function("mf.sync." + site) if _spans_on else _NULL
+
+
+def _counted(site: str, t0: int) -> None:
+    c = _COUNTS
+    c.sync_ns += time.perf_counter_ns() - t0
+    c.syncs += 1
+    c.by_site[site] = c.by_site.get(site, 0) + 1
+
+
+def upload(data, device, site: str, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(data, dtype=dtype, device=device)`` of a host value
+    (a numpy array, a Python number or list), counted as one sync of
+    ``site``: a blocking copy from pageable memory waits for the stream."""
+    t0 = time.perf_counter_ns()
+    with _sync_span(site):
+        out = torch.as_tensor(data, dtype=dtype, device=device)
+    _counted(site, t0)
+    return out
+
+
+def host_read(tensor: torch.Tensor, site: str) -> torch.Tensor:
+    """``tensor.cpu()``, counted as one sync of ``site``; the host reads
+    the copy (``bool``, ``.numpy()``, ``.tolist()``) without waiting again."""
+    t0 = time.perf_counter_ns()
+    with _sync_span(site):
+        out = tensor.cpu()
+    _counted(site, t0)
+    return out
+
+
+def entry(fn):
+    """A public entry point (frames first): its outermost call on a thread
+    counts a request, the fields it returns (the leading dim of a 4-d flow,
+    else 1; of the first element of a tuple) and its host nanoseconds, in
+    the span ``mf.driver``.  Calls it makes into other entry points count
+    nothing more."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        if getattr(_ENTRY, "inside", False):
+            return fn(*args, **kwargs)
+        t0 = time.perf_counter_ns()
+        _ENTRY.inside = True
+        try:
+            with span("driver", call=_COUNTS.requests + 1, batch=_batch(args)):
+                out = fn(*args, **kwargs)
+        finally:
+            _ENTRY.inside = False
+        flow = out[0] if isinstance(out, tuple) else out
+        c = _COUNTS
+        c.requests += 1
+        c.fields += flow.shape[0] if flow.dim() == 4 else 1
+        c.host_ns += time.perf_counter_ns() - t0
+        return out
+
+    return call
+
+
+def _batch(args: tuple) -> int:
+    """The batch of an entry's frames, its first argument: 1 for a pair."""
+    return args[0].shape[0] if args and getattr(args[0], "ndim", 2) == 3 else 1
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """torch.profiler around a block: the CPU activity, and the CUDA
+    """torch.profiler around a block with the program's spans on (the
+    previous state restored after): the CPU activity, and the CUDA
     activity when a card is present; a Chrome trace
     (``<worker>.<ms>.pt.trace.json``) is written into ``logdir`` when the
     block ends.  Yields the profiler."""
@@ -78,11 +168,13 @@ def trace(logdir: str):
     prof = torch.profiler.profile(
         activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)
     )
+    prev = spans(True)
     prof.start()
     try:
         yield prof
     finally:
         prof.stop()
+        spans(prev)
 
 
 def search_sad_ops(h: int, w: int, bs: int, ss: int) -> int:

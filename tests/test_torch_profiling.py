@@ -6,12 +6,11 @@ package's counts term by term for the same config, size and rates: exact
 equality of every count and every time (the same arithmetic in the same
 order).  The port renames the TPU vocabulary (``vpu_ops`` -> ``int_ops``,
 ``vpu_s`` -> ``ops_s``, ``vpu_ops_per_sec`` -> ``ops_per_sec``); the tests
-map the names.  Then the timers: ``phase`` on CPU tensors and ``trace``
-writing a Chrome trace on the CPU.
+map the names.  Then ``trace`` writing a Chrome trace on the CPU (the
+counters and spans: ``tests/test_torch_tracing.py``).
 """
 
 import json
-import time
 
 import pytest
 
@@ -98,22 +97,6 @@ def test_default_h100_totals():
     assert round(8e3 * roof["total_floor_s"], 2) == 14.44
     assert round(8e3 * floor["floor_s"], 2) == 18.14
     assert round(8e3 * roof["components"]["cv_stream"]["floor_s"], 2) == 5.44
-
-
-def test_phase_accumulates_on_cpu_tensors():
-    times = tprof.PhaseTimes()
-    x = torch.arange(1000, dtype=torch.float32)
-    for _ in range(2):
-        with tprof.phase("sum", times, x):
-            time.sleep(0.01)
-            x = x + 1
-    with tprof.phase("other", times):
-        pass
-    assert set(times.times) == {"sum", "other"}
-    assert times.times["sum"] >= 0.02
-    report = times.report().splitlines()
-    assert [ln.split()[0] for ln in report] == ["sum", "other", "total"]
-    tprof.sync(x, torch.zeros(2))  # CPU tensors: nothing to wait for
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
