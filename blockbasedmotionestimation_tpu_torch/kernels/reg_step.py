@@ -215,9 +215,8 @@ def _kernel(per_round: bool = False):
     return _build.entry("bbme_color_step", ARGTYPES)
 
 
-@functools.lru_cache(maxsize=None)
 def _rank_table_on(device: torch.device) -> torch.Tensor:
-    return profiling.upload(reg._RANK_TABLE, device, "tables").contiguous()
+    return profiling.table("tables", "rank", lambda: reg._RANK_TABLE, device).contiguous()
 
 
 def _check_grid(grid, cur, h, w, ci, cj):

@@ -149,9 +149,9 @@ def _kernel():
     return _build.entry("bbme_sad_spiral_argmin", ARGTYPES)
 
 
-@functools.lru_cache(maxsize=None)
 def _rank_on(shift: int, device: torch.device) -> torch.Tensor:
-    return profiling.upload(spiral_rank(shift).reshape(-1), device, "tables").contiguous()
+    return profiling.table("tables", ("spiral_rank", shift),
+                           lambda: spiral_rank(shift).reshape(-1), device).contiguous()
 
 
 def sad_spiral_argmin(

@@ -44,9 +44,10 @@ work.  On a CUDA device, a level whose shapes no kernel can take
 (``cuda_refusals``) raises ``ValueError`` before any work.
 
 Every public entry point counts its outermost call, its fields and its
-host time (``utils.profiling.entry``); each copy of a host table to the
-device is a counted sync (``utils.profiling.upload``).  The entry's
-stages run in the program's spans, ``mf.driver`` around ``mf.upscale``,
+host time (``utils.profiling.entry``); each copy of a host value to the
+device is a counted sync (``utils.profiling.upload``), and each constant
+table goes to the device once a shape and device (``utils.profiling.table``).
+The entry's stages run in the program's spans, ``mf.driver`` around ``mf.upscale``,
 ``mf.pad``, ``mf.pyramid``, one ``mf.level`` a level and ``mf.subsample``,
 which cost a flag test unless ``utils.profiling.spans`` or ``trace``
 turns them on.
@@ -163,11 +164,10 @@ def transfer_mvs(dense_coarse: torch.Tensor, coarse_bs: int, fine_bs: int) -> to
     hc, wc = dense_coarse.shape[1:3]
     with profiling.span("transfer"):
         sampled = dense_coarse[:, ::coarse_bs, ::coarse_bs] * 2.0
-        dev = dense_coarse.device
-        iy = profiling.upload((np.arange(2 * hc // fine_bs) * fine_bs) // (2 * coarse_bs), dev,
-                              "transfer")
-        jx = profiling.upload((np.arange(2 * wc // fine_bs) * fine_bs) // (2 * coarse_bs), dev,
-                              "transfer")
+        iy, jx = (profiling.table("transfer", (n, fine_bs, coarse_bs),
+                                  lambda n=n: (np.arange(n) * fine_bs) // (2 * coarse_bs),
+                                  dense_coarse.device)
+                  for n in (2 * hc // fine_bs, 2 * wc // fine_bs))
         return sampled[:, iy][:, :, jx]
 
 

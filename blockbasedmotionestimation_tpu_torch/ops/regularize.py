@@ -34,7 +34,6 @@ column) % 2, ... (``on_strips``).  ``exact`` does not decompose into tiles.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -81,12 +80,11 @@ def _rank_table() -> np.ndarray:
 _RANK_TABLE = _rank_table()
 
 
-@functools.lru_cache(maxsize=None)
 def _tables_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The rank table and the slots' dy and dx on a device, copied once."""
-    return (profiling.upload(_RANK_TABLE, device, "tables"),
-            profiling.upload([s[0] for s in SLOTS], device, "tables"),
-            profiling.upload([s[1] for s in SLOTS], device, "tables"))
+    return (profiling.table("tables", "rank", lambda: _RANK_TABLE, device),
+            profiling.table("tables", "slot_dy", lambda: [s[0] for s in SLOTS], device),
+            profiling.table("tables", "slot_dx", lambda: [s[1] for s in SLOTS], device))
 
 
 def border_case(i: torch.Tensor, j: torch.Tensor, nby: int, nbx: int) -> torch.Tensor:

@@ -5,13 +5,12 @@ two dims are (H, W): ``cv::pyrDown`` (separable 1-4-6-4-1, reflect-101, one
 ``(acc + 128) >> 8`` rounding) and ``cv::resize(INTER_LINEAR)`` 8u (x2048
 coefficients, int32 horizontal pass, OpenCV's 8u vertical cast).  Index and
 coefficient tables are built with numpy and copied to the frames' device
-at each call (each copy a counted sync, ``utils.profiling.upload``); the
-arithmetic is int32 on the frames' device.
+once a shape and device (``utils.profiling.table``: the first copy a
+counted sync, later calls reuse the device's tensor); the arithmetic is
+int32 on the frames' device.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -33,9 +32,8 @@ def pyrdown_u8(image: torch.Tensor) -> torch.Tensor:
     h, w = image.shape[-2:]
     if h % 2 or w % 2:
         raise ValueError(f"pyrdown_u8 requires even dims, got {h}x{w}")
-    dev = image.device
-    ridx = profiling.upload(_reflect101_indices(h), dev, "pyramid")
-    cidx = profiling.upload(_reflect101_indices(w), dev, "pyramid")
+    ridx, cidx = (profiling.table("pyramid", (n, 2, 2), lambda n=n: _reflect101_indices(n),
+                                  image.device) for n in (h, w))
     x = image.index_select(-2, ridx).index_select(-1, cidx).to(torch.int32)
     acc_v = sum(k * x[..., t : t + h : 2, :] for t, k in enumerate(_PYR_KERNEL))
     acc = sum(k * acc_v[..., t : t + w : 2] for t, k in enumerate(_PYR_KERNEL))
@@ -58,7 +56,6 @@ def _fixed_coefs(frac: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return a0, a1
 
 
-@functools.lru_cache(maxsize=None)
 def _resize_tables_x(src_n: int, dst_n: int):
     """Horizontal taps: OpenCV zeroes the fraction at the edges, so edge
     columns become one full-weight tap."""
@@ -72,7 +69,6 @@ def _resize_tables_x(src_n: int, dst_n: int):
     return s0, s1, a0, a1
 
 
-@functools.lru_cache(maxsize=None)
 def _resize_tables_y(src_n: int, dst_n: int):
     """Vertical taps: the fraction stays unclamped and only the two row
     indices are replicate-clamped (two separate ``>>16`` truncations)."""
@@ -83,16 +79,18 @@ def _resize_tables_y(src_n: int, dst_n: int):
     return s0, s1, b0, b1
 
 
+def _resize_tables_on(axis: str, src_n: int, dst_n: int, device) -> tuple[torch.Tensor, ...]:
+    """An axis's four tables (``_resize_tables_y`` or ``_x``) on ``device``."""
+    build = _resize_tables_y if axis == "y" else _resize_tables_x
+    return tuple(profiling.table("resize", (axis, src_n, dst_n, i),
+                                 lambda i=i: build(src_n, dst_n)[i], device) for i in range(4))
+
+
 def resize_linear_u8(image: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
     """``cv::resize(..., INTER_LINEAR)`` on (..., H, W) uint8."""
     src_h, src_w = image.shape[-2:]
-    dev = image.device
-
-    def t(a):
-        return profiling.upload(a, dev, "resize")
-
-    ys0, ys1, yb0, yb1 = (t(a) for a in _resize_tables_y(src_h, dst_h))
-    xs0, xs1, xa0, xa1 = (t(a) for a in _resize_tables_x(src_w, dst_w))
+    ys0, ys1, yb0, yb1 = _resize_tables_on("y", src_h, dst_h, image.device)
+    xs0, xs1, xa0, xa1 = _resize_tables_on("x", src_w, dst_w, image.device)
     x = image.to(torch.int32)
     row = x.index_select(-1, xs0) * xa0 + x.index_select(-1, xs1) * xa1
     s0 = row.index_select(-2, ys0)

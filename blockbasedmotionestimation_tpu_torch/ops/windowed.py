@@ -150,7 +150,7 @@ def spiral_argmin(
     w: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Winning (dy, dx) per parent: min cost, then earliest spiral visit."""
-    dys_np, dxs_np, ext = spiral_offsets(shift)
+    ext = spiral_extent(shift)
     side = 2 * ext + 1
     dev = sad.device
     didx = torch.arange(side * side, device=dev)
@@ -162,15 +162,21 @@ def spiral_argmin(
     # f32 (zsad) costs compare as f32, the others as int32; masked deltas
     # cost I32_MAX in either, as in the reference
     sad_m = torch.where(ok, sad if sad.dtype == torch.float32 else sad.to(torch.int32), _I32_MAX)
+    order_t = profiling.table("argmin", ("order", shift), lambda: _spiral_order(shift), dev)
+    dys = profiling.table("argmin", ("dy", shift), lambda: spiral_offsets(shift)[0], dev)
+    dxs = profiling.table("argmin", ("dx", shift), lambda: spiral_offsets(shift)[1], dev)
+    best = sad_m.amin(dim=1, keepdim=True)
+    oi = torch.where(sad_m == best, order_t[None, :, None, None], _I32_MAX).amin(dim=1).long()
+    return dys[oi], dxs[oi]
+
+
+def _spiral_order(shift: int) -> np.ndarray:
+    """(side^2,) int32: each delta's spiral visit, I32_MAX off the spiral."""
+    dys_np, dxs_np, ext = spiral_offsets(shift)
+    side = 2 * ext + 1
     order = np.full((side, side), _I32_MAX, dtype=np.int32)
     order[dys_np + ext, dxs_np + ext] = np.arange(side * side, dtype=np.int32)
-    order_t = profiling.upload(order.reshape(-1), dev, "argmin")[None, :, None, None]
-    best = sad_m.amin(dim=1, keepdim=True)
-    oi = torch.where(sad_m == best, order_t, _I32_MAX).amin(dim=1).long()
-    return (
-        profiling.upload(dys_np, dev, "argmin")[oi],
-        profiling.upload(dxs_np, dev, "argmin")[oi],
-    )
+    return order.reshape(-1)
 
 
 def hybrid_form(bs: int, rival: bool) -> bool:

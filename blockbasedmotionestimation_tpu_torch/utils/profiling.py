@@ -12,6 +12,11 @@ the program's own spans and counters:
     pageable memory and a device-to-host read synchronise the stream, so
     the host cannot run ahead of the card there.  Counted on every
     device, CPU included;
+  * ``table`` - constant host tables (indices, ranks, coefficients that
+    depend on shapes and the configuration alone) kept on the device: the
+    first call of a (site, key, device) uploads the table, a counted sync,
+    and every later call returns the same tensor, counted as a hit of its
+    site (``table_hits``), with no copy and no wait;
   * ``span`` - the program's stages as ``torch.profiler.record_function``
     ranges named ``mf.<name>``, on the profiler's clock beside the
     device's kernels and copies.  Off by default (``spans``), when a span
@@ -31,6 +36,7 @@ live here; ``chip_smoke.py`` computes its kernels' bounds from them.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import threading
@@ -55,9 +61,14 @@ class _Counts:
         self.requests = self.fields = self.host_ns = 0
         self.syncs = self.sync_ns = 0
         self.by_site: dict[str, int] = {}
+        self.table_hits = 0
+        self.hits_by_site: dict[str, int] = {}
 
 
 _COUNTS = _Counts()
+TABLES_KEPT = 256  # the device tables ``table`` keeps, least recently used dropped first
+_TABLES: collections.OrderedDict = collections.OrderedDict()  # (site, key, device) -> tensor
+_TABLES_LOCK = threading.Lock()
 _ENTRY = threading.local()  # .inside: an entry point's call is open on this thread
 _NULL = contextlib.nullcontext()
 _spans_on = False
@@ -66,10 +77,13 @@ _spans_on = False
 def counters() -> dict:
     """A snapshot: ``requests``, ``fields`` and ``host_ns`` of the
     outermost entry calls, ``syncs``, ``sync_ns`` and ``syncs_by_site``
-    (site name -> syncs).  Counts only grow; a reader takes differences."""
+    (site name -> syncs), ``table_hits`` and ``table_hits_by_site`` (site
+    name -> tables ``table`` found on the device; its misses are the
+    site's syncs).  Counts only grow; a reader takes differences."""
     c = _COUNTS
     return {"requests": c.requests, "fields": c.fields, "host_ns": c.host_ns,
-            "syncs": c.syncs, "sync_ns": c.sync_ns, "syncs_by_site": dict(c.by_site)}
+            "syncs": c.syncs, "sync_ns": c.sync_ns, "syncs_by_site": dict(c.by_site),
+            "table_hits": c.table_hits, "table_hits_by_site": dict(c.hits_by_site)}
 
 
 def spans(on: bool) -> bool:
@@ -109,6 +123,31 @@ def upload(data, device, site: str, dtype=None) -> torch.Tensor:
     with _sync_span(site):
         out = torch.as_tensor(data, dtype=dtype, device=device)
     _counted(site, t0)
+    return out
+
+
+def table(site: str, key, build, device) -> torch.Tensor:
+    """The constant table ``build()`` (a host value as ``upload`` takes it,
+    made from the arguments in ``key`` alone) on ``device`` (a tensor's
+    ``.device``), copied once: the first call of a (``site``, ``key``,
+    device) uploads it, one counted sync of ``site``; later calls return
+    the same tensor, one hit of ``site``, without a copy.  The tensor is
+    shared, so callers only read it.  Of more than ``TABLES_KEPT`` tables
+    the least recently used is dropped (a later call copies it again)."""
+    k = (site, key, device)
+    with _TABLES_LOCK:
+        out = _TABLES.get(k)
+        if out is not None:
+            _TABLES.move_to_end(k)
+            c = _COUNTS
+            c.table_hits += 1
+            c.hits_by_site[site] = c.hits_by_site.get(site, 0) + 1
+            return out
+    out = upload(build(), device, site)
+    with _TABLES_LOCK:
+        _TABLES[k] = out
+        if len(_TABLES) > TABLES_KEPT:
+            _TABLES.popitem(last=False)
     return out
 
 

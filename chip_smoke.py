@@ -1877,8 +1877,8 @@ def _work_model_phase(torch, engine, cfg, im1, im2, card: str) -> None:
     batch (each stage's calls of one batch replayed, the rounds on copies
     of their grids, under CUDA events queued behind a sleep as ``_cuda_ms``
     times them: the card's time wherever the stage does not wait for the
-    host; the plain stages that upload a table, the pyramid, the spiral
-    argmin and the transfer, wait there, so theirs include host time), then
+    host; the plain stages, the pyramid, the spiral argmin and the
+    transfer, read tables copied to the card once, so they do not wait), then
     the model's floor beside the batch's device time (torch.profiler).  A
     term whose model exceeds its measured time is marked: it counts work
     the port does not do.  A record: nothing raises on the marks."""

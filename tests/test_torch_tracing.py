@@ -42,10 +42,10 @@ def _frames(b, h, w, seed=0):
     return a, np.roll(a, (1, 2), axis=(1, 2))
 
 
-def syncs_from_the_code(cfg: MotionConfig, host_arrays: bool) -> dict:
-    """Syncs a request of ``estimate_flow_driver_batched`` makes, site by
-    site, read from the code: each copy of a host table to the device
-    (``profiling.upload``) waits for the stream."""
+def tables_from_the_code(cfg: MotionConfig) -> dict:
+    """Constant tables a request of ``estimate_flow_driver_batched`` reads
+    on the device, site by site, read from the code (``profiling.table``:
+    copied once a shape and device, found there after)."""
     levels = cfg.num_levels
     want = {
         # resize_linear_u8: 4 row and 4 column tables, a frame
@@ -57,17 +57,36 @@ def syncs_from_the_code(cfg: MotionConfig, host_arrays: bool) -> dict:
         "transfer": 2 * (levels - 1),
         # spiral_argmin of the fused windowed level: the rank table, dy, dx
         "argmin": 3 * levels if cfg.uses_fused_windowed else 0,
-        # _as_frames: both frames, when they come as host arrays
-        "frames": 2 if host_arrays else 0,
     }
     return {k: v for k, v in want.items() if v}
 
 
+def syncs_from_the_code(cfg: MotionConfig, host_arrays: bool) -> dict:
+    """Syncs a warmed request of ``estimate_flow_driver_batched`` makes,
+    site by site, read from the code: its tables are on the device
+    already, so only frames that come as host arrays are copied
+    (``_as_frames``, ``profiling.upload``: the copy waits for the stream)."""
+    return {"frames": 2} if host_arrays else {}
+
+
 def _diff(c0: dict, c1: dict) -> dict:
-    out = {k: c1[k] - c0[k] for k in ("requests", "fields", "host_ns", "syncs", "sync_ns")}
-    sites = {k: v - c0["syncs_by_site"].get(k, 0) for k, v in c1["syncs_by_site"].items()}
-    out["syncs_by_site"] = {k: v for k, v in sites.items() if v}
+    out = {k: c1[k] - c0[k]
+           for k in ("requests", "fields", "host_ns", "syncs", "sync_ns", "table_hits")}
+    for by in ("syncs_by_site", "table_hits_by_site"):
+        sites = {k: v - c0[by].get(k, 0) for k, v in c1[by].items()}
+        out[by] = {k: v for k, v in sites.items() if v}
     return out
+
+
+def _drop_tables():
+    """No table on any device, as in a fresh process."""
+    with profiling._TABLES_LOCK:
+        profiling._TABLES.clear()
+
+
+@pytest.fixture
+def cold_tables():
+    _drop_tables()
 
 
 def _inputs(a, b, host_arrays, device):
@@ -83,7 +102,7 @@ def test_counted_syncs_are_the_codes(name):
     cfg = MotionConfig(**CONFIGS[name])
     host = name == "host-arrays"
     ta, tb, dev = _inputs(*_frames(2, 16, 24), host, "cpu")
-    engine.estimate_flow_driver_batched(ta, tb, cfg, device=dev)  # tables copied once a process
+    engine.estimate_flow_driver_batched(ta, tb, cfg, device=dev)  # tables copied once
     c0 = profiling.counters()
     flow = engine.estimate_flow_driver_batched(ta, tb, cfg, device=dev)
     got = _diff(c0, profiling.counters())
@@ -96,12 +115,88 @@ def test_counted_syncs_are_the_codes(name):
 
 
 def test_counted_syncs_per_field_of_the_cells():
-    """The counts PERF.md derives: 46 a request of 8 fields in the default
-    clip cell, 34 in the search-centred one, 48 a pair in the live cell."""
+    """The counts PERF.md derives for a warmed request: no sync in the
+    clip cells, the two frames a pair in the live cell; the tables found on
+    the device, 46 a request of 8 fields in the default clip cell, 34 in
+    the search-centred one, 46 a pair in the live cell."""
     per = lambda cfg, host, batch: sum(syncs_from_the_code(cfg, host).values()) / batch
-    assert per(MotionConfig(), False, 8) == 5.75
-    assert per(MotionConfig(window_center="search"), False, 8) == 4.25
-    assert per(MotionConfig(), True, 1) == 48
+    assert per(MotionConfig(), False, 8) == 0
+    assert per(MotionConfig(window_center="search"), False, 8) == 0
+    assert per(MotionConfig(), True, 1) == 2
+    hits = lambda cfg: sum(tables_from_the_code(cfg).values())
+    assert (hits(MotionConfig()), hits(MotionConfig(window_center="search"))) == (46, 34)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_tables_copied_once_then_found(name, cold_tables):
+    """A process's first request copies each table it reads once (a sync
+    a distinct table) and finds the rest on the device; the second copies
+    none and finds every one, as many as the code reads a request."""
+    cfg = MotionConfig(**CONFIGS[name])
+    host = name == "host-arrays"
+    ta, tb, dev = _inputs(*_frames(2, 16, 24), host, "cpu")
+    want = tables_from_the_code(cfg)
+    c0 = profiling.counters()
+    first = engine.estimate_flow_driver_batched(ta, tb, cfg, device=dev)
+    got = _diff(c0, profiling.counters())
+    copied = dict(got["syncs_by_site"])
+    assert copied.pop("frames", 0) == (2 if host else 0)
+    distinct = {}
+    for site, _, _ in profiling._TABLES:
+        distinct[site] = distinct.get(site, 0) + 1
+    assert copied == distinct  # no table copied twice
+    for site, n in want.items():
+        assert 0 < copied[site] <= n, site
+        assert copied[site] + got["table_hits_by_site"].get(site, 0) == n, site
+    c1 = profiling.counters()
+    second = engine.estimate_flow_driver_batched(ta, tb, cfg, device=dev)
+    got = _diff(c1, profiling.counters())
+    assert got["syncs_by_site"] == syncs_from_the_code(cfg, host)
+    assert {k: got["table_hits_by_site"][k] for k in want} == want
+    assert got["table_hits"] == sum(got["table_hits_by_site"].values())
+    assert torch.equal(first, second)
+
+
+def test_tables_keep_the_most_recently_used(monkeypatch, cold_tables):
+    """The device's tables are bounded: past ``TABLES_KEPT`` the least
+    recently used goes, and a later call copies it again."""
+    monkeypatch.setattr(profiling, "TABLES_KEPT", 3)
+    cpu = torch.device("cpu")
+    get = lambda k: profiling.table("test", k, lambda: np.arange(k + 1), cpu)
+    first = [get(k) for k in range(3)]
+    assert get(0) is first[0]  # a hit, now the most recent
+    c0 = profiling.counters()
+    get(3)  # drops 1, the least recently used
+    assert [k for _, k, _ in profiling._TABLES] == [2, 0, 3]
+    assert get(2) is first[2] and get(0) is first[0]
+    again = get(1)
+    got = _diff(c0, profiling.counters())
+    assert got["syncs_by_site"] == {"test": 2} and got["table_hits_by_site"] == {"test": 2}
+    assert again is not first[1] and torch.equal(again, first[1])
+    assert len(profiling._TABLES) == 3
+
+
+@pytest.mark.parametrize("sizes", [((16, 24), (24, 16)), ((16, 24), (32, 24))])
+def test_frame_sizes_keep_tables_of_their_own(sizes, cold_tables):
+    """Two frame sizes in one process each copy their own tables and give
+    the flows each gives with no table on the device: a key that missed an
+    argument would hand one size's stale table to the other."""
+    cfg = MotionConfig(**CONFIGS["default"])
+    pairs = [_frames(2, h, w, seed=5) for h, w in sizes]
+    run = lambda a, b: engine.estimate_flow_driver_batched(torch.as_tensor(a),
+                                                           torch.as_tensor(b), cfg)
+    fresh = []
+    for a, b in pairs:
+        _drop_tables()
+        fresh.append(run(a, b))
+    _drop_tables()
+    copied = []
+    for (a, b), want in zip(pairs + pairs, fresh + fresh):
+        c0 = profiling.counters()
+        assert torch.equal(run(a, b), want)
+        copied.append(_diff(c0, profiling.counters())["syncs"])
+    # each size copies tables the other does not have, once
+    assert copied[0] > 0 and copied[1] > 0 and copied[2:] == [0, 0]
 
 
 ENTRIES = {
@@ -175,7 +270,7 @@ def test_spans_off_leave_no_event(tmp_path):
     assert profiling.span("level", level=1) is profiling.span("round", cur=2)
 
 
-def test_spans_on_nest_stage_in_driver(tmp_path):
+def test_spans_on_nest_stage_in_driver(tmp_path, cold_tables):
     cfg = MotionConfig(**SMALL)
     a, b = _frames(1, 16, 24)
     ev = _traced_events(cfg, a, b, tmp_path, on=True)
@@ -200,16 +295,17 @@ def test_spans_on_nest_stage_in_driver(tmp_path):
         assert inner.count("mf.argmin") == 1 and inner.count("mf.rival") == 1
         assert inner.count("mf.round") == rounds and inner.count("mf.subdivide") == rounds
     assert len(named("mf.transfer")) == cfg.num_levels - 1
-    # every counted sync lies inside its stage
+    # every counted sync, a table's first copy, lies inside its stage
     stage_of = {"mf.sync.resize": "mf.upscale", "mf.sync.pyramid": "mf.pyramid",
-                "mf.sync.argmin": "mf.argmin", "mf.sync.transfer": "mf.transfer"}
+                "mf.sync.argmin": "mf.argmin", "mf.sync.transfer": "mf.transfer",
+                "mf.sync.tables": "mf.round"}
     syncs = [e for e in ev if e["name"].startswith("mf.sync.")]
-    assert len(syncs) == sum(syncs_from_the_code(cfg, False).values())
+    assert len(syncs) == len(profiling._TABLES) > 0
     for e in syncs:
         assert any(_inside(e, s) for s in named(stage_of[e["name"]])), e["name"]
 
 
-def test_trace_turns_spans_on_and_restores_them(tmp_path):
+def test_trace_turns_spans_on_and_restores_them(tmp_path, cold_tables):
     a, b = _frames(1, 16, 24)
     assert profiling.span("driver") is profiling.span("level")  # off by default
     with profiling.trace(str(tmp_path)):
@@ -260,10 +356,12 @@ def cuda():
 @pytest.mark.parametrize("name,batch", [("default", 8), ("search-centred", 8),
                                         ("host-arrays", 1)])
 def test_every_sync_on_the_card_is_counted(cuda, name, batch):
-    """One request of each cell's configuration at its size (640x480
+    """A warmed request of each cell's configuration at its size (640x480
     frames upscaled 4x) under PyTorch's sync debug mode: every
     synchronising call it warns of is a sync the counters count, site by
-    site as the code says, and spans change no launch."""
+    site as the code says (none in a clip batch, whose tables are on the
+    card; the two frames of a host-array pair), and spans change no
+    launch."""
     cfg = MotionConfig(window_center="search" if name == "search-centred" else "pred")
     host = name == "host-arrays"
     ta, tb, dev = _inputs(*_frames(batch, 480, 640, seed=7), host, cuda)
@@ -295,6 +393,8 @@ def test_every_sync_on_the_card_is_counted(cuda, name, batch):
     assert not stray, "\n".join(stray)
     assert got["syncs_by_site"] == want
     assert len(warned) == got["syncs"] == sum(want.values())
+    tables = tables_from_the_code(cfg)
+    assert {k: got["table_hits_by_site"].get(k, 0) for k in tables} == tables
     torch.cuda.synchronize(cuda)
     prev = profiling.spans(True)
     try:
