@@ -49,6 +49,10 @@ Every round is one call of a round wrapper (``reg_step.color_round_stored``
 for D, D', 8 and 9, ``reg_step.color_round_compact`` for 10,
 ``kernels.fused_step.color_round_*`` for E, F, 11 and 12).
 All forms give the same bits (compact: while it excludes nothing).
+The level counts the bytes of the volumes it stores under its form
+(``utils.profiling.volumes``: ``dense``, ``band``, ``hybrid_rival`` for
+the hybrid form's rival window, ``fused``, ``compact``), and
+``rounds_loop`` each round under its wrapper's form.
 
 Tiles (``parallel.tiled``, ``tiling``: an ``ops.search.Tiling``; reference
 ``windowed_level`` / ``windowed_schedule`` with ``full_h``, ``row0``,
@@ -185,6 +189,12 @@ def hybrid_form(bs: int, rival: bool) -> bool:
     return rival and bs % 8 == 0
 
 
+# the form a round wrapper's rounds count under, its plain version's alike
+_ROUND_FORMS = {"color_round_stored": "stored", "color_round_hybrid": "hybrid",
+                "color_round_hybrid_tail": "tail", "color_round_fused": "fused",
+                "color_round_fused_rival": "fused", "color_round_compact": "compact"}
+
+
 def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
                 sweeps_per_round: int, round_of, tiling: Tiling | None = None) -> torch.Tensor:
     """The subdivision rounds, cur = bs, bs/2, ..., 2.
@@ -204,6 +214,9 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
     multipliers (Python's double lam * (s + 1), rounded to f32 on its way
     to the kernel), each step after the exchange refreshed the ghost rows
     and columns (``ops.regularize.strips_at``).
+
+    Each round counts once under its wrapper's form (``_ROUND_FORMS``,
+    ``utils.profiling.round_done``; a stand-in, under its name).
     """
     cur, lam = bs, lam0
     grid = grid.contiguous()
@@ -211,7 +224,8 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
         step, args, kw = round_of(cur)
         if not getattr(step, "per_round", False):
             raise TypeError(f"{step!r} is not a round wrapper (per_round)")
-        with profiling.span("round", cur=cur):
+        form = _ROUND_FORMS.get(step.__name__.removesuffix("_plain"), step.__name__)
+        with profiling.span("round", cur=cur, form=form):
             if tiling is None:
                 step(grid, *args, cur=cur, h=h, w=w, lam=lam, sweeps=sweeps_per_round, **kw)
             else:
@@ -220,6 +234,7 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
                         step.step(grid, *args, cur=cur, h=h, w=w, ci=ci, cj=cj,
                                   lam_mult=lam * (sweep + 1),
                                   strips=strips_at(grid, tiling, cur), **kw)
+        profiling.round_done(form)
         del args, kw  # free the round's volumes before the next round
         with profiling.span("subdivide"):
             grid = subdivide(grid).contiguous()
@@ -297,7 +312,9 @@ def windowed_level(
     store_r = None
     if hybrid and store_radius is not None and 0 <= store_radius < ext:
         store_r = store_radius
-    with profiling.span("volumes"):
+    form = ("compact" if use_compact else "fused" if fuse_eff
+            else "dense" if store_r is None else "band")
+    with profiling.span("volumes", form=form):
         if use_compact:
             cvs = full_block_volume(im1, windows, bs, ext, cost)
         elif fuse_eff:
@@ -306,6 +323,7 @@ def windowed_level(
             cvs = volumes(im1, windows, bs, ext, cost, store_r=store_r)
             if store_r is None:
                 windows = None  # only the tables, the fused steps and F read them
+        profiling.volumes(form, cvs)
     with profiling.span("argmin"):
         best_dy, best_dx = spiral_argmin(cvs[bs], cy_safe, cx_safe, shift, bs, h, w)
         u = torch.where(center_ok, cx_safe + best_dx - ox, 0)
@@ -313,10 +331,10 @@ def windowed_level(
         grid0 = torch.stack([u, v], dim=-1).to(torch.int32)
 
     if use_compact:
-        with profiling.span("volumes"):
+        with profiling.span("volumes", form=form):
             slots = chunk_delta_slots(grid0, base_mv, ext, compact, compact_ring)
             smap = slot_map(slots, ext)
-            tables = compact_tables(im1, windows, slots, bs, ext, cost)
+            tables = profiling.volumes(form, compact_tables(im1, windows, slots, bs, ext, cost))
         windows = None
         dense = _stored_round(cvs, base_mv, ext)
 
@@ -347,6 +365,8 @@ def windowed_level(
             else:
                 rcvs = volumes(im1, rwindows, bs, r2, cost)
                 rwindows = None
+            profiling.volumes("fused" if fuse_eff else "hybrid_rival" if hybrid else "dense",
+                              rcvs)
     stored = _stored_round(cvs, base_mv, ext, rcvs, rbase, r2,
                            step=color_round_stored_plain if plain else color_round_stored)
     if fuse_eff:
@@ -419,8 +439,8 @@ def windowed_schedule(
     # zsad: the plain volumes and rounds (no kernel computes it)
     plain = cost == "zsad"
     volumes = pooled_cvs_plain if plain else pooled_cvs
-    with profiling.span("volumes"):
-        cvs = volumes(im1, windows, bs, r, cost)
+    with profiling.span("volumes", form="dense"):
+        cvs = profiling.volumes("dense", volumes(im1, windows, bs, r, cost))
     del windows
 
     rcvs = rbase = None
@@ -434,7 +454,7 @@ def windowed_schedule(
                                                 bs, r2)
             rbase = torch.stack([shifted(rvx, im2_col0) - ox, shifted(rvy, im2_row0) - oy],
                                 dim=-1).contiguous()
-            rcvs = volumes(im1, rwindows, bs, r2, cost)
+            rcvs = profiling.volumes("dense", volumes(im1, rwindows, bs, r2, cost))
         del rwindows
 
     step = color_round_stored_plain if plain else color_round_stored

@@ -10,8 +10,12 @@ the program's own spans and counters:
     (``upload`` of a host value, ``host_read`` of a device value: syncs,
     their nanoseconds, and syncs by site).  A host-to-device copy from
     pageable memory and a device-to-host read synchronise the stream, so
-    the host cannot run ahead of the card there.  Counted on every
-    device, CPU included;
+    the host cannot run ahead of the card there.  Also the bytes of every
+    cost volume a level stores, by the level's form (``volumes``, called
+    by ``ops.windowed`` where it decides the form: from shapes and dtypes,
+    no sync), and every round of the rounds loop by its wrapper's form
+    (``round_done``).
+    Counted on every device, CPU included;
   * ``table`` - constant host tables (indices, ranks, coefficients that
     depend on shapes and the configuration alone) kept on the device: the
     first call of a (site, key, device) uploads the table, a counted sync,
@@ -63,6 +67,9 @@ class _Counts:
         self.by_site: dict[str, int] = {}
         self.table_hits = 0
         self.hits_by_site: dict[str, int] = {}
+        self.volume_bytes = 0
+        self.volume_bytes_by_form: dict[str, int] = {}
+        self.rounds_by_form: dict[str, int] = {}
 
 
 _COUNTS = _Counts()
@@ -79,11 +86,15 @@ def counters() -> dict:
     outermost entry calls, ``syncs``, ``sync_ns`` and ``syncs_by_site``
     (site name -> syncs), ``table_hits`` and ``table_hits_by_site`` (site
     name -> tables ``table`` found on the device; its misses are the
-    site's syncs).  Counts only grow; a reader takes differences."""
+    site's syncs), ``volume_bytes`` and ``volume_bytes_by_form`` (form ->
+    bytes of the cost volumes allocated), ``rounds_by_form`` (form ->
+    rounds run).  Counts only grow; a reader takes differences."""
     c = _COUNTS
     return {"requests": c.requests, "fields": c.fields, "host_ns": c.host_ns,
             "syncs": c.syncs, "sync_ns": c.sync_ns, "syncs_by_site": dict(c.by_site),
-            "table_hits": c.table_hits, "table_hits_by_site": dict(c.hits_by_site)}
+            "table_hits": c.table_hits, "table_hits_by_site": dict(c.hits_by_site),
+            "volume_bytes": c.volume_bytes, "volume_bytes_by_form": dict(c.volume_bytes_by_form),
+            "rounds_by_form": dict(c.rounds_by_form)}
 
 
 def spans(on: bool) -> bool:
@@ -149,6 +160,32 @@ def table(site: str, key, build, device) -> torch.Tensor:
         if len(_TABLES) > TABLES_KEPT:
             _TABLES.popitem(last=False)
     return out
+
+
+def volumes(form: str, out: dict) -> dict:
+    """Count the bytes of the cost volumes ``out`` (size -> tensor, as a
+    volume wrapper of ``kernels.cv_diff`` or its plain version returns
+    them) under the level form that stores them:
+    ``dense`` (every size of a window), ``band`` (the hybrid form's main
+    window, its cur=2 volume a band), ``hybrid_rival`` (the hybrid form's
+    rival window), ``fused`` (both windows of ``cv_fused``) or ``compact``
+    (``cv_compact``'s search volume and slot tables).  Returns ``out``.
+    Shapes and dtypes only: no sync, no device read."""
+    n = 0
+    for t in out.values():
+        n += t.nbytes
+    c = _COUNTS
+    c.volume_bytes += n
+    c.volume_bytes_by_form[form] = c.volume_bytes_by_form.get(form, 0) + n
+    return out
+
+
+def round_done(form: str) -> None:
+    """Count one round of a round wrapper of ``form``: ``stored`` (D, D',
+    8, 9), ``hybrid`` (E), ``tail`` (F), ``fused`` (11, 12) or ``compact``
+    (10)."""
+    by = _COUNTS.rounds_by_form
+    by[form] = by.get(form, 0) + 1
 
 
 def host_read(tensor: torch.Tensor, site: str) -> torch.Tensor:
