@@ -14,7 +14,9 @@ the program's own spans and counters:
     cost volume a level stores, by the level's form (``volumes``, called
     by ``ops.windowed`` where it decides the form: from shapes and dtypes,
     no sync), and every round of the rounds loop by its wrapper's form
-    (``round_done``).
+    (``round_done``), and every call of the upscale and of each pyrDown by
+    the route its wrapper took (``resample_route``: ``kernel`` or
+    ``plain``).
     Counted on every device, CPU included;
   * ``table`` - constant host tables (indices, ranks, coefficients that
     depend on shapes and the configuration alone) kept on the device: the
@@ -70,6 +72,7 @@ class _Counts:
         self.volume_bytes = 0
         self.volume_bytes_by_form: dict[str, int] = {}
         self.rounds_by_form: dict[str, int] = {}
+        self.resample_by_route: dict[str, int] = {}
 
 
 _COUNTS = _Counts()
@@ -88,13 +91,15 @@ def counters() -> dict:
     name -> tables ``table`` found on the device; its misses are the
     site's syncs), ``volume_bytes`` and ``volume_bytes_by_form`` (form ->
     bytes of the cost volumes allocated), ``rounds_by_form`` (form ->
-    rounds run).  Counts only grow; a reader takes differences."""
+    rounds run), ``resample_by_route`` (route -> calls of the upscale and
+    of each pyrDown).  Counts only grow; a reader takes differences."""
     c = _COUNTS
     return {"requests": c.requests, "fields": c.fields, "host_ns": c.host_ns,
             "syncs": c.syncs, "sync_ns": c.sync_ns, "syncs_by_site": dict(c.by_site),
             "table_hits": c.table_hits, "table_hits_by_site": dict(c.hits_by_site),
             "volume_bytes": c.volume_bytes, "volume_bytes_by_form": dict(c.volume_bytes_by_form),
-            "rounds_by_form": dict(c.rounds_by_form)}
+            "rounds_by_form": dict(c.rounds_by_form),
+            "resample_by_route": dict(c.resample_by_route)}
 
 
 def spans(on: bool) -> bool:
@@ -186,6 +191,13 @@ def round_done(form: str) -> None:
     (10)."""
     by = _COUNTS.rounds_by_form
     by[form] = by.get(form, 0) + 1
+
+
+def resample_route(route: str) -> None:
+    """Count one call of a resample wrapper (``kernels.resample``) by the
+    route it took: ``kernel`` (a CUDA tensor) or ``plain`` (a CPU tensor)."""
+    by = _COUNTS.resample_by_route
+    by[route] = by.get(route, 0) + 1
 
 
 def host_read(tensor: torch.Tensor, site: str) -> torch.Tensor:

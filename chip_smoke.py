@@ -32,6 +32,10 @@ Phases (any failure raises and the script exits non-zero):
      alone beside its yardstick, and D's, E's and F's rounds of that batch
      (candidates from real search winners) against the plain step loop, each
      round timed alone, with their per-batch sums and level-0 single steps;
+     then the resample kernels (the upscale and pyrDown, which replace no
+     TPU kernel) against their plain versions: the 4x upscale of B=8 1080p
+     and 640x480 frames and each pyrDown of their padded pyramids, timed
+     beside the plain version and the bound, and summed a batch;
   4. the main path: ``estimate_flow_batched`` with ``MotionConfig(
      interp_factor=1)`` on 8 seeded-noise 1080p pairs, counting every
      kernel's launches (7, 11-14 and 10: none) and checking the known
@@ -305,10 +309,13 @@ def _plain_kernels():
         reg_step,
         sad_search,
     )
-    from blockbasedmotionestimation_tpu_torch.ops import search, windowed
+    from blockbasedmotionestimation_tpu_torch.kernels import resample as kres
+    from blockbasedmotionestimation_tpu_torch.ops import resample, search, windowed
 
-    with _swapped(search, _gather=gather.gather_windows_plain,
-                  _sad_argmin=sad_search.sad_spiral_argmin_plain), _swapped(
+    with _swapped(resample, pyrdown_u8=kres.pyrdown_u8_plain,
+                  resize_linear_u8=kres.resize_linear_u8_plain), _swapped(
+        search, _gather=gather.gather_windows_plain,
+        _sad_argmin=sad_search.sad_spiral_argmin_plain), _swapped(
         windowed,
         pooled_cvs=cv_diff.pooled_cvs_plain,
         deep_pooled_cvs=cv_diff.deep_pooled_cvs_plain,
@@ -903,6 +910,61 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return results
+
+
+# the resample kernels' shapes: (source frame, factor, padded upscale) of the
+# full-HD driver and of the 640x480 driver
+RESAMPLE_SHAPES = (((H, W), 4, (4352, 7680)), ((480, 640), 4, (2048, 2560)))
+
+
+def _resample_vs_plain(torch, dev, card: str, rng: np.random.Generator) -> None:
+    """Phase 3 (end): the resample kernels (``csrc/resample.cu``, no TPU
+    kernel) against their plain versions at B=8: the 4x upscale of 1080p
+    frames (the full-HD driver's) and of 640x480 ones, and pyrDown at each
+    level of their padded pyramids (4 levels), exact equality; CUDA-event
+    times of the kernel and of the plain version, the bound (input read and
+    output written once, over 3.35 TB/s), and per batch (both frames of a
+    pair: 2 upscales and 6 pyrDowns)."""
+    from blockbasedmotionestimation_tpu_torch.kernels import resample as kres
+
+    bad = []
+    for (h, w), f, (hp, wp) in RESAMPLE_SHAPES:
+        frames = torch.as_tensor(rng.integers(0, 256, size=(B, h, w), dtype=np.uint8), device=dev)
+        up = kres.resize_linear_u8(frames, h * f, w * f)
+        err = _max_abs_err(torch, up, kres.resize_linear_u8_plain(frames, h * f, w * f))
+        ms = _cuda_ms(torch, lambda: kres.resize_linear_u8(frames, h * f, w * f), 20)
+        pms = _cuda_ms(torch, lambda: kres.resize_linear_u8_plain(frames, h * f, w * f), 3)
+        bound = _bound(_nbytes(frames, up), 0)[0]
+        print(f"[kernel] resample resize_linear_u8 x{f} {B}x{h}x{w} -> {h * f}x{w * f}: "
+              f"max_abs_err {err}, kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bound:.4f} ms "
+              f"(bytes; {_nbytes(frames, up)} B) ({card})")
+        batch = [2 * ms, 2 * pms, 2 * bound]
+        if err:
+            bad.append(f"upscale {h}x{w}")
+        oy, ox = (hp - h * f) // 2, (wp - w * f) // 2
+        level = torch.nn.functional.pad(up, (ox, wp - w * f - ox, oy, hp - h * f - oy))
+        del up
+        for k in range(1, 4):
+            nxt = kres.pyrdown_u8(level)
+            err = max(_max_abs_err(torch, nxt[i], kres.pyrdown_u8_plain(level[i]))
+                      for i in range(B))
+            ms = _cuda_ms(torch, lambda: kres.pyrdown_u8(level), 20)
+            pms = _cuda_ms(torch, lambda: kres.pyrdown_u8_plain(level), 3)
+            bound = _bound(_nbytes(level, nxt), 0)[0]
+            print(f"[kernel] resample pyrdown_u8 level {k - 1} -> {k}, {B}x{hp >> (k - 1)}x"
+                  f"{wp >> (k - 1)}: max_abs_err {err}, kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bound:.4f} ms (bytes; {_nbytes(level, nxt)} B) ({card})")
+            batch = [t + 2 * x for t, x in zip(batch, (ms, pms, bound))]
+            if err:
+                bad.append(f"pyrdown {hp}x{wp} level {k}")
+            level = nxt
+        print(f"[kernel] resample per batch of {B} pairs at {h}x{w} x{f} (2 upscales, 6 pyrDowns):"
+              f" kernels {batch[0]:.4f} ms, plain {batch[1]:.4f} ms, bound {batch[2]:.4f} ms, "
+              f"8 launches ({card})")
+        del level, frames
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"[kernel] the resample kernels differ from plain: {bad}")
 
 
 def _volume_sweep(torch, dev, card: str, rng: np.random.Generator) -> None:
@@ -1963,6 +2025,7 @@ def main() -> int:
     cfg = MotionConfig(interp_factor=1)
     rng = np.random.default_rng(0)
     results = _kernels_vs_plain(torch, dev, cfg, card, rng)
+    _resample_vs_plain(torch, dev, card, rng)
     _volume_sweep(torch, dev, card, rng)
     _tables_sweep(torch, dev, card, rng)
     torch.cuda.empty_cache()

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from blockbasedmotionestimation_tpu_torch import MotionConfig, tiny_config
 from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step
+from blockbasedmotionestimation_tpu_torch.kernels import resample as kres
 from blockbasedmotionestimation_tpu_torch.kernels import sad_search
 from blockbasedmotionestimation_tpu_torch.models import engine
 from blockbasedmotionestimation_tpu_torch.parallel import tiled
@@ -42,17 +43,18 @@ def _frames(b, h, w, seed=0):
     return a, np.roll(a, (1, 2), axis=(1, 2))
 
 
-def tables_from_the_code(cfg: MotionConfig) -> dict:
+def tables_from_the_code(cfg: MotionConfig, device: str = "cpu") -> dict:
     """Constant tables a request of ``estimate_flow_driver_batched`` reads
-    on the device, site by site, read from the code (``profiling.table``:
+    on ``device``, site by site, read from the code (``profiling.table``:
     copied once a shape and device, found there after)."""
     levels = cfg.num_levels
     want = {
-        # resize_linear_u8: 4 row and 4 column tables, a frame
+        # resize_linear_u8: 4 row and 4 column tables, a frame (the plain
+        # version and the kernel alike)
         "resize": 2 * 8 if cfg.interp_factor > 1 else 0,
-        # pyrdown_u8: a row and a column index, a level below the finest,
-        # both frames
-        "pyramid": 2 * 2 * (levels - 1),
+        # pyrdown_u8's plain version: a row and a column index, a level
+        # below the finest, both frames; the kernel reflects by arithmetic
+        "pyramid": 2 * 2 * (levels - 1) if device == "cpu" else 0,
         # transfer_mvs: a row and a column index, a level below the coarsest
         "transfer": 2 * (levels - 1),
         # spiral_argmin of the fused windowed level: the rank table, dy, dx
@@ -118,13 +120,16 @@ def test_counted_syncs_per_field_of_the_cells():
     """The counts PERF.md derives for a warmed request: no sync in the
     clip cells, the two frames a pair in the live cell; the tables found on
     the device, 46 a request of 8 fields in the default clip cell, 34 in
-    the search-centred one, 46 a pair in the live cell."""
+    the search-centred one, 46 a pair in the live cell; on the card, where
+    the pyramid reads no table, 34 and 22."""
     per = lambda cfg, host, batch: sum(syncs_from_the_code(cfg, host).values()) / batch
     assert per(MotionConfig(), False, 8) == 0
     assert per(MotionConfig(window_center="search"), False, 8) == 0
     assert per(MotionConfig(), True, 1) == 2
     hits = lambda cfg: sum(tables_from_the_code(cfg).values())
     assert (hits(MotionConfig()), hits(MotionConfig(window_center="search"))) == (46, 34)
+    card = lambda cfg: sum(tables_from_the_code(cfg, "cuda").values())
+    assert (card(MotionConfig()), card(MotionConfig(window_center="search"))) == (34, 22)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -328,7 +333,8 @@ def test_trace_turns_spans_on_and_restores_them(tmp_path, cold_tables):
 
 WRAPPERS = [gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs,
             reg_step.color_round_stored, fused_step.color_round_hybrid,
-            fused_step.color_round_hybrid_tail, sad_search.sad_spiral_argmin]
+            fused_step.color_round_hybrid_tail, sad_search.sad_spiral_argmin,
+            kres.resize_linear_u8, kres.pyrdown_u8]
 
 
 def test_wrappers_keep_their_launch_counters_with_spans_on():
@@ -393,8 +399,9 @@ def test_every_sync_on_the_card_is_counted(cuda, name, batch):
     assert not stray, "\n".join(stray)
     assert got["syncs_by_site"] == want
     assert len(warned) == got["syncs"] == sum(want.values())
-    tables = tables_from_the_code(cfg)
+    tables = tables_from_the_code(cfg, "cuda")
     assert {k: got["table_hits_by_site"].get(k, 0) for k in tables} == tables
+    assert "pyramid" not in got["table_hits_by_site"]
     torch.cuda.synchronize(cuda)
     prev = profiling.spans(True)
     try:
