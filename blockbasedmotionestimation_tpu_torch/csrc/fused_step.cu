@@ -162,7 +162,7 @@ constexpr int kHaloR = 2 * kTileR + 1;     // grid rows a tile and its neighbour
 constexpr int kHaloC = 2 * kTileW + 1;     // grid cols
 constexpr int kParR = 2 * kTileR;          // parent rows a tile spans (f = 1: 15)
 constexpr int kParC = 2 * kTileW;          // parent cols (f = 1: 63)
-constexpr int kMaxSweeps = 8;              // kernels/fused_step.py MAX_SWEEPS
+constexpr int kMaxSweeps = 8;              // kernels/rounds.py MAX_SWEEPS
 
 struct RoundArgs {
   int* grid;            // (B, nby, nbx, 2) i32, updated in place
@@ -203,7 +203,8 @@ __device__ __forceinline__ uint32_t word_cost(uint32_t a, uint32_t v, uint32_t a
   return sad_all(a, v, acc);
 }
 
-enum Form { kHybrid, kTail, kFused, kStored, kCompact };  // E, F, 11/12, D/D'/8/9, 10
+// E, F, 11/12, D/D'/8/9, 10; the codes kernels/rounds.py FORMS passes
+enum Form { kHybrid = 0, kTail = 1, kFused = 2, kStored = 3, kCompact = 4 };
 constexpr uint32_t kNoSlot = 0xffffu;  // a delta key no slot of the chunk holds
 
 // whether a form recomputes costs from window pixels (reads frame 1)
@@ -266,7 +267,7 @@ __host__ __device__ constexpr int group_lanes() {
 }
 
 // Lane sub's share, of a group of G, of the cost of frame-1 block a (pitch
-// w, rows 4-byte aligned: the entry points check) against window pixels v
+// w, rows 4-byte aligned: the entry point checks) against window pixels v
 // (pitch ws, any alignment): words sub, sub + G, ... of the block's cur^2/4,
 // each a funnel shift of two aligned loads (the second only when the row
 // is not aligned, so no load leaves the row).
@@ -744,7 +745,7 @@ int resident_blocks(int* out) {
   return 0;
 }
 
-// Checks shared by every entry point; fills the span.  lams: n_lam values;
+// Checks shared by every form; fills the span.  lams: n_lam values;
 // reads_im1: the form reads frame-1 blocks (all but the stored and compact
 // ones).
 int prepare(RoundArgs& a, bool reads_im1, int step0, int nsteps, const float* lams, int n_lam) {
@@ -850,7 +851,7 @@ RoundArgs args_of(void* grid, const void* cv, int cv16, const void* im1, const v
   return a;
 }
 
-// A single step's tiles: row0_b (B,) i32 and ghost (B, 2, nbx, 2) i32 both
+// A launch's tiles: row0_b (B,) i32 and ghost (B, 2, nbx, 2) i32 both
 // given, or both null (whole frames); full_h the frame's height in pixels
 // (h for whole frames); on 2-D tiles col0_b (B,) i32 and ghost_cols (B, 2,
 // nby + 2, 2) i32 given as well, else both null and full_w = w.  0 or an
@@ -874,10 +875,6 @@ int strip_args(RoundArgs& a, const void* row0_b, const void* ghost, int full_h,
   return 0;
 }
 
-int colour_index(int ci, int cj) {
-  return (ci == 0 || ci == 1) && (cj == 0 || cj == 1) ? 2 * ci + cj : -1;
-}
-
 // The compact form's arguments (kernel 10): the table in cv, the slot map,
 // K slots a chunk of `chunk` parents, nch chunks a frame; 0 or an error.
 int compact_args(RoundArgs& a, const void* smap, int k_slots, int nch, int chunk) {
@@ -893,194 +890,63 @@ int compact_args(RoundArgs& a, const void* smap, int k_slots, int nch, int chunk
 
 }  // namespace
 
-// Kernel E, one colour step.  grid: (B, nby, nbx, 2) i32, updated in place;
-// cv: (B, side^2, nby, nbx) main volume at cur; im1: (B, h, w) u8; rwin:
-// (B, nP, bs + 2 r2, bs + 2 r2) u8 rival windows; pm / rpm: (B, nby/f,
-// nbx/f, 2) i32 window centres; rank_table: (9, 9) i32.  Every single step
-// takes tiles: row0_b (B,) i32 and ghost (B, 2, nbx, 2) i32 (see the top of
-// this file) and the frame's height full_h, or null, null and h; on 2-D
-// tiles col0_b (B,) i32, ghost_cols (B, 2, nby + 2, 2) i32 and the frame's
-// width full_w, else null, null and w.
-extern "C" int bbme_color_step_hybrid(void* grid, const void* cv, int cv16,
-                                      const void* im1, const void* rwin,
-                                      const void* pm, const void* rpm,
-                                      const void* rank_table, int batch,
-                                      int nby, int nbx, int f, int cur, int h,
-                                      int w, int r, int r2, int ssd,
-                                      const void* row0_b, const void* ghost,
-                                      int full_h, const void* col0_b,
-                                      const void* ghost_cols, int full_w, int ci,
-                                      int cj, float lam, void* stream) {
-  RoundArgs a = args_of(grid, cv, cv16, im1, nullptr, rwin, pm, rpm, rank_table, batch, nby,
-                        nbx, f, cur, h, w, r, -1, r2, ssd);
-  const int code = strip_args(a, row0_b, ghost, full_h, col0_b, ghost_cols, full_w);
-  if (code != 0) return code;
-  return launch<kHybrid>(a, colour_index(ci, cj), 1, &lam, 1, stream);
-}
-
-// Kernel F, one colour step.  As E, with band: (B, side * (2 store_r + 1),
-// nby, nbx) the stored cur=2 band and win: (B, nP, bs + 2r, bs + 2r) u8
-// main windows.
-extern "C" int bbme_color_step_hybrid_tail(void* grid, const void* band,
-                                           int band16, const void* im1,
-                                           const void* win, const void* rwin,
-                                           const void* pm, const void* rpm,
-                                           const void* rank_table, int batch,
-                                           int nby, int nbx, int f, int cur,
-                                           int h, int w, int r, int store_r,
-                                           int r2, int ssd, const void* row0_b,
-                                           const void* ghost, int full_h,
-                                           const void* col0_b, const void* ghost_cols,
-                                           int full_w, int ci, int cj, float lam,
-                                           void* stream) {
-  if (store_r < 0 || store_r > r) return static_cast<int>(cudaErrorInvalidValue);
-  RoundArgs a = args_of(grid, band, band16, im1, win, rwin, pm, rpm, rank_table, batch, nby,
-                        nbx, f, cur, h, w, r, store_r, r2, ssd);
-  const int code = strip_args(a, row0_b, ghost, full_h, col0_b, ghost_cols, full_w);
-  if (code != 0) return code;
-  return launch<kTail>(a, colour_index(ci, cj), 1, &lam, 1, stream);
-}
-
-// Kernels 11 (rwin, rpm null) and 12, one colour step.  grid: (B, nby, nbx,
-// 2) i32, updated in place; im1: (B, h, w) u8; win: (B, nP, bs + 2r, bs +
-// 2r) u8 main windows; rwin: (B, nP, bs + 2 r2, bs + 2 r2) u8 rival
-// windows; pm / rpm: (B, nby/f, nbx/f, 2) i32 window centres; rank_table:
-// (9, 9) i32.
-extern "C" int bbme_color_step_fused(void* grid, const void* im1,
-                                     const void* win, const void* rwin,
-                                     const void* pm, const void* rpm,
-                                     const void* rank_table, int batch,
-                                     int nby, int nbx, int f, int cur, int h,
-                                     int w, int r, int r2, int ssd,
-                                     const void* row0_b, const void* ghost,
-                                     int full_h, const void* col0_b,
-                                     const void* ghost_cols, int full_w, int ci,
-                                     int cj, float lam, void* stream) {
-  if ((rwin == nullptr) != (rpm == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  RoundArgs a = args_of(grid, nullptr, 0, im1, win, rwin, pm, rpm, rank_table, batch, nby, nbx,
-                        f, cur, h, w, r, -1, r2, ssd);
-  const int code = strip_args(a, row0_b, ghost, full_h, col0_b, ghost_cols, full_w);
-  if (code != 0) return code;
-  return launch<kFused>(a, colour_index(ci, cj), 1, &lam, 1, stream);
-}
-
-// Kernels D, D' (f = nby / npy > 1), 8 and 9 (rcv, rpm null), one colour
-// step.  grid: (B, nby, nbx, 2) i32, updated in place; cv: (B, side^2, nby,
-// nbx) main volume at cur; rcv: (B, side2^2, nby, nbx) rival volume; cv16 /
-// rcv16: u16 (1) or i32 (0) each; pm / rpm: (B, nby/f, nbx/f, 2) i32
-// window centres; rank_table: (9, 9) i32.
-extern "C" int bbme_color_step(void* grid, const void* cv, int cv16,
-                               const void* rcv, int rcv16, const void* pm,
-                               const void* rpm, const void* rank_table,
-                               int batch, int nby, int nbx, int f, int cur,
-                               int h, int w, int r, int r2, const void* row0_b,
-                               const void* ghost, int full_h, const void* col0_b,
-                               const void* ghost_cols, int full_w, int ci, int cj,
-                               float lam, void* stream) {
-  if ((rcv == nullptr) != (rpm == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  RoundArgs a = args_of(grid, cv, cv16, nullptr, nullptr, nullptr, pm, rpm, rank_table, batch,
-                        nby, nbx, f, cur, h, w, r, -1, r2, 0);
+// The round kernel's one entry point: a span of steps of one round of
+// form `form` (enum Form: 0 E, 1 F, 2 11 and 12, 3 D, D', 8 and 9, 4 10),
+// one cooperative launch.  Every pointer any form reads is an argument;
+// a form that takes none is passed null (and 0 for its ints):
+//   grid: (B, nby, nbx, 2) i32, updated in place;
+//   cv: the stored costs at cur, u16 (cv16) or i32: E and the stored form
+//     (B, side^2, nby, nbx), F the band (B, side * (2 store_r + 1), nby,
+//     nbx), 10 the table (B, K, nby, nbx); 11 and 12 null;
+//   rcv (rcv16): the stored form's rival volume (B, side2^2, nby, nbx), or
+//     null without rival windows;
+//   im1: (B, h, w) u8 frame 1 (E, F, 11, 12); win: (B, nP, bs + 2r,
+//     bs + 2r) u8 main windows (F, 11, 12); rwin: (B, nP, bs + 2 r2,
+//     bs + 2 r2) u8 rival windows (E, F, 12);
+//   pm / rpm: (B, nby/f, nbx/f, 2) i32 window centres, rpm null without
+//     rival windows; rank_table: (9, 9) i32;
+//   smap (10): (B, nch, (2r + 1)^2) u16, the slot of each delta key in the
+//     list of each chunk of `chunk` parents (0xFFFF: none), k_slots K;
+//   store_r: F's band radius (read by F only); ssd: 1 for SSD (the forms
+//     that recompute);
+//   tiles: row0_b (B,) i32 and ghost (B, 2, nbx, 2) i32 and the frame's
+//     height full_h, or null, null and h; on 2-D tiles col0_b (B,) i32,
+//     ghost_cols (B, 2, nby + 2, 2) i32 and the frame's width full_w, else
+//     null, null and w (see the top of this file; 10 takes none);
+//   the span: step0 the colour index of its first step, nsteps its steps,
+//     lams (host memory) the n_lam (1 .. 8) f32 multipliers of the sweeps
+//     it touches.  A single colour step (ci, cj) is (2 ci + cj, 1, {lam},
+//     1); a round of nsweeps sweeps (0, 4 nsweeps, lams, nsweeps).
+// 0 or a CUDA error code.
+extern "C" int bbme_round(int form, void* grid, const void* cv, int cv16, const void* rcv,
+                          int rcv16, const void* im1, const void* win, const void* rwin,
+                          const void* pm, const void* rpm, const void* rank_table,
+                          const void* smap, int batch, int nby, int nbx, int f, int cur, int h,
+                          int w, int r, int store_r, int r2, int ssd, int k_slots, int nch,
+                          int chunk, const void* row0_b, const void* ghost, int full_h,
+                          const void* col0_b, const void* ghost_cols, int full_w, int step0,
+                          int nsteps, const float* lams, int n_lam, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (form < kHybrid || form > kCompact) return bad;
+  const Form kind = static_cast<Form>(form);
+  if (kind == kTail && (store_r < 0 || store_r > r)) return bad;
+  // the rival centres go with the rival volume (stored), the rival windows
+  // (the forms that recompute) and nothing in the compact form
+  const void* rival = kind == kStored ? rcv : kind == kCompact ? nullptr : rwin;
+  if ((rival == nullptr) != (rpm == nullptr)) return bad;
+  if (kind == kCompact && (row0_b != nullptr || col0_b != nullptr)) return bad;
+  RoundArgs a = args_of(grid, cv, cv16, im1, win, rwin, pm, rpm, rank_table, batch, nby, nbx, f,
+                        cur, h, w, r, kind == kTail ? store_r : -1, r2, ssd);
   a.rcv = rcv;
   a.rcv16 = rcv16;
-  const int code = strip_args(a, row0_b, ghost, full_h, col0_b, ghost_cols, full_w);
+  int code = strip_args(a, row0_b, ghost, full_h, col0_b, ghost_cols, full_w);
+  if (code == 0 && kind == kCompact) code = compact_args(a, smap, k_slots, nch, chunk);
   if (code != 0) return code;
-  return launch<kStored>(a, colour_index(ci, cj), 1, &lam, 1, stream);
-}
-
-// Kernel 10, one colour step.  grid: (B, nby, nbx, 2) i32, updated in
-// place; table: (B, K, nby, nbx) u16 (table16) or i32 compact table at cur;
-// smap: (B, nch, (2r + 1)^2) u16, the slot of each delta key in the list of
-// each chunk of `chunk` parents (0xFFFF: none); pm: (B, nby/f, nbx/f, 2)
-// i32 window centres; rank_table: (9, 9) i32.
-extern "C" int bbme_color_step_compact(void* grid, const void* table,
-                                       int table16, const void* smap,
-                                       const void* pm, const void* rank_table,
-                                       int batch, int nby, int nbx, int f,
-                                       int cur, int h, int w, int r,
-                                       int k_slots, int nch, int chunk, int ci,
-                                       int cj, float lam, void* stream) {
-  RoundArgs a = args_of(grid, table, table16, nullptr, nullptr, nullptr, pm, nullptr,
-                        rank_table, batch, nby, nbx, f, cur, h, w, r, -1, 0, 0);
-  const int code = compact_args(a, smap, k_slots, nch, chunk);
-  if (code != 0) return code;
-  return launch<kCompact>(a, colour_index(ci, cj), 1, &lam, 1, stream);
-}
-
-// The round entry points: nsweeps (1 .. 8) whole sweeps of the four colours,
-// in one cooperative launch; lams (host memory): lambda x (sweep + 1) of
-// each sweep as f32.  Arguments otherwise as the single steps above.
-extern "C" int bbme_color_round_hybrid(void* grid, const void* cv, int cv16,
-                                       const void* im1, const void* rwin,
-                                       const void* pm, const void* rpm,
-                                       const void* rank_table, int batch,
-                                       int nby, int nbx, int f, int cur, int h,
-                                       int w, int r, int r2, int ssd,
-                                       const float* lams, int nsweeps,
-                                       void* stream) {
-  RoundArgs a = args_of(grid, cv, cv16, im1, nullptr, rwin, pm, rpm, rank_table, batch, nby,
-                        nbx, f, cur, h, w, r, -1, r2, ssd);
-  return launch<kHybrid>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
-}
-
-extern "C" int bbme_color_round_hybrid_tail(void* grid, const void* band,
-                                            int band16, const void* im1,
-                                            const void* win, const void* rwin,
-                                            const void* pm, const void* rpm,
-                                            const void* rank_table, int batch,
-                                            int nby, int nbx, int f, int cur,
-                                            int h, int w, int r, int store_r,
-                                            int r2, int ssd, const float* lams,
-                                            int nsweeps, void* stream) {
-  if (store_r < 0 || store_r > r) return static_cast<int>(cudaErrorInvalidValue);
-  RoundArgs a = args_of(grid, band, band16, im1, win, rwin, pm, rpm, rank_table, batch, nby,
-                        nbx, f, cur, h, w, r, store_r, r2, ssd);
-  return launch<kTail>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
-}
-
-extern "C" int bbme_color_round_fused(void* grid, const void* im1,
-                                      const void* win, const void* rwin,
-                                      const void* pm, const void* rpm,
-                                      const void* rank_table, int batch,
-                                      int nby, int nbx, int f, int cur, int h,
-                                      int w, int r, int r2, int ssd,
-                                      const float* lams, int nsweeps,
-                                      void* stream) {
-  if ((rwin == nullptr) != (rpm == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (kind) {
+    case kHybrid: return launch<kHybrid>(a, step0, nsteps, lams, n_lam, stream);
+    case kTail: return launch<kTail>(a, step0, nsteps, lams, n_lam, stream);
+    case kFused: return launch<kFused>(a, step0, nsteps, lams, n_lam, stream);
+    case kStored: return launch<kStored>(a, step0, nsteps, lams, n_lam, stream);
+    default: return launch<kCompact>(a, step0, nsteps, lams, n_lam, stream);
   }
-  RoundArgs a = args_of(grid, nullptr, 0, im1, win, rwin, pm, rpm, rank_table, batch, nby, nbx,
-                        f, cur, h, w, r, -1, r2, ssd);
-  return launch<kFused>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
-}
-
-extern "C" int bbme_color_round_stored(void* grid, const void* cv, int cv16,
-                                       const void* rcv, int rcv16, const void* pm,
-                                       const void* rpm, const void* rank_table,
-                                       int batch, int nby, int nbx, int f, int cur,
-                                       int h, int w, int r, int r2,
-                                       const float* lams, int nsweeps,
-                                       void* stream) {
-  if ((rcv == nullptr) != (rpm == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  RoundArgs a = args_of(grid, cv, cv16, nullptr, nullptr, nullptr, pm, rpm, rank_table, batch,
-                        nby, nbx, f, cur, h, w, r, -1, r2, 0);
-  a.rcv = rcv;
-  a.rcv16 = rcv16;
-  return launch<kStored>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
-}
-
-extern "C" int bbme_color_round_compact(void* grid, const void* table,
-                                        int table16, const void* smap,
-                                        const void* pm, const void* rank_table,
-                                        int batch, int nby, int nbx, int f,
-                                        int cur, int h, int w, int r,
-                                        int k_slots, int nch, int chunk,
-                                        const float* lams, int nsweeps,
-                                        void* stream) {
-  RoundArgs a = args_of(grid, table, table16, nullptr, nullptr, nullptr, pm, nullptr,
-                        rank_table, batch, nby, nbx, f, cur, h, w, r, -1, 0, 0);
-  const int code = compact_args(a, smap, k_slots, nch, chunk);
-  if (code != 0) return code;
-  return launch<kCompact>(a, 0, 4 * nsweeps, lams, nsweeps, stream);
 }

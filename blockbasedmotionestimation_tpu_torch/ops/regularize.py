@@ -19,7 +19,7 @@ device, as the reference computes them in XLA:
     sweep, computed in wavefronts of blocks with equal 2 * row + column
     (2 nby + nbx - 2 steps a sweep).
 ``step_candidates`` and ``step_commit`` are shared with the windowed
-colour steps (``kernels.reg_step``, ``kernels.fused_step``).
+colour steps (``kernels.rounds``).
 
 Tiles (``parallel.tiled``): a batch entry may be a row strip of its frame,
 or a 2-D tile of it, described at each colour step by ``Strips`` (its first

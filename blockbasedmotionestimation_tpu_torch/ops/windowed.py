@@ -21,20 +21,20 @@ The form follows the reference's dispatch, in its order:
     (``ops.compact.chunk_delta_slots``) and K-slot tables of every cur < bs
     (kernel 14, ``cv_diff.compact_tables``); the f = 1 round runs D without
     rival on the volume, every other round kernel 10
-    (``reg_step.color_round_compact``, each candidate's slot looked up in
+    (``rounds.color_round_compact``, each candidate's slot looked up in
     the level's ``ops.compact.slot_map``).  Candidates outside the slots are
     excluded: exact unless a chunk has more than K distinct deltas or a
     value travels further than ``compact_ring`` parents in the rounds.
   * ``fuse`` (``cv_fused``), bs % 8 == 0: with fuse_eff = min(fuse, bs/2),
     the main and rival windows store only cur > fuse_eff and cur = bs
     (kernel C); rounds cur > fuse_eff run D/D' on them, rounds
-    cur <= fuse_eff run kernel 11 (``fused_step.color_round_fused``) or with
+    cur <= fuse_eff run kernel 11 (``rounds.color_round_fused``) or with
     rival windows kernel 12 (``color_round_fused_rival``), which recompute
     every candidate from the windows' pixels.  ``store_radius`` is ignored.
   * the **hybrid** form, rival windows and bs % 8 == 0 (the default): the
     rival window stores only cur > fuse_max = min(16, bs/2) and cur = bs
     (kernel C); rounds cur > fuse_max run D on stored volumes, rounds
-    cur <= fuse_max run E (``fused_step.color_round_hybrid``), which
+    cur <= fuse_max run E (``rounds.color_round_hybrid``), which
     recomputes rival candidates from the rival window's pixels.  With
     ``store_radius`` (0 <= store_radius < ext) the cur=2 main volume is
     stored only for |dx delta| <= store_radius and the cur = 2 round runs F,
@@ -42,12 +42,13 @@ The form follows the reference's dispatch, in its order:
   * otherwise every size of both windows is stored (kernel B) and every
     round runs D/D'.  ``cost="zsad"`` always takes this dense-rival form,
     on the plain versions (``cv_diff.pooled_cvs_plain``,
-    ``reg_step.color_round_stored_plain``, f32 volumes) on every device:
+    ``rounds.color_round_stored_plain``, f32 volumes) on every device:
     no kernel computes zsad, and the reference runs it in XLA only.  Only
     the gathers (A) launch a kernel there.
-Every round is one call of a round wrapper (``reg_step.color_round_stored``
-for D, D', 8 and 9, ``reg_step.color_round_compact`` for 10,
-``kernels.fused_step.color_round_*`` for E, F, 11 and 12).
+Every round is one call of a round wrapper of ``kernels.rounds``
+(``color_round_stored`` for D, D', 8 and 9, ``color_round_compact`` for
+10, ``color_round_hybrid``, ``_hybrid_tail``, ``_fused`` and
+``_fused_rival`` for E, F, 11 and 12).
 All forms give the same bits (compact: while it excludes nothing).
 The level counts the bytes of the volumes it stores under its form
 (``utils.profiling.volumes``: ``dense``, ``band``, ``hybrid_rival`` for
@@ -81,14 +82,12 @@ from blockbasedmotionestimation_tpu_torch.kernels.cv_diff import (
     pooled_cvs,
     pooled_cvs_plain,
 )
-from blockbasedmotionestimation_tpu_torch.kernels.fused_step import (
+from blockbasedmotionestimation_tpu_torch.kernels.rounds import (
+    color_round_compact,
     color_round_fused,
     color_round_fused_rival,
     color_round_hybrid,
     color_round_hybrid_tail,
-)
-from blockbasedmotionestimation_tpu_torch.kernels.reg_step import (
-    color_round_compact,
     color_round_stored,
     color_round_stored_plain,
 )
@@ -189,12 +188,6 @@ def hybrid_form(bs: int, rival: bool) -> bool:
     return rival and bs % 8 == 0
 
 
-# the form a round wrapper's rounds count under, its plain version's alike
-_ROUND_FORMS = {"color_round_stored": "stored", "color_round_hybrid": "hybrid",
-                "color_round_hybrid_tail": "tail", "color_round_fused": "fused",
-                "color_round_fused_rival": "fused", "color_round_compact": "compact"}
-
-
 def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
                 sweeps_per_round: int, round_of, tiling: Tiling | None = None) -> torch.Tensor:
     """The subdivision rounds, cur = bs, bs/2, ..., 2.
@@ -203,11 +196,10 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
     (B, h, w, 2) int32 grid.  ``round_of(cur)`` gives the round's wrapper,
     its positional arguments after the grid and its keywords (it may pop
     the round's volumes, so each is freed after its round).  The wrapper
-    is a whole round, marked ``per_round`` (``reg_step.color_round_*``,
-    ``kernels.fused_step.color_round_*``): it is called once with ``lam``
-    and ``sweeps`` and runs sweep s at lam * (s + 1), colours (0,0),
-    (0,1), (1,0), (1,1).  lambda is lam0 in the first round and doubles
-    every round.
+    is a whole round, marked ``per_round`` (``kernels.rounds.color_round_*``):
+    it is called once with ``lam`` and ``sweeps`` and runs sweep s at
+    lam * (s + 1), colours (0,0), (0,1), (1,0), (1,1).  lambda is lam0 in
+    the first round and doubles every round.
 
     On tiles (``tiling``, ``ops.search.Tiling``) each round runs its
     wrapper's single step (``.step``) colour by colour, at the same
@@ -215,8 +207,9 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
     to the kernel), each step after the exchange refreshed the ghost rows
     and columns (``ops.regularize.strips_at``).
 
-    Each round counts once under its wrapper's form (``_ROUND_FORMS``,
-    ``utils.profiling.round_done``; a stand-in, under its name).
+    Each round counts once under its wrapper's form (``.form``,
+    ``utils.profiling.round_done``; a stand-in without one, under its
+    name).
     """
     cur, lam = bs, lam0
     grid = grid.contiguous()
@@ -224,7 +217,7 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
         step, args, kw = round_of(cur)
         if not getattr(step, "per_round", False):
             raise TypeError(f"{step!r} is not a round wrapper (per_round)")
-        form = _ROUND_FORMS.get(step.__name__.removesuffix("_plain"), step.__name__)
+        form = getattr(step, "form", step.__name__)
         with profiling.span("round", cur=cur, form=form):
             if tiling is None:
                 step(grid, *args, cur=cur, h=h, w=w, lam=lam, sweeps=sweeps_per_round, **kw)
@@ -243,7 +236,7 @@ def rounds_loop(grid: torch.Tensor, bs: int, h: int, w: int, lam0: float,
     return grid
 
 
-def _stored_round(cvs, pm, r, rcvs=None, rpm=None, r2=0, step=color_round_stored):
+def _stored_round(cvs, pm, r, rcvs=None, rpm=None, r2=0, *, step):
     """A round on stored volumes, D/D' (or 8/9 without ``rcvs``): one call
     of ``step`` a round (``color_round_stored``, or its plain version for
     zsad's f32 volumes)."""
@@ -336,7 +329,7 @@ def windowed_level(
             smap = slot_map(slots, ext)
             tables = profiling.volumes(form, compact_tables(im1, windows, slots, bs, ext, cost))
         windows = None
-        dense = _stored_round(cvs, base_mv, ext)
+        dense = _stored_round(cvs, base_mv, ext, step=color_round_stored)
 
         def round_of(cur):
             if cur == bs:

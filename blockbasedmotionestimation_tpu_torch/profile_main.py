@@ -25,12 +25,6 @@ prints, beside the card's name and power limit:
     around every call; B, C and 13 share one CUDA kernel, as do D, E, F,
     11 and 12, so only the wrappers tell them apart), and the host time per
     call of each (host clock around the call, which only enqueues);
-  - the host time per call of the colour-step wrappers, before and after
-    they took whole rounds: the batch's
-    rounds of D, E and F (or 11/12, or 10) replayed through the round wrapper (one
-    call a round) and through the one-step wrapper (one call a colour
-    step), host clock per call, the card synchronised only around each
-    replay;
   - device time by kernel over one more batch (``torch.profiler``), the
     device total, and the device's idle share of the median batch.
 
@@ -82,13 +76,12 @@ def _kernel_us(evt) -> float:
 def _timed_kernels(events: dict):
     """Wrap each kernel wrapper and each stage of a level so that every call
     records (start, end) CUDA events under the function's name."""
+    from blockbasedmotionestimation_tpu_torch.kernels.rounds import FORMS
     from blockbasedmotionestimation_tpu_torch.ops import search, windowed
 
     names = {search: ["_gather", "_sad_argmin", "sad_spiral_argmin_plain"], windowed: [
         "pooled_cvs", "deep_pooled_cvs", "full_block_volume", "compact_tables",
-        "chunk_delta_slots", "slot_map", "color_round_stored", "color_round_hybrid",
-        "color_round_hybrid_tail", "color_round_fused", "color_round_fused_rival",
-        "color_round_compact", "spiral_argmin",
+        "chunk_delta_slots", "slot_map", *(f.round_name for f in FORMS.values()), "spiral_argmin",
         # zsad's plain volumes and rounds (no kernel computes zsad)
         "pooled_cvs_plain", "color_round_stored_plain"], engine: [
         "block_search_level", "run_schedule", "windowed_schedule", "windowed_level"]}
@@ -106,6 +99,7 @@ def _timed_kernels(events: dict):
             events.setdefault(fn.__name__, []).append((start, end, host_s))
             return out
         call.per_round = getattr(fn, "per_round", False)
+        call.form = getattr(fn, "form", fn.__name__)
         return call
 
     for (m, n), fn in saved.items():
@@ -115,76 +109,6 @@ def _timed_kernels(events: dict):
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
-
-
-def _host_per_call(cfg, im1, im2, card: str) -> None:
-    """The round wrappers' host time per call against the one-step
-    wrappers' on the same inputs: the rounds of one batch recorded, then
-    replayed each way (the grid reset to what the round met), the host
-    clock around every call and the card synchronised only around each
-    replay."""
-    from blockbasedmotionestimation_tpu_torch.kernels import fused_step, reg_step
-    from blockbasedmotionestimation_tpu_torch.ops import windowed
-    from blockbasedmotionestimation_tpu_torch.ops.regularize import COLORS
-
-    step_of = {reg_step.color_round_stored: reg_step.color_step,
-               reg_step.color_round_compact: reg_step.color_step_compact,
-               fused_step.color_round_hybrid: fused_step.color_step_hybrid,
-               fused_step.color_round_hybrid_tail: fused_step.color_step_hybrid_tail,
-               fused_step.color_round_fused: fused_step.color_step_fused,
-               fused_step.color_round_fused_rival: fused_step.color_step_fused_rival}
-    calls = []
-
-    def spy(fn):
-        def call(grid, *a, **k):
-            calls.append((fn, grid.clone(), a, k))
-            return fn(grid, *a, **k)
-        call.per_round = True
-        return call
-
-    names = [fn.__name__ for fn in step_of]
-    saved = {n: getattr(windowed, n) for n in names}
-    for n in names:
-        setattr(windowed, n, spy(saved[n]))
-    try:
-        engine.estimate_flow_batched(im1, im2, cfg)
-    finally:
-        for n, fn in saved.items():
-            setattr(windowed, n, fn)
-    if not calls:
-        print("[host] this path runs no round of D, E, F, 11, 12 or 10")
-        return
-    per = {}
-    by_name = {fn.__name__: step for fn, step in step_of.items()}
-    for fn, g0, a, k in calls:
-        step = step_of[fn]
-        skw = {key: v for key, v in k.items() if key not in ("lam", "sweeps")}
-        g = g0.clone()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(g, *a, **k)
-        t_round = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        g = g0.clone()
-        torch.cuda.synchronize()
-        n, t_steps = 0, 0.0
-        for mult in fused_step.sweep_lams(k["lam"], k["sweeps"]):
-            for ci, cj in COLORS:
-                t0 = time.perf_counter()
-                step(g, *a, ci=ci, cj=cj, lam_mult=mult, **skw)
-                t_steps += time.perf_counter() - t0
-                n += 1
-        torch.cuda.synchronize()
-        acc = per.setdefault(fn.__name__, [0, 0.0, 0, 0.0])
-        acc[0] += 1
-        acc[1] += t_round
-        acc[2] += n
-        acc[3] += t_steps
-    for name, (nr, tr, ns, ts) in per.items():
-        print(f"[host] {name}: {nr} calls a batch, {tr / nr * 1e6:.1f} us host time per call "
-              f"({tr * 1e3:.3f} ms a batch); the same rounds through "
-              f"{by_name[name].__name__}: {ns} calls, "
-              f"{ts / ns * 1e6:.1f} us per call ({ts * 1e3:.3f} ms a batch) ({card})")
 
 
 def _cuda_ms(fn, reps: int = 3) -> float:
@@ -364,7 +288,6 @@ def main(argv=None) -> int:
         host_us = sum(h for _, _, h in evs) / len(evs) * 1e6
         print(f"[profile] {name}: {len(evs)} calls, {ms:.3f} ms (CUDA events, one batch); "
               f"host {host_us:.1f} us per call")
-    _host_per_call(cfg, im1, im2, card)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

@@ -167,6 +167,7 @@ import time
 import numpy as np
 
 # the card's peaks, kept in one place
+from blockbasedmotionestimation_tpu_torch.kernels import rounds
 from blockbasedmotionestimation_tpu_torch.utils.profiling import (
     CORE_OPS_PER_S,
     HBM_BYTES_PER_S,
@@ -302,13 +303,7 @@ def _swapped(module, **fns):
 @contextlib.contextmanager
 def _plain_kernels():
     """Route the main path through the kernels' plain versions (also on CUDA)."""
-    from blockbasedmotionestimation_tpu_torch.kernels import (
-        cv_diff,
-        fused_step,
-        gather,
-        reg_step,
-        sad_search,
-    )
+    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, sad_search
     from blockbasedmotionestimation_tpu_torch.kernels import resample as kres
     from blockbasedmotionestimation_tpu_torch.ops import resample, search, windowed
 
@@ -321,12 +316,7 @@ def _plain_kernels():
         deep_pooled_cvs=cv_diff.deep_pooled_cvs_plain,
         full_block_volume=cv_diff.full_block_volume_plain,
         compact_tables=cv_diff.compact_tables_plain,
-        color_round_stored=reg_step.color_round_stored_plain,
-        color_round_compact=reg_step.color_round_compact_plain,
-        color_round_hybrid=fused_step.color_round_hybrid_plain,
-        color_round_hybrid_tail=fused_step.color_round_hybrid_tail_plain,
-        color_round_fused=fused_step.color_round_fused_plain,
-        color_round_fused_rival=fused_step.color_round_fused_rival_plain,
+        **{f.round_name: _form(f.name)[3] for f in rounds.FORMS.values()},
     ):
         yield
 
@@ -339,25 +329,24 @@ def _dense_rival_form():
     return _swapped(windowed, hybrid_form=lambda bs, rival: False)
 
 
+def _form(name: str) -> tuple:
+    """The round kernel's form ``name`` (``kernels.rounds.FORMS``): its
+    single step, the step's plain version, its round wrapper and the
+    round's plain version."""
+    f = rounds.FORMS[name]
+    return tuple(getattr(rounds, n) for n in (f.step_name, f.step_name + "_plain", f.round_name,
+                                              f.round_name + "_plain"))
+
+
 def _kernel_counters() -> dict:
     """Every kernel wrapper by name; each counts its own launches
     (``.launches``)."""
-    from blockbasedmotionestimation_tpu_torch.kernels import (
-        cv_diff,
-        fused_step,
-        gather,
-        reg_step,
-        sad_search,
-    )
+    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, sad_search
 
     counters = {f.__name__: f for f in (
-        gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs, reg_step.color_step,
-        reg_step.color_round_stored, fused_step.color_step_hybrid, fused_step.color_step_hybrid_tail,
-        fused_step.color_round_hybrid, fused_step.color_round_hybrid_tail,
-        sad_search.sad_spiral_argmin, fused_step.color_step_fused,
-        fused_step.color_step_fused_rival, fused_step.color_round_fused,
-        fused_step.color_round_fused_rival, cv_diff.full_block_volume, cv_diff.compact_tables,
-        reg_step.color_step_compact, reg_step.color_round_compact)}
+        gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs,
+        sad_search.sad_spiral_argmin, cv_diff.full_block_volume, cv_diff.compact_tables,
+        *(fn for name in rounds.FORMS for fn in _form(name)[::2]))}
     if sorted(counters) != sorted(WANT_LAUNCHES):
         raise AssertionError(f"kernel wrappers {sorted(counters)} vs {sorted(WANT_LAUNCHES)}")
     return counters
@@ -433,15 +422,14 @@ def _step_work(torch, g, pm, rpm, *, kind, cur, h, w, r, r2, ci, cj, store_r=Non
     volume; F: band; fused, 11/12: none) or a recompute (cur^2 window bytes,
     once cur^2 frame-1 bytes per cell) with its operations, plus the
     smoothness terms."""
-    from blockbasedmotionestimation_tpu_torch.kernels import reg_step as rs
     from blockbasedmotionestimation_tpu_torch.ops import regularize
 
     cands, _, present, in_img = regularize.step_candidates(g, cur, h, w, ci, cj)
     f = g.shape[1] // pm.shape[1]
-    _, ddx, in_win = rs.window_deltas(cands, pm, f, ci, cj, r)
+    _, ddx, in_win = rounds.window_deltas(cands, pm, f, ci, cj, r)
     in_riv = torch.zeros_like(in_win)
     if rpm is not None:
-        in_riv = rs.window_deltas(cands, rpm, f, ci, cj, r2)[2] & ~in_win
+        in_riv = rounds.window_deltas(cands, rpm, f, ci, cj, r2)[2] & ~in_win
     usable = present & in_img & (in_win | in_riv)
     first = _first_distinct(torch, cands, usable)
     if kind == "fused":
@@ -481,12 +469,11 @@ def _compact_step_work(torch, g, pm, slots, table, *, cur, h, w, r, ci, cj):
     cell's distinct usable covered candidate, and the smoothness terms; the
     sector bytes count each table entry's 32-byte sector instead, once per
     distinct sector (what a random read fetches)."""
-    from blockbasedmotionestimation_tpu_torch.kernels import reg_step as rs
     from blockbasedmotionestimation_tpu_torch.ops import compact, regularize
 
     cands, _, present, in_img = regularize.step_candidates(g, cur, h, w, ci, cj)
     f = g.shape[1] // pm.shape[1]
-    ddy, ddx, in_win = rs.window_deltas(cands, pm, f, ci, cj, r)
+    ddy, ddx, in_win = rounds.window_deltas(cands, pm, f, ci, cj, r)
     b, m, n = cands.shape[:3]
     side = 2 * r + 1
     smap = compact.slot_map(slots, r)
@@ -520,13 +507,7 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     them; their plain versions run frame by frame on the same inputs
     (bounded memory) and each frame's slice is compared, so offsets past
     2^31 entries are checked too."""
-    from blockbasedmotionestimation_tpu_torch.kernels import (
-        cv_diff,
-        fused_step,
-        gather,
-        reg_step,
-        sad_search,
-    )
+    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, sad_search
     from blockbasedmotionestimation_tpu_torch.ops import compact
     from blockbasedmotionestimation_tpu_torch.ops import pad as pad_ops
     from blockbasedmotionestimation_tpu_torch.ops import search
@@ -704,9 +685,10 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
                f"{what} at cur={cur} (f={f}): four colours compared, (1, 0) timed; B={B}, "
                f"grid {tuple(g0.shape[1:3])}", also)
         if round_kernel is not None:
-            rounds(row, name, round_kernel, round_plain, plain, g0, vol, kw_of, work_at, cur, what)
+            round_check(row, name, round_kernel, round_plain, plain, g0, vol, kw_of, work_at, cur,
+                        what)
 
-    def rounds(row, name, kernel, plain, step_plain, g0, vol, kw_of, work_at, cur, what):
+    def round_check(row, name, kernel, plain, step_plain, g0, vol, kw_of, work_at, cur, what):
         """A whole round (the main path's lambda at cur, its sweeps) in one
         launch against the plain step loop, frame by frame; the round timed
         in place; its bound is the sum of its steps' (``work_at``) on the
@@ -728,7 +710,7 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
             **rkw, **kw_of(slice(bi, bi + 1)))), 1)
         work = None
         gw = g0.clone()
-        for mult in fused_step.sweep_lams(rkw["lam"], rkw["sweeps"]):
+        for mult in rounds.sweep_lams(rkw["lam"], rkw["sweeps"]):
             for ci, cj in COLORS:
                 step = work_at(gw, ci, cj)
                 work = step if work is None else tuple(a + b for a, b in zip(work, step))
@@ -758,18 +740,17 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     # cur=2 round; 8 and 9: both without rival windows.  The stored form of
     # the round kernel, each one colour step and one round; the rows are
     # named after the round wrapper, which the paths launch
+    step, step_plain, rnd, rnd_plain = _form("stored")
     for row, replaces, cur, rv in (("D", "reg_step.py:773", bs, rdeep),
                                    ("D'", "reg_step.py:680", 2, rdense),
                                    ("8", "reg_step.py:303", bs, None),
                                    ("9", "reg_step.py:213", 2, None)):
         pcall = {"D": "reg_step.py:835", "D'": "reg_step.py:750", "8": "reg_step.py:358",
                  "9": "reg_step.py:283"}[row]
-        steps(row, f"color_round_stored[{row}]", "fused_step.cu", replaces, reg_step.color_step,
-              reg_step.color_step_plain, cur, lambda c: dense[c],
-              rival_kw(None if rv is None else rv[cur]), "D",
-              "rival" if rv is not None else "no rival", also=[pcall],
-              round_kernel=reg_step.color_round_stored,
-              round_plain=reg_step.color_round_stored_plain)
+        steps(row, f"{rnd.__name__}[{row}]", "fused_step.cu", replaces, step, step_plain, cur,
+              lambda c: dense[c], rival_kw(None if rv is None else rv[cur]), "D",
+              "rival" if rv is not None else "no rival", also=[pcall], round_kernel=rnd,
+              round_plain=rnd_plain)
 
     def hybrid_kw(sl):
         return dict(im1=frames[sl], rwin=rwins[sl], rpm=rbase[sl], r2=r2, cost=cfg.cost)
@@ -777,18 +758,16 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     # E at cur 4 and 16 on the dense main volume; F at cur 2 on the band;
     # each one colour step and one round.  The rows are named after the
     # round wrappers, which the main path launches
+    step, step_plain, rnd, rnd_plain = _form("hybrid")
     for cur in (4, 16):
-        steps("E", "color_round_hybrid", "fused_step.cu", "fused_step.py:870",
-              fused_step.color_step_hybrid, fused_step.color_step_hybrid_plain, cur,
+        steps("E", rnd.__name__, "fused_step.cu", "fused_step.py:870", step, step_plain, cur,
               lambda c: dense[c], hybrid_kw, "E", "main volume + rival recompute",
-              also=["fused_step.py:937"], round_kernel=fused_step.color_round_hybrid,
-              round_plain=fused_step.color_round_hybrid_plain)
-    steps("F", "color_round_hybrid_tail", "fused_step.cu", "fused_step.py:772",
-          fused_step.color_step_hybrid_tail, fused_step.color_step_hybrid_tail_plain, 2,
+              also=["fused_step.py:937"], round_kernel=rnd, round_plain=rnd_plain)
+    step, step_plain, rnd, rnd_plain = _form("hybrid_tail")
+    steps("F", rnd.__name__, "fused_step.cu", "fused_step.py:772", step, step_plain, 2,
           lambda c: vols[c], lambda sl: dict(hybrid_kw(sl), win=wins[sl], store_r=store_r), "F",
           f"band store_r={store_r} + main-tail and rival recompute", also=["fused_step.py:848"],
-          round_kernel=fused_step.color_round_hybrid_tail,
-          round_plain=fused_step.color_round_hybrid_tail_plain)
+          round_kernel=rnd, round_plain=rnd_plain)
     del vols, dense, rdense, rdeep
 
     # 11 and 12: cv_fused's rounds cur <= 4, every candidate recomputed from
@@ -805,18 +784,16 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
         return kw_of
 
     for cur in (2, 4):
-        steps("11", "color_round_fused", "fused_step.cu", "fused_step.py:401",
-              no_volume(fused_step.color_step_fused), no_volume(fused_step.color_step_fused_plain),
-              cur, lambda c: None, fused_kw(False), "fused", "main window recompute",
-              also=["fused_step.py:466"], round_kernel=no_volume(fused_step.color_round_fused),
-              round_plain=no_volume(fused_step.color_round_fused_plain))
-        steps("12", "color_round_fused_rival", "fused_step.cu", "fused_step.py:488",
-              no_volume(fused_step.color_step_fused_rival),
-              no_volume(fused_step.color_step_fused_rival_plain), cur, lambda c: None,
-              fused_kw(True), "fused", "main and rival window recompute",
-              also=["fused_step.py:557"],
-              round_kernel=no_volume(fused_step.color_round_fused_rival),
-              round_plain=no_volume(fused_step.color_round_fused_rival_plain))
+        for row, name, rival, replaces, also, what in (
+                ("11", "fused", False, "fused_step.py:401", "fused_step.py:466",
+                 "main window recompute"),
+                ("12", "fused_rival", True, "fused_step.py:488", "fused_step.py:557",
+                 "main and rival window recompute")):
+            fns = _form(name)
+            step, step_plain, rnd, rnd_plain = map(no_volume, fns)
+            steps(row, fns[2].__name__, "fused_step.cu", replaces, step, step_plain, cur,
+                  lambda c: None, fused_kw(rival), "fused", what, also=[also], round_kernel=rnd,
+                  round_plain=rnd_plain)
 
     # 14 and 10: cv_compact at K = COMPACT_K, the slot lists of winners within
     # +-2 of the centres (25 deltas: unused slots hold -1)
@@ -855,17 +832,13 @@ def _kernels_vs_plain(torch, dev, cfg, card: str, rng: np.random.Generator) -> d
     # a whole round, on the level's slot map (built once, as the level does)
     smap = compact.slot_map(slots, ext)
 
-    def compact_step_plain(*args, smap, **kw):  # the plain step reads the slot lists only
-        reg_step.color_step_compact_plain(*args, **kw)
-
+    step, step_plain, rnd, rnd_plain = _form("compact")  # the plain step reads the slot lists
     for cur in (2, 16):
-        steps("10", "color_round_compact", "fused_step.cu", "reg_step.py:441",
-              reg_step.color_step_compact, compact_step_plain, cur,
+        steps("10", rnd.__name__, "fused_step.cu", "reg_step.py:441", step, step_plain, cur,
               lambda c: tables[c], lambda sl: dict(slots=slots[sl], smap=smap[sl]), "compact",
               f"K={COMPACT_K} slots, candidates within +-3 (many miss every slot)",
               also=["reg_step.py:500"], spread=3, work_of=compact_work(cur),
-              round_kernel=reg_step.color_round_compact,
-              round_plain=reg_step.color_round_compact_plain)
+              round_kernel=rnd, round_plain=rnd_plain)
     del tables, slots, smap, winners
 
     # 7: the spiral search's argmin around the centres block_search_level
@@ -1119,28 +1092,21 @@ def _round_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
     CUDA events; at level 0 also one colour step, (1, 0) at the round's
     first multiplier, timed the same way.  Returns, by row, the round times
     by call and their per-batch sum, the level-0 steps and the worst error."""
-    from blockbasedmotionestimation_tpu_torch.kernels import fused_step, reg_step
     from blockbasedmotionestimation_tpu_torch.ops import windowed
 
     calls = []
 
-    def spy(row, fn, plain, step, step_plain):
+    def spy(row, name):
+        step, step_plain, fn, plain = _form(name)
+
         def call(grid, *args, **kw):
             calls.append((row, fn, plain, step, step_plain, grid.clone(), args, kw))
             return fn(grid, *args, **kw)
-        call.per_round = True
-        return call
+        call.per_round, call.form = True, fn.form
+        return fn.__name__, call
 
-    fs, rs = fused_step, reg_step
-    with _swapped(windowed,
-                  color_round_stored=spy("D", rs.color_round_stored, rs.color_round_stored_plain,
-                                         rs.color_step, rs.color_step_plain),
-                  color_round_hybrid=spy("E", fs.color_round_hybrid, fs.color_round_hybrid_plain,
-                                         fs.color_step_hybrid, fs.color_step_hybrid_plain),
-                  color_round_hybrid_tail=spy("F", fs.color_round_hybrid_tail,
-                                              fs.color_round_hybrid_tail_plain,
-                                              fs.color_step_hybrid_tail,
-                                              fs.color_step_hybrid_tail_plain)):
+    with _swapped(windowed, **dict(spy(row, name) for row, name in (
+            ("D", "stored"), ("E", "hybrid"), ("F", "hybrid_tail")))):
         engine.estimate_flow_batched(im1, im2, cfg)
     h0 = max(kw["h"] for *_, kw in calls)
     out = {row: {"ms_by_call": [], "per_batch_ms": 0.0, "level0_steps": [], "max_abs_err": 0}
@@ -1183,6 +1149,26 @@ def _round_levels(torch, engine, cfg, im1, im2, card: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _stored_rows():
+    """Within the block, the stored round wrapper's launches by the TPU
+    kernel each round stands for: D / D' with rival windows at f = 1 /
+    f >= 2, 8 / 9 without (f: the grid's cells per parent edge)."""
+    from blockbasedmotionestimation_tpu_torch.ops import windowed
+
+    rows = dict.fromkeys(("D", "D'", "8", "9"), 0)
+    fn = rounds.color_round_stored
+
+    def call(grid, cv, pm, **kw):
+        before = fn.launches
+        fn(grid, cv, pm, **kw)
+        rows[("D", "D'", "8", "9")[2 * (kw.get("rcv") is None) + (grid.shape[1] > pm.shape[1])]] \
+            += fn.launches - before
+    call.per_round, call.form = True, fn.form
+    with _swapped(windowed, color_round_stored=call):
+        yield rows
+
+
 def _drive(torch, engine, cfg, im1, im2, counters: dict, want: dict, tag: str, card: str,
            reps: int = 10) -> dict:
     """Drive one path through ``estimate_flow_batched`` on the B=8 batch of
@@ -1191,21 +1177,17 @@ def _drive(torch, engine, cfg, im1, im2, counters: dict, want: dict, tag: str, c
     at least once); the interior must hold the known flow and every frame
     must equal the plain path on the card.  Prints the launches, the median
     of ``reps`` batches in fields/s and the peak memory; returns the
-    launches by wrapper, the stored form's launches by TPU kernel row (D,
-    D', 8, 9; rounds and single steps) and the flow."""
+    launches by wrapper, the stored form's round launches by TPU kernel
+    row (D, D', 8, 9: ``_stored_rows``), the flow and the fields/s."""
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    by_row = [counters[name].row_launches for name in ("color_round_stored", "color_step")]
-    for rows in by_row:
-        for row in rows:
-            rows[row] = 0
     t0 = time.time()
-    flow, pad = engine.estimate_flow_batched(im1, im2, cfg)
+    with _stored_rows() as rows:
+        flow, pad = engine.estimate_flow_batched(im1, im2, cfg)
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    rows = {row: sum(r[row] for r in by_row) for row in by_row[0]}
     print(f"[{tag}] launches: {launches} (expected {want}); the stored form by row {rows}")
     if any(launches[name] == 0 for name, n in want.items() if n):
         raise AssertionError(f"[{tag}] a kernel of the path was never launched")
@@ -1344,10 +1326,7 @@ TILES = 2       # phase 9's row tiles (the auto case: AUTO_TILES)
 AUTO_TILES = 4
 B9 = 2          # phase 9's batch for the other configurations
 # a round wrapper and the single step the rounds on row strips launch
-STEP_OF = {"color_round_stored": "color_step", "color_round_hybrid": "color_step_hybrid",
-           "color_round_hybrid_tail": "color_step_hybrid_tail",
-           "color_round_fused": "color_step_fused",
-           "color_round_fused_rival": "color_step_fused_rival"}
+STEP_OF = {f.round_name: f.step_name for f in rounds.FORMS.values() if f.tiles}
 
 
 def _want_tiled(want: dict, levels: int, tiled: int, sweeps: int) -> dict:
@@ -1401,7 +1380,7 @@ def _tiled_kernels(torch, dev, cfg, im1, im2, card: str, results: dict, mesh, ax
     on odd rows (D's 5-row strips at level 2 alternate); 2-D tiles: every
     step moved one row down and one column right, so the first tile's first
     row and column are odd.  The results go to the rows' ``key``_* entries."""
-    from blockbasedmotionestimation_tpu_torch.kernels import fused_step, reg_step, sad_search
+    from blockbasedmotionestimation_tpu_torch.kernels import sad_search
     from blockbasedmotionestimation_tpu_torch.ops import regularize, search, windowed
     from blockbasedmotionestimation_tpu_torch.parallel import tiled
 
@@ -1417,19 +1396,17 @@ def _tiled_kernels(torch, dev, cfg, im1, im2, card: str, results: dict, mesh, ax
         tiled.estimate_flow_padded_batch_tiled(im1[:n], im2[:n], c, mesh, axis_x=axis_x)
 
     # the rounds call each round wrapper's .step on tiles: spy on those
-    names = ["color_round_stored", "color_round_hybrid", "color_round_hybrid_tail"]
-    if axis_x:
-        names.append("color_round_fused_rival")
-    rounds = {n: getattr(windowed, n) for n in names}
-    saved = {n: fn.step for n, fn in rounds.items()}
-    for n, fn in rounds.items():
+    forms = ["stored", "hybrid", "hybrid_tail"] + (["fused_rival"] if axis_x else [])
+    wrappers = {n: getattr(windowed, n) for n in (rounds.FORMS[f].round_name for f in forms)}
+    saved = {n: fn.step for n, fn in wrappers.items()}
+    for n, fn in wrappers.items():
         fn.step = spy(STEP_OF[n], saved[n])
     try:
         run(cfg, B)
         if axis_x:
             run(cfg.replace(cv_fused=FUSE), B9)
     finally:
-        for n, fn in rounds.items():
+        for n, fn in wrappers.items():
             fn.step = saved[n]
     # kernel 7 on the fourcolor path's tiles
     with _swapped(search, _sad_argmin=spy("sad_spiral_argmin", search._sad_argmin)):
@@ -1444,21 +1421,18 @@ def _tiled_kernels(torch, dev, cfg, im1, im2, card: str, results: dict, mesh, ax
         return regularize.Strips(st.row0_b + 1, st.full_h + cur, st.ghost, st.col0_b + 1,
                                  st.full_w + cur, st.ghost_cols)
 
+    def at_cur4(ks):
+        return [k for k in ks if k[1]["cur"] == 4][-4]
+
     checks = [
-        ("D", "color_step", reg_step.color_step, reg_step.color_step_plain,
-         lambda ks: [k for k in ks if k[1]["cur"] == 32 and k[0][0].shape[1] % 2][0],
+        ("D", "stored", lambda ks: [k for k in ks if k[1]["cur"] == 32 and k[0][0].shape[1] % 2][0],
          bool(axis_x)),
-        ("E", "color_step_hybrid", fused_step.color_step_hybrid,
-         fused_step.color_step_hybrid_plain, lambda ks: [k for k in ks if k[1]["cur"] == 4][-4],
-         True),
-        ("F", "color_step_hybrid_tail", fused_step.color_step_hybrid_tail,
-         fused_step.color_step_hybrid_tail_plain, lambda ks: ks[-4], True),
-    ]
-    if axis_x:
-        checks.append(("12", "color_step_fused_rival", fused_step.color_step_fused_rival,
-                       fused_step.color_step_fused_rival_plain,
-                       lambda ks: [k for k in ks if k[1]["cur"] == 4][-4], True))
-    for row, name, kernel, plain, pick, shift in checks:
+        ("E", "hybrid", at_cur4, True),
+        ("F", "hybrid_tail", lambda ks: ks[-4], True),
+    ] + ([("12", "fused_rival", at_cur4, True)] if axis_x else [])
+    for row, form, pick, shift in checks:
+        kernel, plain = _form(form)[:2]
+        name = kernel.__name__
         a, k = pick(calls[name])
         k = dict(k)
         if shift:
@@ -1809,9 +1783,8 @@ MODEL_STAGES = {
     "cv_build": ("B", [("windowed", "pooled_cvs")], ("cv_build",)),
     "rival_build": ("C", [("windowed", "deep_pooled_cvs")], ("rival_build",)),
     "search": ("the spiral argmin ops", [("windowed", "spiral_argmin")], ("search",)),
-    "rounds": ("the rounds D, E, F", [("windowed", "color_round_stored"),
-                                      ("windowed", "color_round_hybrid"),
-                                      ("windowed", "color_round_hybrid_tail")],
+    "rounds": ("the rounds D, E, F", [("windowed", rounds.FORMS[f].round_name)
+                                      for f in ("stored", "hybrid", "hybrid_tail")],
                ("cv_stream", "rival", "step_operands", "step_compute")),
     "mv_bookkeeping": ("subdivide and transfer", [("windowed", "subdivide"),
                                                   ("engine", "transfer_mvs")],

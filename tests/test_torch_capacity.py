@@ -38,7 +38,7 @@ from blockbasedmotionestimation_tpu.kernels import fused_step as jfs
 from blockbasedmotionestimation_tpu.kernels import reg_step as jrs
 from blockbasedmotionestimation_tpu.ops import compact as jcompact
 from blockbasedmotionestimation_tpu.utils import synth
-from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step
+from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, rounds
 from blockbasedmotionestimation_tpu_torch.ops import compact
 from blockbasedmotionestimation_tpu_torch.ops.regularize import COLORS, step_candidates
 
@@ -163,7 +163,7 @@ def test_fused_steps_match_kernel_interpret(rng, rival, cost, cur):
                 kin["pm_lane"], rpm_lane, kin["present_pm"], kin["rank_pm"], kin["oy_cell"],
                 kin["ox_cell"], BS, R, R, R2, cur, cost, H, W, interpret=True,
             )
-            fused_step.color_step_fused_rival(g, pm, im1=im1, win=win, rwin=rwin, rpm=rpm,
+            rounds.color_step_fused_rival(g, pm, im1=im1, win=win, rwin=rwin, rpm=rpm,
                                               cur=cur, h=H, w=W, r=R, r2=R2, ci=ci, cj=cj,
                                               lam_mult=3.0, cost=cost)
         else:
@@ -172,7 +172,7 @@ def test_fused_steps_match_kernel_interpret(rng, rival, cost, cur):
                 kin["pm_lane"], kin["present_pm"], kin["rank_pm"], kin["oy_cell"],
                 kin["ox_cell"], BS, R, R, cur, cost, H, W, interpret=True,
             )
-            fused_step.color_step_fused(g, pm, im1=im1, win=win, cur=cur, h=H, w=W, r=R,
+            rounds.color_step_fused(g, pm, im1=im1, win=win, cur=cur, h=H, w=W, r=R,
                                         ci=ci, cj=cj, lam_mult=3.0, cost=cost)
         np.testing.assert_array_equal(g[0, ci::2, cj::2].numpy(), _winners(ref, f))
         changed |= not torch.equal(g, g0)
@@ -192,24 +192,24 @@ def test_fused_steps_equal_dense_color_step(rng):
     g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
     g0 = g0 + torch.as_tensor(rng.integers(-10, 11, size=g0.shape), dtype=torch.int32)
     kw = dict(cur=cur, h=H, w=W, r=R, lam_mult=2.0)
-    launches = (fused_step.color_step_fused.launches, fused_step.color_step_fused_rival.launches)
+    launches = (rounds.color_step_fused.launches, rounds.color_step_fused_rival.launches)
     for ci, cj in COLORS:
         for rival in (False, True):
             want, got = g0.clone(), g0.clone()
             if rival:
-                reg_step.color_step(want, dense, pm, ci=ci, cj=cj, rcv=rdense, rpm=rpm, r2=R2, **kw)
-                fused_step.color_step_fused_rival(got, pm, im1=im1, win=win, rwin=rwin, rpm=rpm,
+                rounds.color_step(want, dense, pm, ci=ci, cj=cj, rcv=rdense, rpm=rpm, r2=R2, **kw)
+                rounds.color_step_fused_rival(got, pm, im1=im1, win=win, rwin=rwin, rpm=rpm,
                                                   r2=R2, ci=ci, cj=cj, cost="sad", **kw)
             else:
-                reg_step.color_step(want, dense, pm, ci=ci, cj=cj, **kw)
-                fused_step.color_step_fused(got, pm, im1=im1, win=win, ci=ci, cj=cj, cost="sad",
+                rounds.color_step(want, dense, pm, ci=ci, cj=cj, **kw)
+                rounds.color_step_fused(got, pm, im1=im1, win=win, ci=ci, cj=cj, cost="sad",
                                             **kw)
             assert torch.equal(got, want), (ci, cj, rival)
     # CPU tensors: the plain versions ran, no kernel was launched
-    assert (fused_step.color_step_fused.launches,
-            fused_step.color_step_fused_rival.launches) == launches
+    assert (rounds.color_step_fused.launches,
+            rounds.color_step_fused_rival.launches) == launches
     with pytest.raises(ValueError):  # rival windows of the wrong edge
-        fused_step.color_step_fused_rival(g0.clone(), pm, im1=im1, win=win, rwin=win, rpm=rpm,
+        rounds.color_step_fused_rival(g0.clone(), pm, im1=im1, win=win, rwin=win, rpm=rpm,
                                           r2=R2, ci=0, cj=0, cost="sad", **kw)
 
 
@@ -294,7 +294,7 @@ def test_compact_step_matches_kernel_interpret(rng, cur):
             cur, H, W, interpret=True,
         )
         g = g0.clone()
-        reg_step.color_step_compact(g, table, pm, torch.as_tensor(sl), cur=cur, h=H, w=W, r=R,
+        rounds.color_step_compact(g, table, pm, torch.as_tensor(sl), cur=cur, h=H, w=W, r=R,
                                     ci=ci, cj=cj, lam_mult=2.0)
         np.testing.assert_array_equal(g[0, ci::2, cj::2].numpy(), _winners(ref, f))
     # the guard held somewhere: a cell off every slot kept its MV although a
@@ -342,16 +342,16 @@ def test_compact_round_matches_kernel_interpret(rng, cur):
             )
             want[0, ci::2, cj::2] = torch.as_tensor(np.array(_winners(ref, f)))
     assert not torch.equal(want, g0)
-    launches = reg_step.color_round_compact.launches
+    launches = rounds.color_round_compact.launches
     smap = compact.slot_map(slots, R)
     for m in (None, smap):
         got = g0.clone()
-        reg_step.color_round_compact(got, table, pm, slots, cur=cur, h=H, w=W, r=R, lam=lam,
+        rounds.color_round_compact(got, table, pm, slots, cur=cur, h=H, w=W, r=R, lam=lam,
                                      sweeps=sweeps, smap=m)
         np.testing.assert_array_equal(got.numpy(), want.numpy())
-    assert reg_step.color_round_compact.launches == launches  # CPU tensors: no launch
+    assert rounds.color_round_compact.launches == launches  # CPU tensors: no launch
     with pytest.raises(ValueError, match="smap"):  # a map of another radius
-        reg_step.color_round_compact(g0.clone(), table, pm, slots, cur=cur, h=H, w=W, r=R,
+        rounds.color_round_compact(g0.clone(), table, pm, slots, cur=cur, h=H, w=W, r=R,
                                      lam=lam, sweeps=sweeps, smap=compact.slot_map(slots, R - 1))
 
 

@@ -12,7 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from blockbasedmotionestimation_tpu_torch import MotionConfig
-from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step, sad_search
+from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, rounds, sad_search
 from blockbasedmotionestimation_tpu_torch.models import engine
 from blockbasedmotionestimation_tpu_torch.ops.regularize import Strips, on_strips
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
@@ -60,8 +60,8 @@ def test_cuda_kernels_equal_plain(cuda, bs, ext, r2):
                 if rival:
                     kw.update(rcv=rcvs[cur], rpm=rpm, r2=r2)
                 gk, gp = g0.clone().contiguous(), g0.clone().contiguous()
-                reg_step.color_step(gk, cvs[cur], pm, **kw)
-                reg_step.color_step_plain(gp, cvs[cur], pm, **kw)
+                rounds.color_step(gk, cvs[cur], pm, **kw)
+                rounds.color_step_plain(gp, cvs[cur], pm, **kw)
                 assert torch.equal(gk, gp), (cur, ci, cj, rival)
 
 
@@ -188,14 +188,14 @@ def test_cuda_hybrid_kernels_equal_plain(cuda, bs, ext, r2, store_r):
                       rpm=rpm, cost=cost)
             for ci, cj in ((0, 0), (0, 1), (1, 0), (1, 1)):
                 gk, gp = g0.clone(), g0.clone()
-                fused_step.color_step_hybrid(gk, dense[cur], pm, ci=ci, cj=cj, **kw)
-                fused_step.color_step_hybrid_plain(gp, dense[cur], pm, ci=ci, cj=cj, **kw)
+                rounds.color_step_hybrid(gk, dense[cur], pm, ci=ci, cj=cj, **kw)
+                rounds.color_step_hybrid_plain(gp, dense[cur], pm, ci=ci, cj=cj, **kw)
                 assert torch.equal(gk, gp), ("E", cost, cur, ci, cj)
                 if cur == 2:
                     gk, gp = g0.clone(), g0.clone()
-                    fused_step.color_step_hybrid_tail(gk, k[2], pm, ci=ci, cj=cj, win=win,
+                    rounds.color_step_hybrid_tail(gk, k[2], pm, ci=ci, cj=cj, win=win,
                                                       store_r=store_r, **kw)
-                    fused_step.color_step_hybrid_tail_plain(gp, k[2], pm, ci=ci, cj=cj, win=win,
+                    rounds.color_step_hybrid_tail_plain(gp, k[2], pm, ci=ci, cj=cj, win=win,
                                                             store_r=store_r, **kw)
                     assert torch.equal(gk, gp), ("F", cost, ci, cj)
 
@@ -323,9 +323,9 @@ def test_cuda_capacity_kernels_equal_plain(cuda, bs, ext, r2):
                 kw = dict(cur=cur, h=h, w=w, r=ext, lam_mult=3.0 * f)
                 for ci, cj in ((0, 0), (0, 1), (1, 0), (1, 1)):
                     gk, gp = g0.clone(), g0.clone()
-                    reg_step.color_step_compact(gk, tk[cur], pm, slots, ci=ci, cj=cj, smap=smap,
+                    rounds.color_step_compact(gk, tk[cur], pm, slots, ci=ci, cj=cj, smap=smap,
                                                 **kw)
-                    reg_step.color_step_compact_plain(gp, tk[cur], pm, slots, ci=ci, cj=cj, **kw)
+                    rounds.color_step_compact_plain(gp, tk[cur], pm, slots, ci=ci, cj=cj, **kw)
                     assert torch.equal(gk, gp), ("10", cost, k_slots, cur, ci, cj)
                     if k_slots == 8:
                         continue
@@ -336,11 +336,11 @@ def test_cuda_capacity_kernels_equal_plain(cuda, bs, ext, r2):
                         fkw = dict(im1=im1, win=win, cost=cost, ci=ci, cj=cj, **kw)
                         if rival:
                             fkw.update(rwin=rwin, rpm=rpm, r2=r2)
-                            fused_step.color_step_fused_rival(gk, pm, **fkw)
-                            fused_step.color_step_fused_rival_plain(gp, pm, **fkw)
+                            rounds.color_step_fused_rival(gk, pm, **fkw)
+                            rounds.color_step_fused_rival_plain(gp, pm, **fkw)
                         else:
-                            fused_step.color_step_fused(gk, pm, **fkw)
-                            fused_step.color_step_fused_plain(gp, pm, **fkw)
+                            rounds.color_step_fused(gk, pm, **fkw)
+                            rounds.color_step_fused_plain(gp, pm, **fkw)
                         assert torch.equal(gk, gp), ("11/12", rival, cost, cur, ci, cj)
 
 
@@ -465,13 +465,13 @@ def _round_inputs(cuda, rng, bs, cur, cost, spread=20):
                                dtype=torch.int32, device=cuda)).contiguous()
     common = dict(im1=im1, cur=cur, h=h, w=w, r=r, cost=cost)
     forms = {
-        "E": (fused_step.color_round_hybrid, fused_step.color_step_hybrid_plain, (dense, pm),
+        "E": (rounds.color_round_hybrid, rounds.color_step_hybrid_plain, (dense, pm),
               dict(common, rwin=rwin, rpm=rpm, r2=r2)),
-        "F": (fused_step.color_round_hybrid_tail, fused_step.color_step_hybrid_tail_plain,
+        "F": (rounds.color_round_hybrid_tail, rounds.color_step_hybrid_tail_plain,
               (band, pm), dict(common, win=win, rwin=rwin, rpm=rpm, r2=r2, store_r=store_r)),
-        "11": (fused_step.color_round_fused, fused_step.color_step_fused_plain, (pm,),
+        "11": (rounds.color_round_fused, rounds.color_step_fused_plain, (pm,),
                dict(common, win=win)),
-        "12": (fused_step.color_round_fused_rival, fused_step.color_step_fused_rival_plain, (pm,),
+        "12": (rounds.color_round_fused_rival, rounds.color_step_fused_rival_plain, (pm,),
                dict(common, win=win, rwin=rwin, rpm=rpm, r2=r2)),
     }
     return g0, forms
@@ -494,7 +494,7 @@ def test_cuda_round_kernel_equals_plain_step_loop(cuda, form, cur, cost):
         before = wrapper.launches
         wrapper(gk, *args, lam=lam, sweeps=sweeps, **kw)
         assert wrapper.launches == before + 1
-        for mult in fused_step.sweep_lams(lam, sweeps):
+        for mult in rounds.sweep_lams(lam, sweeps):
             for ci, cj in ((0, 0), (0, 1), (1, 0), (1, 1)):
                 step_plain(gp, *args, ci=ci, cj=cj, lam_mult=mult, **kw)
         assert not torch.equal(gp, g0)
@@ -508,12 +508,12 @@ def test_cuda_round_kernel_splits_long_rounds(cuda):
     rng = np.random.default_rng(9)
     g0, forms = _round_inputs(cuda, rng, 32, 4, "sad", spread=6)
     wrapper, step_plain, args, kw = forms["E"]
-    sweeps = fused_step.MAX_SWEEPS + 1
+    sweeps = rounds.MAX_SWEEPS + 1
     gk, gp = g0.clone(), g0.clone()
     before = wrapper.launches
     wrapper(gk, *args, lam=2.0, sweeps=sweeps, **kw)
     assert wrapper.launches == before + 2
-    fused_step.color_round_hybrid_plain(gp, *args, lam=2.0, sweeps=sweeps, **kw)
+    rounds.color_round_hybrid_plain(gp, *args, lam=2.0, sweeps=sweeps, **kw)
     assert torch.equal(gk, gp)
 
 
@@ -527,10 +527,10 @@ def test_cuda_bs128_engine_equals_cpu(cuda):
     cfg = MotionConfig(block_sizes=(128,), search_sizes=(160,), interp_factor=1,
                        rival_radius=8)
     assert not engine.cuda_refusals(cfg)
-    before = (cv_diff.pooled_cvs.launches, fused_step.color_round_hybrid.launches)
+    before = (cv_diff.pooled_cvs.launches, rounds.color_round_hybrid.launches)
     on_gpu, _ = engine.estimate_flow_batched(a, b, cfg, device=cuda)
     assert (cv_diff.pooled_cvs.launches - before[0],
-            fused_step.color_round_hybrid.launches - before[1]) == (1, 3)
+            rounds.color_round_hybrid.launches - before[1]) == (1, 3)
     on_cpu, _ = engine.estimate_flow_batched(a, b, cfg, device="cpu")
     assert torch.equal(on_gpu.cpu(), on_cpu)
 
@@ -570,21 +570,19 @@ def test_cuda_stored_round_equals_plain_step_loop(cuda, form, cur, widths):
     g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
     g0 = (g0 + ints(-20, 21, g0.shape)).contiguous()
     lam = 1.5 * 32 / cur
-    rows = reg_step.color_round_stored.row_launches
-    for sweeps in (1, 2, 3, fused_step.MAX_SWEEPS + 1):
+    for sweeps in (1, 2, 3, rounds.MAX_SWEEPS + 1):
         gk, gp = g0.clone(), g0.clone()
-        before = (reg_step.color_round_stored.launches, rows[form])
-        reg_step.color_round_stored(gk, cv, pm, lam=lam, sweeps=sweeps, **kw)
-        n = len(fused_step._spans(sweeps))
-        assert (reg_step.color_round_stored.launches, rows[form]) == (before[0] + n, before[1] + n)
-        reg_step.color_round_stored_plain(gp, cv, pm, lam=lam, sweeps=sweeps, **kw)
+        before = rounds.color_round_stored.launches
+        rounds.color_round_stored(gk, cv, pm, lam=lam, sweeps=sweeps, **kw)
+        assert rounds.color_round_stored.launches == before + len(rounds._spans(sweeps))
+        rounds.color_round_stored_plain(gp, cv, pm, lam=lam, sweeps=sweeps, **kw)
         assert not torch.equal(gp, g0)
         assert torch.equal(gk, gp), (form, cur, widths, sweeps)
     gk, gp = g0.clone(), g0.clone()
-    before = reg_step.color_step.row_launches[form]
-    reg_step.color_step(gk, cv, pm, ci=1, cj=0, lam_mult=lam, **kw)
-    assert reg_step.color_step.row_launches[form] == before + 1
-    reg_step.color_step_plain(gp, cv, pm, ci=1, cj=0, lam_mult=lam, **kw)
+    before = rounds.color_step.launches
+    rounds.color_step(gk, cv, pm, ci=1, cj=0, lam_mult=lam, **kw)
+    assert rounds.color_step.launches == before + 1
+    rounds.color_step_plain(gp, cv, pm, ci=1, cj=0, lam_mult=lam, **kw)
     assert torch.equal(gk, gp)
 
 
@@ -641,27 +639,27 @@ def test_cuda_compact_round_equals_plain_step_loop(cuda, cur, k_slots, width):
     smap = compact.slot_map(slots, r)
     kw = dict(cur=cur, h=h, w=w, r=r)
     lam = 1.5 * 32 / cur
-    for sweeps in (1, 2, 3, fused_step.MAX_SWEEPS + 1):
+    for sweeps in (1, 2, 3, rounds.MAX_SWEEPS + 1):
         gk, gp = g0.clone(), g0.clone()
-        before = reg_step.color_round_compact.launches
-        reg_step.color_round_compact(gk, table, pm, slots, lam=lam, sweeps=sweeps, smap=smap, **kw)
-        n = len(fused_step._spans(sweeps))
-        assert reg_step.color_round_compact.launches == before + n
-        reg_step.color_round_compact_plain(gp, table, pm, slots, lam=lam, sweeps=sweeps, **kw)
+        before = rounds.color_round_compact.launches
+        rounds.color_round_compact(gk, table, pm, slots, lam=lam, sweeps=sweeps, smap=smap, **kw)
+        n = len(rounds._spans(sweeps))
+        assert rounds.color_round_compact.launches == before + n
+        rounds.color_round_compact_plain(gp, table, pm, slots, lam=lam, sweeps=sweeps, **kw)
         assert not torch.equal(gp, g0)
         assert torch.equal(gk, gp), (cur, k, width, sweeps)
     gk, gp = g0.clone(), g0.clone()
-    before = reg_step.color_step_compact.launches
-    reg_step.color_step_compact(gk, table, pm, slots, ci=1, cj=0, lam_mult=lam, smap=smap, **kw)
-    assert reg_step.color_step_compact.launches == before + 1
-    reg_step.color_step_compact_plain(gp, table, pm, slots, ci=1, cj=0, lam_mult=lam, **kw)
+    before = rounds.color_step_compact.launches
+    rounds.color_step_compact(gk, table, pm, slots, ci=1, cj=0, lam_mult=lam, smap=smap, **kw)
+    assert rounds.color_step_compact.launches == before + 1
+    rounds.color_step_compact_plain(gp, table, pm, slots, ci=1, cj=0, lam_mult=lam, **kw)
     assert torch.equal(gk, gp)
     # on the card the map is required: no launch without it
     with pytest.raises(ValueError, match="smap"):
-        reg_step.color_step_compact(gk, table, pm, slots, ci=1, cj=0, lam_mult=lam, **kw)
+        rounds.color_step_compact(gk, table, pm, slots, ci=1, cj=0, lam_mult=lam, **kw)
     with pytest.raises(ValueError, match="smap"):
-        reg_step.color_round_compact(gk, table, pm, slots, lam=lam, sweeps=1, **kw)
-    assert reg_step.color_step_compact.launches == before + 1
+        rounds.color_round_compact(gk, table, pm, slots, lam=lam, sweeps=1, **kw)
+    assert rounds.color_step_compact.launches == before + 1
 
 
 # ------------------------------------------------------------------ zsad
@@ -681,13 +679,13 @@ def _zsad_pair(h=256, w=384):
 
 def _kernel_launches():
     fns = [cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs, cv_diff.full_block_volume,
-           cv_diff.compact_tables, sad_search.sad_spiral_argmin, reg_step.color_step,
-           reg_step.color_round_stored, reg_step.color_step_compact,
-           reg_step.color_round_compact, fused_step.color_step_hybrid,
-           fused_step.color_step_hybrid_tail, fused_step.color_round_hybrid,
-           fused_step.color_round_hybrid_tail, fused_step.color_step_fused,
-           fused_step.color_step_fused_rival, fused_step.color_round_fused,
-           fused_step.color_round_fused_rival]
+           cv_diff.compact_tables, sad_search.sad_spiral_argmin, rounds.color_step,
+           rounds.color_round_stored, rounds.color_step_compact,
+           rounds.color_round_compact, rounds.color_step_hybrid,
+           rounds.color_step_hybrid_tail, rounds.color_round_hybrid,
+           rounds.color_round_hybrid_tail, rounds.color_step_fused,
+           rounds.color_step_fused_rival, rounds.color_round_fused,
+           rounds.color_round_fused_rival]
     return {f.__name__: f.launches for f in fns}
 
 
@@ -714,10 +712,10 @@ def test_cuda_color_round_stored_refuses_f32(cuda):
     grid = torch.zeros((1, 8, 8, 2), dtype=torch.int32, device=cuda)
     pm = torch.zeros((1, 2, 2, 2), dtype=torch.int32, device=cuda)
     vol = torch.zeros((1, 25, 8, 8), dtype=torch.float32, device=cuda)
-    before = reg_step.color_round_stored.launches
+    before = rounds.color_round_stored.launches
     with pytest.raises(ValueError, match="uint16/int32"):
-        reg_step.color_round_stored(grid, vol, pm, cur=2, h=16, w=16, r=2, lam=1.0, sweeps=1)
-    assert reg_step.color_round_stored.launches == before
+        rounds.color_round_stored(grid, vol, pm, cur=2, h=16, w=16, r=2, lam=1.0, sweeps=1)
+    assert rounds.color_round_stored.launches == before
 
 
 @pytest.mark.requires_cuda
@@ -774,7 +772,7 @@ def test_cuda_round_kernel_on_strips_equals_plain(cuda, form, cur):
                       rpm=(pm + ints(-12, 13, pm.shape)).contiguous(), r2=r2)
         g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
         g0 = (g0 + ints(-20, 21, g0.shape)).contiguous()
-        wrapper, step_plain, args = reg_step.color_step, reg_step.color_step_plain, (cv, pm)
+        wrapper, step_plain, args = rounds.color_step, rounds.color_step_plain, (cv, pm)
         costs = ("sad",)
     else:
         costs = ("sad", "ssd")
@@ -900,7 +898,7 @@ def test_cuda_round_kernel_on_2d_tiles_equals_plain(cuda, form, cur):
                       rpm=(pm + ints(-12, 13, pm.shape)).contiguous(), r2=r2)
         g0 = pm.repeat_interleave(f, 1).repeat_interleave(f, 2)
         g0 = (g0 + ints(-20, 21, g0.shape)).contiguous()
-        wrapper, step_plain, args = reg_step.color_step, reg_step.color_step_plain, (cv, pm)
+        wrapper, step_plain, args = rounds.color_step, rounds.color_step_plain, (cv, pm)
         costs = ("sad",)
     else:
         costs = ("sad", "ssd")

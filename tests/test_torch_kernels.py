@@ -27,13 +27,8 @@ from blockbasedmotionestimation_tpu.kernels.reg_step import windowed_color_step_
 from blockbasedmotionestimation_tpu.ops import regularize as jreg
 from blockbasedmotionestimation_tpu.ops.search import _gather_windows
 from blockbasedmotionestimation_tpu.ops.windowed import _compute_cv
-from blockbasedmotionestimation_tpu_torch.kernels import (
-    cv_diff,
-    fused_step,
-    gather,
-    reg_step,
-    sad_search,
-)
+from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, rounds, sad_search
+from blockbasedmotionestimation_tpu_torch.ops.regularize import Strips
 
 
 def _frames(rng, b, h, w):
@@ -383,7 +378,7 @@ def test_color_step_matches_rival_kernel_interpret(rng, color):
         side, r, side2, r2, cur, h, w, interpret=True,
     )
     g = torch.as_tensor(grid.copy())
-    reg_step.color_step(
+    rounds.color_step(
         g, torch.as_tensor(cv), torch.as_tensor(pm), cur=cur, h=h, w=w, r=r,
         ci=ci, cj=cj, lam_mult=lam, rcv=torch.as_tensor(rcv),
         rpm=torch.as_tensor(rpm), r2=r2,
@@ -403,7 +398,7 @@ def test_color_step_rejects_mismatched_volume(rng):
     pm = torch.zeros((1, 4, 4, 2), dtype=torch.int32)
     cv = torch.zeros((1, 9, 4, 5), dtype=torch.int32)
     with pytest.raises(ValueError):
-        reg_step.color_step(g, cv, pm, cur=4, h=16, w=16, r=1, ci=0, cj=0, lam_mult=1.0)
+        rounds.color_step(g, cv, pm, cur=4, h=16, w=16, r=1, ci=0, cj=0, lam_mult=1.0)
 
 
 # ----------------------------------------------- hybrid colour steps (E, F)
@@ -431,15 +426,15 @@ def test_hybrid_steps_equal_dense_color_step(rng, cost, bs, cur):
     kw = dict(cur=cur, h=h, w=w, r=r, lam_mult=2.0 * f, r2=r2)
     for ci, cj in ((0, 0), (0, 1), (1, 0), (1, 1)):
         want = g0.clone()
-        reg_step.color_step(want, dense[cur], pm, ci=ci, cj=cj, rcv=rdense[cur], rpm=rpm, **kw)
+        rounds.color_step(want, dense[cur], pm, ci=ci, cj=cj, rcv=rdense[cur], rpm=rpm, **kw)
         assert not torch.equal(want, g0)
         got = g0.clone()
-        fused_step.color_step_hybrid(got, dense[cur], pm, ci=ci, cj=cj, im1=im1, rwin=rwin,
+        rounds.color_step_hybrid(got, dense[cur], pm, ci=ci, cj=cj, im1=im1, rwin=rwin,
                                      rpm=rpm, cost=cost, **kw)
         assert torch.equal(got, want), (ci, cj)
         if cur == 2:
             got = g0.clone()
-            fused_step.color_step_hybrid_tail(
+            rounds.color_step_hybrid_tail(
                 got, band, pm, ci=ci, cj=cj, im1=im1, win=win, rwin=rwin, rpm=rpm,
                 store_r=store_r, cost=cost, **kw,
             )
@@ -447,7 +442,7 @@ def test_hybrid_steps_equal_dense_color_step(rng, cost, bs, cur):
 
 
 def test_hybrid_steps_reject_bad_inputs(rng):
-    launches = (fused_step.color_step_hybrid.launches, fused_step.color_step_hybrid_tail.launches)
+    launches = (rounds.color_step_hybrid.launches, rounds.color_step_hybrid_tail.launches)
     g = torch.zeros((1, 4, 4, 2), dtype=torch.int32)
     pm = torch.zeros((1, 1, 1, 2), dtype=torch.int32)
     im1 = torch.zeros((1, 8, 8), dtype=torch.uint8)
@@ -455,20 +450,20 @@ def test_hybrid_steps_reject_bad_inputs(rng):
     win = torch.zeros((1, 1, 14, 14), dtype=torch.uint8)
     kw = dict(cur=2, h=8, w=8, r=3, r2=2, ci=0, cj=0, lam_mult=1.0, cost="sad")
     good = torch.zeros((1, 49, 4, 4), dtype=torch.uint16)
-    fused_step.color_step_hybrid(g, good, pm, im1=im1, rwin=rwin, rpm=pm, **kw)
+    rounds.color_step_hybrid(g, good, pm, im1=im1, rwin=rwin, rpm=pm, **kw)
     with pytest.raises(ValueError):  # volume of the wrong radius
-        fused_step.color_step_hybrid(g, good[:, :25], pm, im1=im1, rwin=rwin, rpm=pm, **kw)
+        rounds.color_step_hybrid(g, good[:, :25], pm, im1=im1, rwin=rwin, rpm=pm, **kw)
     with pytest.raises(ValueError):  # rival windows of the wrong edge
-        fused_step.color_step_hybrid(g, good, pm, im1=im1, rwin=win, rpm=pm, **kw)
+        rounds.color_step_hybrid(g, good, pm, im1=im1, rwin=win, rpm=pm, **kw)
     band = torch.zeros((1, 7 * 3, 4, 4), dtype=torch.uint16)
-    fused_step.color_step_hybrid_tail(g, band, pm, im1=im1, win=win, rwin=rwin, rpm=pm,
+    rounds.color_step_hybrid_tail(g, band, pm, im1=im1, win=win, rwin=rwin, rpm=pm,
                                       store_r=1, **kw)
     with pytest.raises(ValueError):  # band of another store_r
-        fused_step.color_step_hybrid_tail(g, band, pm, im1=im1, win=win, rwin=rwin, rpm=pm,
+        rounds.color_step_hybrid_tail(g, band, pm, im1=im1, win=win, rwin=rwin, rpm=pm,
                                           store_r=2, **kw)
     # CPU tensors: the plain versions ran, no kernel was launched
-    assert (fused_step.color_step_hybrid.launches,
-            fused_step.color_step_hybrid_tail.launches) == launches
+    assert (rounds.color_step_hybrid.launches,
+            rounds.color_step_hybrid_tail.launches) == launches
 
 
 # ------------------------------------------------- C entry points (ctypes)
@@ -485,18 +480,9 @@ def _c_params(src: str, name: str) -> list[str]:
     "module,name,source",
     [(gather, "bbme_gather_windows", "gather.cu"),
      (cv_diff, "bbme_pooled_cvs", "cv_diff.cu"),
-     (reg_step, "bbme_color_step", "fused_step.cu"),
-     (fused_step, "bbme_color_step_hybrid", "fused_step.cu"),
-     (fused_step, "bbme_color_step_hybrid_tail", "fused_step.cu"),
      (sad_search, "bbme_sad_spiral_argmin", "sad_search.cu"),
      (cv_diff, "bbme_compact_tables", "cv_diff.cu"),
-     (reg_step, "bbme_color_step_compact", "fused_step.cu"),
-     (fused_step, "bbme_color_step_fused", "fused_step.cu"),
-     (fused_step, "bbme_color_round_hybrid", "fused_step.cu"),
-     (fused_step, "bbme_color_round_hybrid_tail", "fused_step.cu"),
-     (fused_step, "bbme_color_round_fused", "fused_step.cu"),
-     (reg_step, "bbme_color_round_stored", "fused_step.cu"),
-     (reg_step, "bbme_color_round_compact", "fused_step.cu")],
+     (rounds, "bbme_round", "fused_step.cu")],
 )
 def test_ctypes_argtypes_match_c_signature(module, name, source):
     # the library is built only on a CUDA machine; the declared argument
@@ -506,17 +492,7 @@ def test_ctypes_argtypes_match_c_signature(module, name, source):
 
     src = (Path(module.__file__).resolve().parent.parent / "csrc" / source).read_text()
     params = _c_params(src, name)
-    argtypes = getattr(module, {
-        "bbme_color_step_hybrid_tail": "TAIL_ARGTYPES",
-        "bbme_compact_tables": "TABLES_ARGTYPES",
-        "bbme_color_step_compact": "COMPACT_ARGTYPES",
-        "bbme_color_step_fused": "FUSED_ARGTYPES",
-        "bbme_color_round_hybrid": "ROUND_ARGTYPES",
-        "bbme_color_round_hybrid_tail": "ROUND_TAIL_ARGTYPES",
-        "bbme_color_round_fused": "ROUND_FUSED_ARGTYPES",
-        "bbme_color_round_stored": "ROUND_ARGTYPES",
-        "bbme_color_round_compact": "ROUND_COMPACT_ARGTYPES",
-    }.get(name, "ARGTYPES"))
+    argtypes = module.TABLES_ARGTYPES if name == "bbme_compact_tables" else module.ARGTYPES
     assert len(params) == len(argtypes), (params, argtypes)
     for p, t in zip(params, argtypes):
         if "*" in p:
@@ -525,3 +501,109 @@ def test_ctypes_argtypes_match_c_signature(module, name, source):
             assert t is ctypes.c_int, (p, t)
         else:
             assert p.startswith("float ") and t is ctypes.c_float, (p, t)
+
+
+# the C enumerator of each form of the round kernel
+C_FORMS = {"stored": "kStored", "compact": "kCompact", "hybrid": "kHybrid",
+           "hybrid_tail": "kTail", "fused": "kFused", "fused_rival": "kFused"}
+
+
+def _round_case(form: str, rng):
+    """A call of form ``form`` on CPU tensors at bs 8, cur 4 (f = 2), r 2,
+    r2 1, store_r 1, K 3: the grid, and the tensors before the keywords
+    with the keywords."""
+    b, cur, h, w, r, r2 = 1, 4, 16, 16, 2, 1
+    nby, nbx, n_p = h // cur, w // cur, 4
+
+    def ints(*shape, dtype=torch.int32, hi=3):
+        return torch.as_tensor(rng.integers(0, hi, size=shape)).to(dtype)
+
+    grid, pm, rpm = ints(b, nby, nbx, 2), ints(b, 2, 2, 2), ints(b, 2, 2, 2)
+    im1 = ints(b, h, w, dtype=torch.uint8, hi=256)
+    win = ints(b, n_p, 8 + 2 * r, 8 + 2 * r, dtype=torch.uint8, hi=256)
+    rwin = ints(b, n_p, 8 + 2 * r2, 8 + 2 * r2, dtype=torch.uint8, hi=256)
+    cv = ints(b, (2 * r + 1) ** 2, nby, nbx, dtype=torch.uint16, hi=900)
+    kw = dict(cur=cur, h=h, w=w, r=r)
+    recompute = dict(kw, im1=im1, cost="ssd")
+    return grid, {
+        "stored": ((cv, pm), dict(kw, rcv=ints(b, (2 * r2 + 1) ** 2, nby, nbx, hi=900), rpm=rpm,
+                                  r2=r2)),
+        "compact": ((ints(b, 3, nby, nbx, hi=900), pm, ints(b, 1, 3, 2, hi=5)),
+                    dict(kw, smap=ints(b, 1, (2 * r + 1) ** 2, dtype=torch.uint16))),
+        "hybrid": ((cv, pm), dict(recompute, rwin=rwin, rpm=rpm, r2=r2)),
+        "hybrid_tail": ((ints(b, (2 * r + 1) * 3, nby, nbx, hi=900), pm),
+                        dict(recompute, win=win, rwin=rwin, rpm=rpm, store_r=1, r2=r2)),
+        "fused": ((pm,), dict(recompute, win=win)),
+        "fused_rival": ((pm,), dict(recompute, win=win, rwin=rwin, rpm=rpm, r2=r2)),
+    }[form]
+
+
+@pytest.mark.parametrize("kind", ["step", "round"])
+@pytest.mark.parametrize("form", list(rounds.FORMS))
+def test_round_wrappers_pack_the_c_signature(monkeypatch, rng, form, kind):
+    # the arguments each wrapper passes to bbme_round on the card's path
+    # (taken here on CPU tensors, each launch recorded instead of made),
+    # held to the C signature position by position and type by type
+    import contextlib
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(rounds.__file__).resolve().parent.parent / "csrc" / "fused_step.cu").read_text()
+    params = _c_params(src, "bbme_round")
+    names = [p.split()[-1].lstrip("*") for p in params]
+    enum = dict(re.findall(r"(k\w+) = (\d+)", re.search(r"enum Form \{([^}]*)\}", src).group(1)))
+    sent = []
+    monkeypatch.setattr(rounds, "_on_card", lambda grid: True)
+    monkeypatch.setattr(rounds, "_entry", lambda: lambda *a: sent.append(a) or 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: None,
+                        raising=False)
+    row = rounds.FORMS[form]
+    grid, (tensors, kw) = _round_case(form, rng)
+    strips = None
+    if kind == "round":
+        fn = getattr(rounds, row.round_name)
+        monkeypatch.setattr(fn, "launches", 0)
+        fn(grid, *tensors, lam=0.3, sweeps=rounds.MAX_SWEEPS + 1, **kw)
+        spans = [(0, 4 * rounds.MAX_SWEEPS, rounds.MAX_SWEEPS), (0, 4, 1)]
+    else:
+        fn = getattr(rounds, row.step_name)
+        monkeypatch.setattr(fn, "launches", 0)
+        if row.tiles:  # a 2-D tile of a frame twice as large
+            one = torch.ones(1, dtype=torch.int32)
+            strips = Strips(one, 32, torch.zeros((1, 2, 4, 2), dtype=torch.int32), one.clone(),
+                            32, torch.zeros((1, 2, 6, 2), dtype=torch.int32))
+        fn(grid, *tensors, ci=1, cj=0, lam_mult=0.3, strips=strips, **kw)
+        spans = [(2, 1, 1)]
+    assert fn.launches == len(sent) == len(spans)
+    # what each named argument must carry: the tensors by name, null where
+    # the form takes none; the stored costs are the first of several tensors
+    vol = tensors[0] if len(tensors) > 1 else None
+    ptr = {n: None if t is None else t.data_ptr() for n, t in (
+        ("cv", vol), ("pm", tensors[1] if vol is not None else tensors[0]),
+        *((n, kw.get(n)) for n in ("rcv", "im1", "win", "rwin", "rpm", "smap")))}
+    ptr["rank_table"] = rounds._rank_table_on(grid.device).data_ptr()
+    ptr["row0_b"], ptr["col0_b"] = (strips.row0_b.data_ptr(), strips.col0_b.data_ptr()) \
+        if strips else (None, None)
+    for args, span in zip(sent, spans):
+        assert len(args) == len(params) == len(rounds.ARGTYPES), (params, args)
+        for p, t, v in zip(params, rounds.ARGTYPES, args):
+            if "*" in p:
+                assert t is ctypes.c_void_p or issubclass(t, ctypes._Pointer), (p, t)
+            else:
+                assert p.startswith("int ") and t is ctypes.c_int and type(v) is int, (p, t, v)
+            t.from_param(v)  # ctypes takes the value as the declared type
+        got = dict(zip(names, args))
+        assert {n: got[n] for n in ptr} == ptr
+        assert got["form"] == int(enum[C_FORMS[form]])
+        assert (got["grid"], got["cur"], got["h"], got["w"], got["r"], got["f"]) == (
+            grid.data_ptr(), 4, 16, 16, 2, 2)
+        assert (got["cv16"], got["rcv16"]) == (int(vol is not None and vol.dtype == torch.uint16),
+                                               int("rcv" in kw and kw["rcv"].dtype == torch.uint16))
+        assert (got["r2"], got["ssd"]) == (kw.get("r2", 0), int(kw.get("cost") == "ssd"))
+        if form == "hybrid_tail":
+            assert got["store_r"] == kw["store_r"]
+        assert (got["k_slots"], got["nch"]) == ((3, 1) if form == "compact" else (0, 0))
+        assert (got["step0"], got["nsteps"], got["n_lam"], len(got["lams"])) == span + span[2:]
+        assert (got["full_h"], got["full_w"]) == ((32, 32) if strips else (16, 16))

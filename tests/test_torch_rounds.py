@@ -1,8 +1,7 @@
 """The round form of kernels E, F, 11, 12 and D, D', 8, 9 on the CPU.
 
-``kernels.fused_step.color_round_*`` and ``kernels.reg_step.
-color_round_stored`` run a whole round (``sweeps`` sweeps of the four
-colours) in one call: on the card one cooperative launch with a grid
+``kernels.rounds.color_round_*`` run a whole round (``sweeps`` sweeps of
+the four colours) in one call: on the card one cooperative launch with a grid
 barrier between colour steps (``tests/test_torch_cuda.py`` holds it to the
 plain step loop there), on the CPU the plain steps in the same order.
 Here: the round wrappers equal the per-step wrappers called colour by
@@ -21,12 +20,12 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, reg_step
+from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, rounds
 from blockbasedmotionestimation_tpu_torch.ops import windowed
 from blockbasedmotionestimation_tpu_torch.ops.regularize import COLORS
 
 BS, R, R2, STORE_R = 8, 5, 3, 2
-STORED = ("D", "D'", "8", "9")  # reg_step's stored forms: rival at f = 1 / f > 1, then none
+STORED = ("D", "D'", "8", "9")  # the stored form's rows: rival at f = 1 / f > 1, then none
 
 
 def _bs_of(form: str, cur: int) -> int:
@@ -74,18 +73,18 @@ def _inputs(rng, cur, cost, bs=BS):
     common = dict(im1=im1, cur=cur, h=h, w=w, r=R, cost=cost)
     stored = dict(cur=cur, h=h, w=w, r=R)
     rival = dict(stored, rcv=rdense, rpm=rpm, r2=R2)
-    steps = (reg_step.color_round_stored, reg_step.color_step)
+    steps = (rounds.color_round_stored, rounds.color_step)
     return g0, {
         # the stored forms: D / D' or 8 / 9 by f, whatever the key
         "D": steps + ((dense, pm), rival), "D'": steps + ((dense, pm), rival),
         "8": steps + ((dense, pm), stored), "9": steps + ((dense, pm), stored),
-        "E": (fused_step.color_round_hybrid, fused_step.color_step_hybrid, (dense, pm),
+        "E": (rounds.color_round_hybrid, rounds.color_step_hybrid, (dense, pm),
               dict(common, rwin=rwin, rpm=rpm, r2=R2)),
-        "F": (fused_step.color_round_hybrid_tail, fused_step.color_step_hybrid_tail, (band, pm),
+        "F": (rounds.color_round_hybrid_tail, rounds.color_step_hybrid_tail, (band, pm),
               dict(common, win=win, rwin=rwin, rpm=rpm, r2=R2, store_r=STORE_R)),
-        "11": (fused_step.color_round_fused, fused_step.color_step_fused, (pm,),
+        "11": (rounds.color_round_fused, rounds.color_step_fused, (pm,),
                dict(common, win=win)),
-        "12": (fused_step.color_round_fused_rival, fused_step.color_step_fused_rival, (pm,),
+        "12": (rounds.color_round_fused_rival, rounds.color_step_fused_rival, (pm,),
                dict(common, win=win, rwin=rwin, rpm=rpm, r2=R2)),
     }
 
@@ -102,11 +101,11 @@ def test_round_wrappers_equal_the_step_loop(form, cur, cost):
     round_fn, step_fn, args, kw = forms[form]
     assert round_fn.per_round and not getattr(step_fn, "per_round", False)
     if form in STORED:
-        assert reg_step._row(kw.get("rcv"), g0, args[1]) == form
+        assert STORED[2 * ("rcv" not in kw) + (g0.shape[1] > args[1].shape[1])] == form
     lam = 3.0 * BS / cur
     launches = round_fn.launches
     # a round longer than one launch takes (two spans on the card)
-    for sweeps in (1, 2, 3) + ((fused_step.MAX_SWEEPS + 1,) if form in STORED else ()):
+    for sweeps in (1, 2, 3) + ((rounds.MAX_SWEEPS + 1,) if form in STORED else ()):
         got, want = g0.clone(), g0.clone()
         round_fn(got, *args, lam=lam, sweeps=sweeps, **kw)
         for sweep in range(sweeps):
@@ -128,8 +127,8 @@ def test_round_wrappers_validate_once_per_round(monkeypatch):
             return fn(*a, **k)
         return call
 
-    monkeypatch.setattr(fused_step, "_checked", counting(fused_step._checked))
-    monkeypatch.setattr(reg_step, "_stored_args", counting(reg_step._stored_args))
+    # every form's validate-and-pack checks the grid first, once
+    monkeypatch.setattr(rounds, "_check_grid", counting(rounds._check_grid))
     for round_fn, _, args, kw in forms.values():
         calls.clear()
         round_fn(g0.clone(), *args, lam=2.0, sweeps=3, **kw)
@@ -150,10 +149,10 @@ def test_sweep_multipliers_are_f32_of_the_double_products():
     lams = [0.1, 0.3, 1.0 / 3.0, 2.2, 16.0, 12.345678]
     differs = 0
     for lam in lams:
-        for sweeps in (1, 2, 3, fused_step.MAX_SWEEPS + 1):
-            got = fused_step.sweep_lams(lam, sweeps)
+        for sweeps in (1, 2, 3, rounds.MAX_SWEEPS + 1):
+            got = rounds.sweep_lams(lam, sweeps)
             want = [np.float32(lam * (s + 1)) for s in range(sweeps)]
-            sent = np.array(fused_step._lam_array(got), dtype=np.float32)
+            sent = np.array(rounds._lam_array(got), dtype=np.float32)
             np.testing.assert_array_equal(sent, np.array(want, dtype=np.float32))
             assert [np.float32(ctypes.c_float(x).value) for x in got] == want
             on_card = [np.float32(lam) * np.float32(s + 1) for s in range(sweeps)]
@@ -162,14 +161,14 @@ def test_sweep_multipliers_are_f32_of_the_double_products():
 
 
 def test_rounds_split_into_spans_of_max_sweeps():
-    n = fused_step.MAX_SWEEPS
-    assert fused_step._spans(0) == []
-    assert fused_step._spans(2) == [range(0, 2)]
-    assert fused_step._spans(n) == [range(0, n)]
-    assert fused_step._spans(2 * n + 1) == [range(0, n), range(n, 2 * n),
+    n = rounds.MAX_SWEEPS
+    assert rounds._spans(0) == []
+    assert rounds._spans(2) == [range(0, 2)]
+    assert rounds._spans(n) == [range(0, n)]
+    assert rounds._spans(2 * n + 1) == [range(0, n), range(n, 2 * n),
                                             range(2 * n, 2 * n + 1)]
     with pytest.raises(ValueError):
-        fused_step._spans(-1)
+        rounds._spans(-1)
 
 
 def test_rounds_loop_calls_a_round_callable_once_per_round():
@@ -209,16 +208,16 @@ def test_rounds_loop_calls_the_stored_round_once_per_round(monkeypatch, rival):
 
     def spy(grid, cv, pm, **kw):
         calls.append((kw["cur"], kw["lam"], kw["sweeps"], "rcv" in kw))
-        return reg_step.color_round_stored(grid, cv, pm, **kw)
+        return rounds.color_round_stored(grid, cv, pm, **kw)
 
     spy.per_round = True
 
     def step(*a, **k):
         steps.append(1)
-        return reg_step.color_step(*a, **k)
+        return rounds.color_step(*a, **k)
 
     monkeypatch.setattr(windowed, "color_round_stored", spy)
-    monkeypatch.setattr(reg_step, "color_step", step)
+    monkeypatch.setattr(rounds, "color_step", step)
     rng = np.random.default_rng(3)
     im = torch.as_tensor(rng.integers(0, 256, size=(1, 32, 48), dtype=np.uint8))
     grid0 = torch.as_tensor(rng.integers(-2, 3, size=(1, 4, 6, 2)), dtype=torch.int32)

@@ -28,7 +28,7 @@ from blockbasedmotionestimation_tpu.models import engine as jeng
 from blockbasedmotionestimation_tpu.ops import pad as jpad
 from blockbasedmotionestimation_tpu.parallel import tiled as jtiled
 from blockbasedmotionestimation_tpu_torch import config as tconfig
-from blockbasedmotionestimation_tpu_torch.kernels import fused_step, reg_step
+from blockbasedmotionestimation_tpu_torch.kernels import rounds
 from blockbasedmotionestimation_tpu_torch.parallel import tiled
 from blockbasedmotionestimation_tpu_torch.utils import synth
 
@@ -125,11 +125,10 @@ CELL_CFG = MotionConfig(block_sizes=(8, 8), search_sizes=(16, 16), interp_factor
 
 
 def _spied(monkeypatch, step_name):
-    """Spy on the rounds' single step ``step_name`` of fused_step or
-    reg_step: records whether each call had 2-D tiles."""
+    """Spy on the single step of the round wrapper ``step_name``: records
+    whether each call had 2-D tiles."""
     calls = []
-    mod = fused_step if hasattr(fused_step, step_name) else reg_step
-    rnd = getattr(mod, step_name)
+    rnd = getattr(rounds, step_name)
     plain = rnd.step
 
     def spy(*a, **k):

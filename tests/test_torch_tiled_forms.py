@@ -24,7 +24,7 @@ from blockbasedmotionestimation_tpu.ops import pad as jpad
 from blockbasedmotionestimation_tpu.parallel import tiled as jtiled
 from blockbasedmotionestimation_tpu.utils import synth
 from blockbasedmotionestimation_tpu_torch import config as tconfig
-from blockbasedmotionestimation_tpu_torch.kernels import fused_step
+from blockbasedmotionestimation_tpu_torch.kernels import rounds
 from blockbasedmotionestimation_tpu_torch.parallel import tiled
 
 
@@ -107,7 +107,7 @@ def test_capacity_forms_on_strips_equal_jax_untiled(monkeypatch, override, step)
                        rival_radius=(4, None), **override)
     im1, im2 = _two_motion(128, 96, 5)
     calls = []
-    rnd = getattr(fused_step, step)
+    rnd = getattr(rounds, step)
     plain = rnd.step
 
     def spy(*a, **k):

@@ -19,7 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from blockbasedmotionestimation_tpu_torch import MotionConfig, tiny_config
-from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, fused_step, gather, reg_step
+from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, rounds
 from blockbasedmotionestimation_tpu_torch.kernels import resample as kres
 from blockbasedmotionestimation_tpu_torch.kernels import sad_search
 from blockbasedmotionestimation_tpu_torch.models import engine
@@ -332,8 +332,8 @@ def test_trace_turns_spans_on_and_restores_them(tmp_path, cold_tables):
 
 
 WRAPPERS = [gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs,
-            reg_step.color_round_stored, fused_step.color_round_hybrid,
-            fused_step.color_round_hybrid_tail, sad_search.sad_spiral_argmin,
+            rounds.color_round_stored, rounds.color_round_hybrid,
+            rounds.color_round_hybrid_tail, sad_search.sad_spiral_argmin,
             kres.resize_linear_u8, kres.pyrdown_u8]
 
 

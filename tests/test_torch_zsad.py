@@ -27,12 +27,7 @@ from blockbasedmotionestimation_tpu.ops import search as jsearch
 from blockbasedmotionestimation_tpu.ops import windowed as jwin
 from blockbasedmotionestimation_tpu.utils import synth
 from blockbasedmotionestimation_tpu_torch import config as tconfig
-from blockbasedmotionestimation_tpu_torch.kernels import (
-    cv_diff,
-    fused_step,
-    reg_step,
-    sad_search,
-)
+from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, rounds, sad_search
 from blockbasedmotionestimation_tpu_torch.models import engine as teng
 from blockbasedmotionestimation_tpu_torch.ops import windowed as twin
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
@@ -202,13 +197,13 @@ def test_kernel_wrappers_refuse_zsad():
     pm = torch.zeros((1, 2, 2, 2), dtype=torch.int32)
     vol = torch.zeros((1, 25, 8, 8), dtype=torch.float32)
     with pytest.raises(ValueError, match="uint16/int32"):
-        reg_step.color_round_stored(grid, vol, pm, cur=2, h=16, w=16, r=2, lam=1.0, sweeps=1)
+        rounds.color_round_stored(grid, vol, pm, cur=2, h=16, w=16, r=2, lam=1.0, sweeps=1)
     with pytest.raises(ValueError, match="uint16/int32"):
-        reg_step.color_step(grid, vol, pm, cur=2, h=16, w=16, r=2, ci=0, cj=0, lam_mult=1.0)
+        rounds.color_step(grid, vol, pm, cur=2, h=16, w=16, r=2, ci=0, cj=0, lam_mult=1.0)
     # its plain round takes them: zsad's rounds
-    reg_step.color_round_stored_plain(grid, vol, pm, cur=2, h=16, w=16, r=2, lam=1.0, sweeps=1)
+    rounds.color_round_stored_plain(grid, vol, pm, cur=2, h=16, w=16, r=2, lam=1.0, sweeps=1)
     with pytest.raises(NotImplementedError, match="zsad"):
-        fused_step.color_step_hybrid(grid, vol, pm, im1=im1, rwin=wins[:, :, :8, :8], rpm=pm,
+        rounds.color_step_hybrid(grid, vol, pm, im1=im1, rwin=wins[:, :, :8, :8], rpm=pm,
                                      cur=2, h=16, w=16, r=2, r2=0, ci=0, cj=0, lam_mult=1.0,
                                      cost="zsad")
 
