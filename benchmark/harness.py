@@ -16,7 +16,9 @@ A run:
      issue until its flow is synchronised (or downloaded);
   5. with ``trace``, from a quarter of the window on, profiles
      ``trace_requests`` requests on the device alone and reads the
-     per-layer metrics from them, then as many on host and device with
+     per-layer metrics from them (where the trace holds another number of
+     the program's kernels than its wrappers counted, from the next such
+     stretch, up to three in all), then as many on host and device with
      the layer calls in spans, for the breakdown's idle gaps;
   6. frees the program's state and holds a sample of the fields that the
      window produced, drawn from the seed, to the plain reference.
@@ -200,9 +202,19 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         request(k)
     sample = Sample(int(tr["check_fields"]), batch, seed)
     latencies: list[float] = []
-    tmp = tempfile.TemporaryDirectory(prefix="bench-trace-") if trace else None
-    tracer = tracing.Tracer(int(tr["trace_requests"]), Path(tmp.name) / "device.json",
-                            Path(tmp.name) / "spanned.json") if trace else None
+    tracer = None
+    if trace:
+        import blockbasedmotionestimation_tpu_torch as port
+
+        active = int(tr["trace_requests"])
+        names = tracing.port_kernel_names(Path(port.__file__).parent)
+        context = {"fields": fields_cfg, "height": height, "width": width, "batch": batch}
+
+        def stretch(events, counted, request):
+            return tracing.Stretch(events, active, active * batch, names, sum(counted.values()),
+                                   context, request=request, counted_by=counted)
+        tmp = tempfile.TemporaryDirectory(prefix="bench-trace-")
+        tracer = tracing.Tracer(active, Path(tmp.name), stretch)
     start = time.perf_counter()
     setup_s = start - t_start
     deadline = start + seconds
@@ -243,13 +255,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         for m in cell.end_to_end:
             result_metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     else:  # the loop ran until the traced requests were done
-        import blockbasedmotionestimation_tpu_torch as port
-
-        args = (tracer.active, tracer.active * batch,
-                tracing.port_kernel_names(Path(port.__file__).parent), tracer.launches_counted,
-                {"fields": fields_cfg, "height": height, "width": width, "batch": batch})
-        st = tracing.Stretch(tracing.read_trace(tracer.device_path), *args, request=None)
-        spanned = tracing.Stretch(tracing.read_trace(tracer.spanned_path), *args)
+        st, spanned = tracer.device, tracer.spanned
         tmp.cleanup()
         breakdown = {"device_ops": st.breakdown()["device_ops"],
                      "idle_gaps": spanned.breakdown()["idle_gaps"]}
@@ -257,14 +263,17 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         idle = [100 * (1 - s.busy_us / s.window_us) if s.window_us > 0 else float("nan")
                 for s in (st, spanned)]
         print(f"trace: device idle {idle[0]:.2f}% over {tracer.active} requests traced on the "
-              f"device alone, {idle[1]:.2f}% over the next {tracer.active} traced on host and "
-              f"device with the layer and wrapper spans", file=sys.stderr)
+              f"device alone (stretch {tracer.attempts} of at most {tracer.ATTEMPTS}), "
+              f"{idle[1]:.2f}% over the next {tracer.active} traced on host and device with the "
+              f"layer and wrapper spans", file=sys.stderr)
         if tracer.spans.missing:
             print(f"spans: the program has no {tracer.spans.missing}", file=sys.stderr)
+        for line in tracer.disagreements:
+            print(line, file=sys.stderr)
         if not st.launches_agree():
-            print(f"trace: {st.port_launches} of the program's kernels in the trace, "
-                  f"{st.launches_counted} launches counted by its wrappers: per-layer metrics "
-                  f"not measured", file=sys.stderr)
+            print(f"trace: none of {tracer.attempts} device-alone stretches held as many of the "
+                  f"program's kernels as its wrappers counted: per-layer metrics not measured",
+                  file=sys.stderr)
         else:
             for m in cell.per_layer:
                 value = load_metric(m["name"])(st)

@@ -1,8 +1,9 @@
-"""Share of its roofline of ``round_kernel``: the least time the card could take
-for the stage's work of the traced batches (``benchmark/work/fused_step.py``,
-from the configuration and the frame size, at the published peaks) over
-the device time of that kernel's instances, in percent.  Nothing to read
-where the kernel did not run."""
+"""Share of its roofline of ``round_kernel`` (the rounds of
+``kernels/rounds.py``): the least time the card could take for the stage's
+work of the traced batches (``benchmark/work/fused_step.py``, from the
+configuration and the frame size, at the published peaks) over the device
+time of that kernel's instances, in percent.  Nothing to read where the
+kernel did not run."""
 
 from benchmark.work import fused_step as work
 

@@ -70,9 +70,10 @@ def test_per_layer_sources_are_the_benchmarks_own():
 
 def test_a_traced_run_reports_the_counted_syncs():
     """A whole traced run of the default clip cell at the tests' size, in
-    a process of its own (the counters are the process's): 2 levels and
-    the x4 upscale make 16 + 4 + 2 + 6 = 28 syncs a request of 2 fields,
-    besides the tables copied once a process."""
+    a process of its own (the counters are the process's).  Each device
+    table (2 levels and the x4 upscale) is copied once a run, by the first
+    request that reads it, and found on the device at every later read: a
+    request reads 16 + 4 + 6 + 2 tables and 144 rank and slot tables."""
     code = f"""
 import json, sys, time
 sys.path.insert(0, {str(ROOT)!r}); sys.path.insert(0, {str(Path(__file__).parent)!r})
@@ -87,9 +88,10 @@ print(json.dumps([res["metrics"], profiling.counters()]))
                          timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     metrics, counted = json.loads(out.stdout.strip().splitlines()[-1])
-    by_site = counted["syncs_by_site"]
-    assert by_site.pop("tables") == 3  # the plain rounds' rank and slot tables
-    assert by_site == {"resize": 16 * counted["requests"], "pyramid": 4 * counted["requests"],
-                       "transfer": 2 * counted["requests"], "argmin": 6 * counted["requests"]}
+    copies = {"resize": 8, "pyramid": 2, "argmin": 3, "transfer": 2, "tables": 3}
+    reads = {"resize": 16, "pyramid": 4, "argmin": 6, "transfer": 2, "tables": 144}
+    assert counted["syncs_by_site"] == copies
+    assert counted["table_hits_by_site"] == {
+        site: n * counted["requests"] - copies[site] for site, n in reads.items()}
     assert counted["fields"] == 2 * counted["requests"]
     assert metrics[SYNCS]["value"] == counted["syncs"] / counted["fields"]

@@ -1,13 +1,19 @@
 """The traced run's spans and the reading of its profiler trace.
 
-Spans are the benchmark's own, and only in the second of the two traced
-stretches: the harness wraps each request in one, and ``Spans`` wraps the
+Spans are the benchmark's own, and only in the last traced stretch, the
+spanned one: the harness wraps each request in one, and ``Spans`` wraps the
 calls into each layer of the program in ``torch.profiler.record_function``
 (names start with ``bench.``).  ``Stretch`` reads the
 exported Chrome trace: the device's kernels, copies and sets between the
 first request's start and the last one's end (in a trace of the device
 alone, between its first operation's start and its last one's end), and
 the host's spans.
+
+The launch rule: a stretch of the device alone is read only where the
+program's kernels in its trace (the ``__global__`` functions of its
+``csrc/*.cu``, under any namespace) are as many as its kernel wrappers
+counted over the stretch.  So a wrapper adds one to its ``.launches`` for
+every kernel it launches, not for every call.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import functools
 import json
 import re
 import sys
+import time
 from pathlib import Path
 
 PREFIX = "bench."
@@ -31,14 +38,79 @@ LAYER_CALLS = (
     ("models.engine", "windowed_schedule"),
 )
 
+_COMMENTS = re.compile(r"//[^\n]*|/\*.*?\*/", re.S)
+_GLOBAL = re.compile(r"\b__global__\b")
+_WORD = re.compile(r"\s*([A-Za-z_]\w*)")
+_SPACE = re.compile(r"\s*")
+# a qualified name's scopes, as the profiler demangles them
+_SCOPES = r"^(?:(?:\(anonymous namespace\)|[A-Za-z_]\w*)::)*"
+
+
+def _is_attribute(word: str) -> bool:
+    """``__launch_bounds__``, ``__attribute__``, ``__cluster_dims__`` and
+    the like (names of the form ``__x__`` are the implementation's), or
+    ``alignas``: what may stand before a kernel's name with parentheses."""
+    return word == "alignas" or (len(word) > 4 and word.startswith("__") and word.endswith("__"))
+
+
+def _skip_group(text: str, i: int) -> int:
+    """The index after the bracketed group that opens at ``text[i]``, ``(``
+    or ``<`` (inside ``<...>``, angle brackets count outside parentheses
+    only)."""
+    close = ")" if text[i] == "(" else ">"
+    parens = angles = 0
+    for j in range(i, len(text)):
+        ch = text[j]
+        if ch == "(":
+            parens += 1
+        elif ch == ")":
+            parens -= 1
+        elif close == ">" and parens == 0 and ch in "<>":
+            angles += 1 if ch == "<" else -1
+        if ch == close and parens == 0 and angles == 0:
+            return j + 1
+    return len(text)
+
+
+def _declared_name(text: str, i: int) -> str | None:
+    """The function name of the declaration whose ``__global__`` ends at
+    ``i``: the first identifier followed by its parameter list (after any
+    template arguments) that is not an attribute."""
+    while i < len(text):
+        m = _WORD.match(text, i)
+        if m is None:
+            i = _SPACE.match(text, i).end()
+            if i >= len(text) or text[i] in ";{}=":
+                return None
+            i += 1
+            continue
+        word, i = m.group(1), m.end()
+        j = _SPACE.match(text, i).end()
+        if j < len(text) and text[j] == "(" and _is_attribute(word):
+            i = _skip_group(text, j)
+            continue
+        if j < len(text) and text[j] == "<":
+            j = _SPACE.match(text, _skip_group(text, j)).end()
+        if j < len(text) and text[j] == "(":
+            return word
+    return None
+
+
+def global_functions(source: str) -> set[str]:
+    """Names of the ``__global__`` functions a CUDA source declares, in any
+    declaration form: after ``template<...>``, ``static``, ``extern "C"`` or
+    ``inline``, behind ``__launch_bounds__`` with any arguments, over several
+    lines, in any namespace."""
+    text = _COMMENTS.sub(" ", source)
+    return {name for m in _GLOBAL.finditer(text)
+            if (name := _declared_name(text, m.end())) is not None}
+
 
 def port_kernel_names(package_dir: Path) -> set[str]:
     """Names of the ``__global__`` functions of the program's CUDA sources."""
-    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\((?:[^()]|\([^()]*\))*\)\s*)?"
-                     r"(\w+)\s*\(")
-    names = set()
+    names: set[str] = set()
     for src in sorted((package_dir / "csrc").glob("*.cu")):
-        names.update(pat.findall(src.read_text()))
+        names |= global_functions(src.read_text())
     return names
 
 
@@ -110,35 +182,51 @@ class Spans:
 
 
 class Tracer:
-    """Two profiler sessions over the window, each of ``active`` requests
-    after ``WARMUP`` profiled and discarded (the profiler's own start-up).
+    """Profiler sessions over the window, each of ``active`` requests after
+    ``WARMUP`` profiled and discarded (the profiler's own start-up).
 
-    The first records the device alone (CUDA activity, no host events, no
+    First, sessions of the device alone (CUDA activity, no host events, no
     span): the per-layer metrics, the idle share and the launch count are
-    read from it, so that neither the host's op records nor the
-    benchmark's spans add host time to what they read.  The second records
-    host and device with every request in ``bench.request`` and the layer
-    and wrapper spans on: the breakdown's idle gaps are told apart by the
-    host's span there.  Chrome traces go to ``device_path`` and
-    ``spanned_path``."""
+    read from the first of them that keeps the launch rule, so that neither
+    the host's op records nor the benchmark's spans add host time to what
+    they read.  A stretch that breaks the rule is traced again, up to
+    ``ATTEMPTS`` stretches in all, and ``disagreements`` keeps a line for
+    each that broke it: what the trace held and what the wrappers counted,
+    by name.  Then one session of host and device with every request in
+    ``bench.request`` and the layer and wrapper spans on: the breakdown's
+    idle gaps are told apart by the host's span there.
+
+    Each session's recording starts and ends on an idle device: synchronised
+    before the profiler starts to record, and ``PAUSE_S`` seconds without
+    work after it starts and before it stops.  The profiler keeps only the
+    device operations whose times, put on the host's clock, fall inside its
+    recording window, and in some sessions that conversion runs early by
+    up to a few milliseconds: without the pause, the first operations of
+    the first recorded request then fell before the window and were lost.
+    The counted launches are those of the ``active`` requests the session
+    records.
+
+    ``stretch(events, counted_by_wrapper, request)`` makes a ``Stretch`` of
+    a trace's events; ``device`` is the device-alone stretch read (the last
+    one where none kept the rule), ``spanned`` the spanned one.  Chrome
+    traces are written into ``directory``."""
 
     WARMUP = 2
+    ATTEMPTS = 3
+    PAUSE_S = 0.05
     REQUEST = PREFIX + "request"
 
-    def __init__(self, active: int, device_path: Path, spanned_path: Path):
-        self.active, self.device_path, self.spanned_path = active, device_path, spanned_path
+    def __init__(self, active: int, directory: Path, stretch):
+        self.active, self.directory, self._stretch = active, Path(directory), stretch
         self.started = self.done = False
-        self.steps = 0
-        self.launches_counted = 0
+        self.attempts = 0
+        self.device = self.spanned = None
+        self.disagreements: list[str] = []
         self.spans = None
 
     @property
     def open(self) -> bool:
         return self.started and not self.done
-
-    @property
-    def spanned(self) -> bool:
-        return self.steps >= self.WARMUP + self.active
 
     def _profile(self, activities, path: Path):
         import torch
@@ -151,41 +239,69 @@ class Tracer:
         prof.start()
         return prof
 
-    def start(self) -> None:
+    def _session(self, spanned: bool) -> None:
         import torch
 
+        if spanned:
+            self.spans = Spans().__enter__()
+            activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        else:
+            # without a card (the CPU tests) the host's activity stands in
+            activities = [torch.profiler.ProfilerActivity.CUDA if torch.cuda.is_available()
+                          else torch.profiler.ProfilerActivity.CPU]
+        self._spanned = spanned
+        self._path = self.directory / ("spanned.json" if spanned else "device.json")
+        self.steps = 0
+        self.prof = self._profile(activities, self._path)
+
+    def start(self) -> None:
         self.wrappers = kernel_wrappers()
-        # without a card (the CPU tests) the host's activity stands in
-        device = torch.profiler.ProfilerActivity.CUDA if torch.cuda.is_available() \
-            else torch.profiler.ProfilerActivity.CPU
-        self.prof = self._profile([device], self.device_path)
         self.started = True
+        self._session(spanned=False)
 
     def span(self):
         import torch
 
-        return torch.profiler.record_function(self.REQUEST) if self.spanned \
+        return torch.profiler.record_function(self.REQUEST) if self._spanned \
             else contextlib.nullcontext()
+
+    def _idle(self, pause: bool) -> None:
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        if pause:
+            time.sleep(self.PAUSE_S)
+
+    def _counts(self) -> dict[str, int]:
+        return {f"{fn.__module__}.{fn.__name__}": fn.launches for fn in self.wrappers}
 
     def step(self) -> None:
         """After each request under the profiler."""
-        import torch
-
+        last = self.WARMUP + self.active
+        if self.steps + 1 in (self.WARMUP, last):
+            self._idle(pause=self.steps + 1 == last)
         self.prof.step()
         self.steps += 1
-        if self.steps == self.WARMUP:
-            self._launches0 = launches(self.wrappers)
-        elif self.steps == self.WARMUP + self.active:
-            self.launches_counted = launches(self.wrappers) - self._launches0
-            self.prof.stop()
-            self.spans = Spans().__enter__()
-            self.prof = self._profile([torch.profiler.ProfilerActivity.CPU,
-                                       torch.profiler.ProfilerActivity.CUDA], self.spanned_path)
-        elif self.steps == 2 * (self.WARMUP + self.active):
-            self.prof.stop()
-            self.spans.__exit__(None, None, None)
-            self.done = True
+        if self.steps == self.WARMUP:  # recording from here on
+            self._idle(pause=True)
+            self._counts0 = self._counts()
+        elif self.steps == last:  # stopped, and the trace written
+            counted = {k: v - self._counts0[k] for k, v in self._counts().items()}
             del self.prof
+            if self._spanned:
+                self.spans.__exit__(None, None, None)
+                self.spanned = self._stretch(read_trace(self._path), counted, self.REQUEST)
+                self.done = True
+                return
+            self.attempts += 1
+            self.device = self._stretch(read_trace(self._path), counted, None)
+            agree = self.device.launches_agree()
+            if not agree:
+                self.disagreements.append(
+                    f"trace: device-alone stretch {self.attempts} of at most {self.ATTEMPTS}: "
+                    + self.device.disagreement())
+            self._session(spanned=agree or self.attempts == self.ATTEMPTS)
 
 
 def _short(name: str) -> str:
@@ -229,11 +345,13 @@ class Stretch:
 
     requests / fields: what the stretch completed; port_kernels: the
     program's ``__global__`` names; launches_counted: the launches its
-    wrappers counted over the stretch; context: the cell's configuration
-    fields, frame size and batch, for the work models."""
+    wrappers counted over the stretch, and counted_by the same by wrapper
+    (``module.name``); context: the cell's configuration fields, frame size
+    and batch, for the work models."""
 
     def __init__(self, events: list[dict], requests: int, fields: int, port_kernels: set[str],
-                 launches_counted: int, context: dict, request: str | None = PREFIX + "request"):
+                 launches_counted: int, context: dict, request: str | None = PREFIX + "request",
+                 counted_by: dict[str, int] | None = None):
         spans = [e for e in events if e.get("cat") == "user_annotation"
                  and str(e.get("name", "")).startswith(PREFIX)]
         bounds = [e for e in spans if e["name"] == request] if request is not None else \
@@ -243,21 +361,26 @@ class Stretch:
         self.t0 = min((e["ts"] for e in bounds), default=0.0)
         self.t1 = max((e["ts"] + e["dur"] for e in bounds), default=0.0)
         self.spans = spans
-        self.device = [e for e in events if e.get("cat") in DEVICE_CATS
-                       and self.t0 <= e["ts"] <= self.t1]
+        self.device = sorted((e for e in events if e.get("cat") in DEVICE_CATS
+                              and self.t0 <= e["ts"] <= self.t1), key=lambda e: e["ts"])
         self.requests = requests
         self.fields = fields
         self.context = context
-        pat = re.compile(r"^(?:\(anonymous namespace\)::)?(?:"
-                         + "|".join(sorted(map(re.escape, port_kernels))) + r")\b") \
-            if port_kernels else None
-        self._port = pat
+        self._names = sorted(port_kernels)
+        alternatives = "|".join(map(re.escape, self._names))
+        self._port = re.compile(_SCOPES + rf"({alternatives})\b") if self._names else None
         self.port_launches = sum(1 for e in self.device if e["cat"] == "kernel"
                                  and self.is_port(e["name"]))
         self.launches_counted = launches_counted
+        self.counted_by = counted_by or {}
+
+    def port_name(self, name: str) -> str | None:
+        """The program's kernel a trace name is an instance of, or None."""
+        m = self._port.search(_short(name)) if self._port else None
+        return m.group(1) if m else None
 
     def is_port(self, name: str) -> bool:
-        return bool(self._port and self._port.search(_short(name)))
+        return self.port_name(name) is not None
 
     @property
     def window_us(self) -> float:
@@ -277,11 +400,40 @@ class Stretch:
         return sum(e["dur"] for e in self.device if e["cat"] == "kernel" and keep(e["name"]))
 
     def kernel_named(self, name: str):
-        pat = re.compile(r"^(?:\(anonymous namespace\)::)?" + re.escape(name) + r"\b")
+        pat = re.compile(_SCOPES + re.escape(name) + r"\b")
         return lambda full: bool(pat.search(_short(full)))
 
     def launches_agree(self) -> bool:
         return self.port_launches == self.launches_counted
+
+    def disagreement(self) -> str:
+        """What the launch rule compared, by name: the program's kernels in
+        the trace, the launches counted by wrapper, the stretch's first five
+        device operations, and the kernels that name a kernel of the sources
+        but were not taken for one."""
+        # a name of the sources anywhere in a kernel's name, demangled or
+        # mangled (where its length stands before it)
+        alternatives = "|".join(map(re.escape, self._names))
+        named = re.compile("|".join([rf"(?<!\w)(?:{alternatives})(?!\w)"]
+                                    + [f"{len(n)}{re.escape(n)}" for n in self._names])) \
+            if self._names else None
+        kernels: dict[str, int] = {}
+        unrecognised: dict[str, int] = {}
+        for e in self.device:
+            if e["cat"] != "kernel":
+                continue
+            name = self.port_name(e["name"])
+            if name is not None:
+                kernels[name] = kernels.get(name, 0) + 1
+            elif named and named.search(_short(e["name"])):
+                unrecognised[_short(e["name"])] = unrecognised.get(_short(e["name"]), 0) + 1
+        counted = {k: v for k, v in sorted(self.counted_by.items()) if v}
+        return (f"{self.port_launches} of the program's kernels in the trace, "
+                f"{self.launches_counted} launches counted; in the trace "
+                f"{json.dumps(dict(sorted(kernels.items())))}; counted "
+                f"{json.dumps(counted)}; first operations "
+                f"{json.dumps([_short(e['name']) for e in self.device[:5]])}; "
+                f"named in csrc but not recognised {json.dumps(unrecognised)}")
 
     def _host_at(self, t: float) -> str:
         """The innermost benchmark span open on the host at time t."""

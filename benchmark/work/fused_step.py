@@ -1,5 +1,5 @@
-"""Work of the rounds (``kernels/fused_step.py`` and ``kernels/reg_step.py``:
-D, D', E, F, one round kernel): every regularization round of every level.
+"""Work of the rounds (``kernels/rounds.py``: D, D', E, F, one round
+kernel): every regularization round of every level.
 
 A round of ``sweeps`` sweeps of the four colour steps reads its grid once
 and writes it once, reads the parents' window centres (and the rival
