@@ -1,4 +1,4 @@
-"""The check's control: the plain reference in the program's place, its
+"""The check's control: the cell's plain reference in the program's place, its
 energy in bfloat16 (the nearest precision below the configuration's
 float32), held to the reference in float32.
 
@@ -29,9 +29,11 @@ def readings(cell, seeds: list[int], device: str) -> list[dict]:
     import torch
 
     from benchmark import gen, harness
-    from benchmark.reference import flow as reference
 
+    reference = harness.reference_module(cell.reference)
     dev = torch.device(device)
+    devices = [torch.device("cuda", i) for i in range(cell.chips)] if dev.type == "cuda" \
+        else [dev]
     fields_cfg = harness.motion_fields(cell.config)
     tr = cell.traffic
     h, w = cell.config["frame"]["height"], cell.config["frame"]["width"]
@@ -47,8 +49,9 @@ def readings(cell, seeds: list[int], device: str) -> list[dict]:
         bad = 0
         for p in sorted(int(x) for x in picks):
             a, b = frames[p:p + 1], frames[p + 1:p + 2]
-            want = reference.estimate(a, b, fields_cfg)
-            low = reference.estimate(a, b, fields_cfg, energy_dtype=torch.bfloat16)
+            want = reference.estimate(a, b, fields_cfg, devices=devices)
+            low = reference.estimate(a, b, fields_cfg, energy_dtype=torch.bfloat16,
+                                     devices=devices)
             bad += reference.mismatched_pixels(low, want)
         out.append({"seed": seed, "fields": len(picks), "mismatched_px": bad,
                     "seconds": time.perf_counter() - t})

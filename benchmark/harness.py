@@ -5,6 +5,26 @@ Everything a cell is made of is data found by name: the cell in
 ``traffic/`` (read by the one generator, ``gen.py``) and one reader a
 per-layer metric under ``metrics/<name>.py``.
 
+A configuration may name, besides its sizes, what a request calls and
+what holds it to account (each optional; without them a cell runs as every
+cell ran before them):
+
+  * ``entry``: the dotted path of the function a request calls, under the
+    program's package, or under the benchmark's own for a module whose path
+    starts with ``benchmark.`` (test-only entries); by default
+    ``models.engine.estimate_flow_driver_batched``.  It is called as
+    ``entry(im1s, im2s, cfg, device=..., **entry_kwargs)``, with ``mesh=``;
+  * ``mesh``: ``{"shape": [...], "axes": [...]}``, a ``parallel.tiled.Mesh``
+    over the cell's ranks, passed as ``mesh=``; only on a cell of more than
+    one chip, and there always, its size the cell's ``chips``;
+  * ``entry_kwargs``: further keyword arguments of the entry, as given;
+  * ``reference``: a module under ``reference/`` with ``estimate`` and
+    ``mismatched_pixels``; by default ``flow``.  ``estimate`` is also
+    given ``devices``, the cell's cards, on which it may place its work.
+
+A cell of more than one chip runs one process a card (``ranks.py``);
+``ranks`` is then this process's place among them, None on one chip.
+
 A run:
   1. loads the program and its kernel library (the first run of a checkout
      builds it into ``build/kernels/`` there);
@@ -22,6 +42,11 @@ A run:
      the layer calls in spans, for the breakdown's idle gaps;
   6. frees the program's state and holds a sample of the fields that the
      window produced, drawn from the seed, to the plain reference.
+
+On several ranks every rank runs the same requests; rank 0 decides when
+the window ends and when tracing starts, and shares that once a request in
+the small host-side collective that ends it; rank 0 alone keeps the
+sample, runs the check and builds the result.
 """
 
 from __future__ import annotations
@@ -30,6 +55,7 @@ import gc
 import importlib.util
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -43,7 +69,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 BENCH = Path(__file__).resolve().parent
 FOREIGN = ("jax", "jaxlib", "flax", "blockbasedmotionestimation_tpu")
+PACKAGE = "blockbasedmotionestimation_tpu_torch"
 LIST_FIELDS = ("block_sizes", "search_sizes", "rival_radius")
+DEFAULT_ENTRY = "models.engine.estimate_flow_driver_batched"
+DEFAULT_REFERENCE = "flow"
+_MODULE_NAME = re.compile(r"[A-Za-z_]\w*")
 
 
 @dataclass
@@ -53,6 +83,23 @@ class Cell:
     traffic: dict
     end_to_end: list
     per_layer: list
+    chips: int = 1
+
+    @property
+    def entry(self) -> str:
+        return self.config.get("entry", DEFAULT_ENTRY)
+
+    @property
+    def mesh(self) -> dict | None:
+        return self.config.get("mesh")
+
+    @property
+    def entry_kwargs(self) -> dict:
+        return dict(self.config.get("entry_kwargs", {}))
+
+    @property
+    def reference(self) -> str:
+        return self.config.get("reference", DEFAULT_REFERENCE)
 
 
 def _for_cell(metrics: list, cell: str) -> list:
@@ -60,19 +107,83 @@ def _for_cell(metrics: list, cell: str) -> list:
 
 
 def load_cell(name: str, spec_path: Path = ROOT / "BENCHMARK.json") -> Cell:
+    """The cell ``name`` of the benchmark ``spec_path``, its configuration
+    and traffic files read from beside it; refused (``ValueError``) where
+    ``check_cell`` refuses it."""
+    spec_path = Path(spec_path)
     spec = json.loads(spec_path.read_text())
     cells = {w["name"]: w for w in spec["workloads"]}
     if name not in cells:
         raise KeyError(f"no workload {name!r}; the benchmark has {sorted(cells)}")
     w = cells[name]
     cfg = {c["name"]: c for c in spec["configs"]}[w["config"]]
-    return Cell(
+    base = spec_path.parent
+    cell = Cell(
         name=name,
-        config=json.loads((ROOT / cfg["file"]).read_text()),
-        traffic=json.loads((BENCH / "traffic" / f"{w['traffic']}.json").read_text()),
+        config=json.loads((base / cfg["file"]).read_text()),
+        traffic=json.loads((base / BENCH.name / "traffic" / f"{w['traffic']}.json").read_text()),
         end_to_end=_for_cell(spec["end_to_end"], name),
         per_layer=_for_cell(spec["per_layer"], name),
+        chips=int(w["chips"]),
     )
+    check_cell(cell)
+    return cell
+
+
+def resolve_entry(path: str):
+    """The function a request calls: ``path`` (``module.function``) under
+    the program's package, or under the benchmark's own where it starts
+    with ``benchmark.``."""
+    module, _, attr = str(path).rpartition(".")
+    full = module if module.split(".")[0] == BENCH.name else f"{PACKAGE}.{module}"
+    try:
+        fn = getattr(importlib.import_module(full), attr)
+    except (ImportError, AttributeError, ValueError) as e:
+        raise ValueError(f"the entry {path!r} does not resolve: {e}") from e
+    if not callable(fn):
+        raise ValueError(f"the entry {path!r} is not a function")
+    return fn
+
+
+def reference_module(name: str):
+    """The plain reference ``reference/<name>.py``: a module with
+    ``estimate`` and ``mismatched_pixels``."""
+    if not isinstance(name, str) or not _MODULE_NAME.fullmatch(name):
+        raise ValueError(f"the reference {name!r} is not a module name")
+    try:
+        mod = importlib.import_module(f"{BENCH.name}.reference.{name}")
+    except ImportError as e:
+        raise ValueError(f"no reference {name!r}: {e}") from e
+    missing = [f for f in ("estimate", "mismatched_pixels") if not callable(getattr(mod, f, None))]
+    if missing:
+        raise ValueError(f"the reference {name!r} has no {missing}")
+    return mod
+
+
+def check_cell(cell: Cell) -> None:
+    """Refuse, before any work, a cell the harness cannot run as it says:
+    a mesh on one chip, none on several (every rank would then serve the
+    whole batch, and the rate count it once), a mesh whose size is not the
+    cell's ``chips``, an entry or a reference that does not resolve."""
+    mesh = cell.mesh
+    if mesh is None and cell.chips > 1:
+        raise ValueError(f"{cell.name}: {cell.chips} chips and no mesh in its configuration")
+    if mesh is not None:
+        if cell.chips == 1:
+            raise ValueError(f"{cell.name}: a mesh on a one-chip cell")
+        shape, axes = mesh.get("shape"), mesh.get("axes")
+        if (set(mesh) != {"shape", "axes"} or not isinstance(shape, list)
+                or not isinstance(axes, list) or len(shape) != len(axes)
+                or not all(isinstance(n, int) and n >= 1 for n in shape)
+                or not all(isinstance(a, str) for a in axes)):
+            raise ValueError(f"{cell.name}: the mesh {mesh} is not "
+                             f'{{"shape": [sizes], "axes": [names]}}')
+        if math.prod(shape) != cell.chips:
+            raise ValueError(f"{cell.name}: a mesh of {math.prod(shape)} for {cell.chips} chips")
+    if not isinstance(cell.config.get("entry_kwargs", {}), dict):
+        raise ValueError(f"{cell.name}: entry_kwargs is not an object")
+    resolve_entry(cell.entry)
+    reference_module(cell.reference)
 
 
 def foreign_modules() -> list[str]:
@@ -91,6 +202,16 @@ def p95(values: list[float]) -> float:
     if len(values) == 1:
         return values[0]
     return statistics.quantiles(values, n=100, method="inclusive")[94]
+
+
+def report(result: dict, lines: list[str]) -> None:
+    """The check lines, last on standard error, then the result line, last
+    on standard output."""
+    sys.stdout.flush()
+    for line in lines:
+        print(line, file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(result), flush=True)
 
 
 def load_metric(name: str):
@@ -146,16 +267,25 @@ def _power_limit() -> str | None:
 
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
-        t_start: float) -> tuple[dict, list[str]]:
-    """One run; returns the result line's object and the check lines."""
+        t_start: float, ranks=None) -> tuple[dict, list[str]] | None:
+    """One run; returns the result line's object and the check lines (on
+    rank 0; None on the other ranks)."""
     import torch
 
     from blockbasedmotionestimation_tpu_torch.config import MotionConfig
-    from blockbasedmotionestimation_tpu_torch.models import engine
 
     from benchmark import gen, tracing
-    from benchmark.reference import flow as reference
 
+    entry = resolve_entry(cell.entry)
+    reference = reference_module(cell.reference)
+    kwargs = cell.entry_kwargs
+    if cell.mesh is not None:
+        from blockbasedmotionestimation_tpu_torch.parallel.tiled import Mesh
+
+        shape = cell.mesh["shape"]
+        kwargs["mesh"] = Mesh(shape, cell.mesh["axes"],
+                              ranks=np.arange(math.prod(shape)).reshape(shape))
+    lead = ranks is None or ranks.rank == 0
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     fields_cfg = motion_fields(cell.config)
@@ -175,6 +305,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
 
         _build.library()
     frames = gen.pool(tr, height, width, seed, dev)
+    if ranks is not None:  # every rank serves the frames rank 0 checks
+        ranks.broadcast(frames)
     host = frames.cpu().numpy() if host_inputs else None
     pool_bytes = 0 if host_inputs else frames.numel() * frames.element_size()
     if host_inputs:
@@ -191,8 +323,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     def request(k: int):
         im1, im2 = inputs(k)
         # host frames go to the card inside the entry, as a decoder's would
-        flow = engine.estimate_flow_driver_batched(
-            im1, im2, cfg, device=None if cuda or not host_inputs else dev)
+        flow = entry(im1, im2, cfg, device=None if cuda or not host_inputs else dev, **kwargs)
         if download:
             return flow.cpu()
         sync()
@@ -208,23 +339,33 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
 
         active = int(tr["trace_requests"])
         names = tracing.port_kernel_names(Path(port.__file__).parent)
-        context = {"fields": fields_cfg, "height": height, "width": width, "batch": batch}
+        context = {"fields": fields_cfg, "height": height, "width": width, "batch": batch,
+                   "ranks": 1 if ranks is None else ranks.world}
 
         def stretch(events, counted, request):
             return tracing.Stretch(events, active, active * batch, names, sum(counted.values()),
                                    context, request=request, counted_by=counted)
         tmp = tempfile.TemporaryDirectory(prefix="bench-trace-")
         tracer = tracing.Tracer(active, Path(tmp.name), stretch)
+    if ranks is not None:  # the window opens once every rank is warm
+        ranks.barrier()
     start = time.perf_counter()
     setup_s = start - t_start
     deadline = start + seconds
     done = start
     i = 0
+    stop = start_trace = False
+
+    def trace_due(t: float) -> bool:
+        return bool(tracer) and not tracer.started and (t - start >= 0.25 * seconds
+                                                        or t >= deadline)
     while True:
         t0 = time.perf_counter()
-        if t0 >= deadline and not (tracer and not tracer.done):
-            break
-        if tracer and not tracer.started and (t0 - start >= 0.25 * seconds or t0 >= deadline):
+        if ranks is None:
+            if t0 >= deadline and not (tracer and not tracer.done):
+                break
+            start_trace = trace_due(t0)
+        if start_trace:
             tracer.start()
             t0 = time.perf_counter()
         k = i % n_pool
@@ -233,30 +374,55 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
                 out = request(k)
         else:
             out = request(k)
+        if ranks is not None:  # every rank's flow is synchronised
+            now = time.perf_counter()
+            stop, start_trace = ranks.decide(now >= deadline, trace_due(now),
+                                             bool(tracer) and not tracer.done)
         done = time.perf_counter()
         latencies.append(done - t0)
-        sample.offer(k, out)
+        if lead:
+            sample.offer(k, out)
         del out
         i += 1
         if tracer and tracer.open:
             tracer.step()
+        if stop:
+            break
     window_s = done - start
     n_fields = i * batch
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     held = sum(math.ceil(f.numel() * f.element_size() / 512) * 512
                for _, _, f in sample.kept if f.is_cuda)
+    mem = (peak, pool_bytes, held)
+    st = None
+    if tracer:
+        st, spanned = tracer.device, tracer.spanned
+        tmp.cleanup()
+    if ranks is not None:
+        # the largest rank's peak, less its own pool and sample; the launch
+        # rule on every rank
+        states = ranks.gather((mem, st.launches_agree() if st else None,
+                               tracer.attempts if tracer else 0,
+                               tracer.disagreements if tracer else []))
+        mem = max((s[0] for s in states), key=lambda m: m[0])
+        if not lead:
+            del frames, host, sample
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            ranks.barrier()  # the program's state freed on every rank
+            return None
+    peak = mem[0]
 
     result_metrics: dict = {}
     breakdown = None
     busy = None
     if not trace:
         values = {"fields_per_s": n_fields / window_s, "latency_ms_p95": p95(latencies) * 1e3,
-                  "peak_mem_gb": (peak - pool_bytes - held) / 1e9, "setup_s": setup_s}
+                  "peak_mem_gb": (mem[0] - mem[1] - mem[2]) / 1e9, "setup_s": setup_s}
         for m in cell.end_to_end:
             result_metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     else:  # the loop ran until the traced requests were done
-        st, spanned = tracer.device, tracer.spanned
-        tmp.cleanup()
         breakdown = {"device_ops": st.breakdown()["device_ops"],
                      "idle_gaps": spanned.breakdown()["idle_gaps"]}
         busy = (st.busy_us * 1e-6, st.window_us * 1e-6)
@@ -270,27 +436,42 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
             print(f"spans: the program has no {tracer.spans.missing}", file=sys.stderr)
         for line in tracer.disagreements:
             print(line, file=sys.stderr)
-        if not st.launches_agree():
+        broke = [] if st.launches_agree() else [0]
+        for r, (_, agree, attempts, lines) in enumerate(states[1:] if ranks else [], 1):
+            for line in lines:
+                print(f"trace: rank {r}: {line.removeprefix('trace: ')}", file=sys.stderr)
+            if not agree:
+                broke.append(r)
+                print(f"trace: rank {r}: none of {attempts} device-alone stretches held as many "
+                      f"of the program's kernels as its wrappers counted", file=sys.stderr)
+        if broke == [0] and ranks is None:
             print(f"trace: none of {tracer.attempts} device-alone stretches held as many of the "
                   f"program's kernels as its wrappers counted: per-layer metrics not measured",
                   file=sys.stderr)
+        elif broke:
+            print(f"trace: ranks {broke} broke the launch rule in every device-alone stretch: "
+                  f"per-layer metrics not measured", file=sys.stderr)
         else:
             for m in cell.per_layer:
                 value = load_metric(m["name"])(st)
                 if value is not None:
                     result_metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
-    # the check, after the window and the peak: the program's state freed
+    # the check, after the window and the peak: the program's state freed,
+    # on every rank
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    if ranks is not None:
+        ranks.barrier()
+    devices = ranks.devices if ranks is not None else [dev]
     mismatched = checked = 0
     t_check = time.perf_counter()
     for k, j, flow in sorted(sample.kept, key=lambda s: (s[0], s[1])):
         im1, im2 = inputs(k)
         a = torch.as_tensor(im1[j:j + 1]).to(dev)
         b = torch.as_tensor(im2[j:j + 1]).to(dev)
-        want = reference.estimate(a, b, fields_cfg)
+        want = reference.estimate(a, b, fields_cfg, devices=devices)
         mismatched += reference.mismatched_pixels(flow[None].to(dev), want)
         checked += 1
         del want
@@ -308,7 +489,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     device_info = {
         "platform": "gpu" if cuda else "cpu",
         "kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
-        "count": 1,
+        "count": 1 if ranks is None else ranks.world,
         "memory_peak_bytes": peak,
     }
     if cuda:

@@ -508,10 +508,11 @@ def searched_level(im1, im2, pred, bs, ss, lam0, st: Settings, level: int, dtype
 
 
 def estimate(im1s: torch.Tensor, im2s: torch.Tensor, fields: dict,
-             energy_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+             energy_dtype: torch.dtype = torch.float32, devices=None) -> torch.Tensor:
     """(B, H, W, 2) float32 flow (u, v) of (B, H, W) uint8 frame pairs, as
     the reference driver returns it: upscaled, padded, estimated, every
-    f-th pixel of the unpadded field, divided by f."""
+    f-th pixel of the unpadded field, divided by f.  ``devices``, the
+    cell's cards, is not used: the whole field runs on the frames' device."""
     st = Settings(fields)
     if im1s.dtype != torch.uint8 or im1s.shape != im2s.shape or im1s.dim() != 3:
         raise ValueError(f"need two (B, H, W) uint8 batches, got {im1s.dtype} "

@@ -2,8 +2,9 @@
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Runs from the root of a checkout on a machine with an NVIDIA card.  The
-last line of standard output is one JSON object: ``correct``,
+Runs from the root of a checkout on a machine with an NVIDIA card; a cell
+whose ``chips`` is above 1 runs one process a card (``ranks.py``), and
+needs as many cards.  The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
 with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
 ``breakdown``, and last ``checks``, the numbers the check compared, each
@@ -19,7 +20,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -53,17 +53,25 @@ def main(argv: list[str] | None = None) -> int:
         print(f"the program is not beside the benchmark: {e}", file=sys.stderr)
         return 2
     cell = harness.load_cell(args.workload)
+    if cell.chips > 1:
+        if torch.cuda.device_count() < cell.chips:
+            print(f"{cell.name} needs {cell.chips} CUDA devices, this machine has "
+                  f"{torch.cuda.device_count()}", file=sys.stderr)
+            return 2
+        from blockbasedmotionestimation_tpu_torch.kernels import _build
+
+        from benchmark import ranks
+
+        _build.build()  # once, before the ranks load it
+        return ranks.launch(args.workload, args.seed, args.seconds, args.trace, cell.chips,
+                            "cuda", T_START)
     result, lines = harness.run(cell, args.seed, args.seconds, bool(args.trace), "cuda",
                                 T_START)
     foreign = harness.foreign_modules()
     if foreign:
         print(f"the run loaded JAX or the JAX package: {foreign}", file=sys.stderr)
         return 3
-    sys.stdout.flush()
-    for line in lines:
-        print(line, file=sys.stderr)
-    sys.stderr.flush()
-    print(json.dumps(result), flush=True)
+    harness.report(result, lines)
     return 0
 
 

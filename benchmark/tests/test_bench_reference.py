@@ -53,6 +53,18 @@ def test_reference_equals_the_programs_plain_path(over):
     assert torch.unique(want[..., 0]).numel() > 3  # the motion is not trivial
 
 
+def test_the_devices_argument_changes_no_bit():
+    """``devices`` (the cell's cards, handed by the harness) is accepted and
+    does not change the reference's flow."""
+    fields = harness.motion_fields(harness.load_cell("default-interp4-640x480.clip-b8").config)
+    fields.update(block_sizes=(8, 8), search_sizes=(16, 16), rival_radius=(2, None))
+    im1, im2 = _frames(24, 32, 7)
+    plain = reference.estimate(im1, im2, fields)
+    for devices in ([torch.device("cpu")], [torch.device("cpu")] * 4):
+        got = reference.estimate(im1, im2, fields, devices=devices)
+        assert torch.equal(got, plain) and reference.mismatched_pixels(got, plain) == 0
+
+
 @pytest.mark.parametrize("h,w,f", [(7, 9, 4), (24, 32, 4), (13, 5, 2), (30, 41, 3)])
 def test_upscale_equals_the_programs_resize(h, w, f):
     from blockbasedmotionestimation_tpu_torch.ops import resample
