@@ -18,13 +18,22 @@
 //     with every dy row, index dy*side_st + (dx - r + store_r) (the stored
 //     band the cur=2 colour step reads; the rest it recomputes).
 //
-// What bounds it.  B on the main path (store_r = 4) writes ~7 GB at the
-// 1080p level 0, B=8 (every delta at cur 4..32, the band at cur 2): 2.11 ms
-// of device-memory writes at full rate; but a parent adds only a 16/8/4/4-
-// byte run to each volume row at cur 4/8/16/32, so how the writes are laid
-// out, not their count, sets its time.  C and 13 write little (cur >= 8 or
-// cur = bs only); their ~13-23 G pixel diffs per launch bound them.  The
-// previous design (one block per (parent, dy), byte-wise diffs with runtime
+// What bounds it.  B's writes.  At the 1080p level 0, B=8, the band form
+// (store_r = 4: every delta at cur 4..32, the band at cur 2) writes ~7 GB,
+// 2.11 ms at full rate, and the dense form ~15.4 GB, 4.59 ms; a parent adds
+// a run of only 32/16/8/4/4 bytes to each volume row at cur 2/4/8/16/32, so
+// how the writes are laid out, not their count, sets the time.  Timed one
+// emit set at a time at the search-centred level 0 (2048x2560, B=8, dense,
+// CUDA events, PERF.md), the cur-2 volume alone took 12.88 ms for its 6.8 ms
+// of bytes while each lane stored its 32-byte run as two 16-byte pieces,
+// every store half-filling 16 sectors of 16 rows; stored by lane pairs
+// (below) it takes 9.93 ms, and the whole dense call 23.16 -> 19.02 ms
+// (1080p: dense 11.16 -> 9.28 ms, band 4.90 -> 4.96).  Staging the block's
+// runs through shared memory to store whole 128-byte lines cost two
+// barriers a delta between a group's warps and ran slower (cur 2 alone
+// 15.55 ms, dense 23.97).  C and 13 write little (cur >= 8 or cur = bs
+// only); their ~13-23 G pixel diffs per launch bound them.  The previous
+// design (one block per (parent, dy), byte-wise diffs with runtime
 // divisions, a shared-memory pass per pooled size) ran B at 31.75 ms and C
 // at 17.09 ms on the H100 (PERF.md): its diff pass, not its writes, bound it.
 //
@@ -58,13 +67,16 @@
 //     inputs are staged, but at bs = 128: its 64 sy lanes span two warps, so
 //     a thread takes one delta and the cur = 128 cell is pooled through 16
 //     bytes of shared memory, between two barriers;
-//   - stores: each lane writes its row run of cells as 16/8/4-byte vectors
-//     (the cur=2 row of a bs=32 parent is 32 bytes); offsets are 64-bit (the
-//     B=8 dense cur=2 volume has 5.7 G entries).
+//   - stores: each lane writes its row run of cells as 16/8/4-byte vectors;
+//     where a lane's cur=2 run is whole 32-byte sectors and a warp holds two
+//     parents (sad at bs 32, ssd at bs 16 and 32; paired_cur2), the lanes
+//     of parents 2j and 2j + 1 swap half their runs with shuffles, so that
+//     each 16-byte store fills whole sectors (store_pair_run, kernel 14's);
+//     offsets are 64-bit (the B=8 dense cur=2 volume has 5.7 G entries).
 //
 // ptxas (sm_90a, CUDA 12.9): every instance has 0 bytes of stack and no
-// spills; bs 32 uses 128 registers for B's loop (cur 2 written), 79 for C's
-// and 13's, 87 for ssd.  The bs-32 loop of C and 13 holds 64 VABSDIFF4 among
+// spills; bs 32 uses 126 registers for B's loop (cur 2 written), 79 for C's
+// and 13's, 127 for ssd.  The bs-32 loop of C and 13 holds 64 VABSDIFF4 among
 // 748 instructions, B's 64 VABSDIFF4 and 156 IDP among 1100 (PERF.md).
 //
 // Also here: kernel 14, compact_tables (replaces blockbasedmotionestimation_tpu/
@@ -282,6 +294,61 @@ __device__ __forceinline__ void store_run(void* base, size_t off, bool packed,
   }
 }
 
+// A parent's cur=2 run of N words (N % 8 == 0: an even number of 16-byte
+// pieces), stored together with the run after it, which the lane
+// `lane ^ lane_mask` holds: the pair's run starts at `pair_run` (the even
+// parent's, 32-byte aligned), the even lane writes its pieces 2i and the odd
+// lane its pieces 2i + 1, so each 16-byte store instruction fills whole
+// 32-byte sectors (a lane alone half-fills two).  Every lane of the warp
+// calls it; `both`: the pair stores (else the even lane stores alone).
+template <int N>
+__device__ __forceinline__ void store_pair_run(uint32_t* pair_run, const uint32_t (&wd)[N],
+                                               bool odd, bool active, bool both, int lane_mask) {
+  constexpr int NP = N / 4;  // pieces of one run
+  static_assert(N % 8 == 0, "an even number of 16-byte pieces");
+  // the even lane hands over its odd pieces 2t + 1, the odd lane its even
+  // pieces 2t (the pair's pieces NP + 2t)
+  uint32_t got[NP / 2][4];
+#pragma unroll
+  for (int t = 0; t < NP / 2; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      got[t][e] = __shfl_xor_sync(0xffffffffu, odd ? wd[8 * t + e] : wd[8 * t + 4 + e], lane_mask);
+    }
+  }
+  if (!active) return;
+  uint4* dst = reinterpret_cast<uint4*>(pair_run);
+  if (!both) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) dst[i] = make_uint4(wd[4 * i], wd[4 * i + 1], wd[4 * i + 2], wd[4 * i + 3]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    // the pair's piece 2i (even lane: its own below NP, else handed over)
+    // and 2i + 1 (odd lane: handed over below NP, else its own); every
+    // index a constant once unrolled, only the pick depends on the lane
+    uint32_t ve[4], vo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ve[e] = 2 * i < NP ? wd[4 * min(2 * i, NP - 1) + e] : got[max(0, (2 * i - NP) / 2)][e];
+      vo[e] = 2 * i + 1 < NP ? got[min(i, NP / 2 - 1)][e] : wd[4 * max(0, 2 * i + 1 - NP) + e];
+    }
+    dst[2 * i + odd] = odd ? make_uint4(vo[0], vo[1], vo[2], vo[3])
+                           : make_uint4(ve[0], ve[1], ve[2], ve[3]);
+  }
+}
+
+// Whether the lanes of a block's parents 2j and 2j + 1 store their cur=2
+// runs of a row together (store_pair_run): where a lane's run is a whole
+// number of 32-byte sectors (sad at bs 32, ssd at bs 16 and 32) and a warp
+// holds two parents' rows (bs <= 32), in blocks of pp > 1 parents.
+// kernels/cv_diff.py paired_curs mirrors it.
+template <int F2, int MODE>
+__host__ __device__ constexpr bool paired_cur2() {
+  return MODE != kSad4 && F2 <= 16 && F2 * (MODE == kSsd ? 4 : 2) % 32 == 0;
+}
+
 template <int BS, int MODE>
 __global__ void __launch_bounds__(kMaxThreads, BS >= 64 ? 1 : 2)
 pooled_cvs_kernel(const uint8_t* __restrict__ im1, const uint8_t* __restrict__ windows,
@@ -443,9 +510,29 @@ pooled_cvs_kernel(const uint8_t* __restrict__ im1, const uint8_t* __restrict__ w
       } else {
 #pragma unroll
         for (int q = 0; q < F2; ++q) v[q] = static_cast<int>(acc[i][q]);
-        if ((emit_mask & 1) && ok && dx >= lo && dx < lo + side_st) {
-          const size_t plane = static_cast<size_t>(b) * side * side_st +
-                               static_cast<size_t>(dy) * side_st + (dx - lo);
+        const bool st = (emit_mask & 1) && ok && dx >= lo && dx < lo + side_st;
+        const size_t plane = static_cast<size_t>(b) * side * side_st +
+                             static_cast<size_t>(dy) * side_st + (dx - lo);
+        bool own = st;
+        if constexpr (paired_cur2<F2, MODE>()) {
+          // a warp's lanes share its delta where pp > 1, so they all take
+          // the branch; a delta the band leaves out skips the exchange
+          if (pp > 1 && __any_sync(0xffffffffu, st)) {
+            constexpr int RUN = MODE == kSsd ? F2 : F2 / 2;  // words of a lane's run
+            uint32_t wd[RUN];
+#pragma unroll
+            for (int q = 0; q < RUN; ++q) {
+              wd[q] = MODE == kSsd ? static_cast<uint32_t>(v[q])
+                                   : __byte_perm(v[2 * q], v[2 * q + 1], 0x5410);
+            }
+            uint32_t* pair_run = reinterpret_cast<uint32_t*>(
+                static_cast<char*>(outs.p[0]) +
+                run_offset(plane, npy, npx, F2, py, sy, px - (pi & 1)) * (MODE == kSsd ? 4 : 2));
+            store_pair_run(pair_run, wd, (pi & 1) != 0, st, (pi | 1) < np_blk, F2);
+            own = false;
+          }
+        }
+        if (own) {
           store_cells(outs.p[0], run_offset(plane, npy, npx, F2, py, sy, px), v, F2,
                       MODE != kSsd);
         }
@@ -545,51 +632,6 @@ __host__ __device__ inline CompactLayout compact_layout(int f2, int ws, int pp) 
   if (f2 < 32) l.win_words += ((f2 - l.win_words) % 32 + 32) % 32;
   l.bytes = 4 * pp * l.win_words;
   return l;
-}
-
-// A parent's cur=2 run of N words (N % 8 == 0: an even number of 16-byte
-// pieces), stored together with the run after it, which the lane
-// `lane ^ lane_mask` holds: the pair's run starts at `pair_run` (the even
-// parent's, 32-byte aligned), the even lane writes its pieces 2i and the odd
-// lane its pieces 2i + 1, so each 16-byte store instruction fills whole
-// 32-byte sectors (a lane alone half-fills two).  Every lane of the warp
-// calls it; `both`: the pair stores (else the even lane stores alone).
-template <int N>
-__device__ __forceinline__ void store_pair_run(uint32_t* pair_run, const uint32_t (&wd)[N],
-                                               bool odd, bool active, bool both, int lane_mask) {
-  constexpr int NP = N / 4;  // pieces of one run
-  static_assert(N % 8 == 0, "an even number of 16-byte pieces");
-  // the even lane hands over its odd pieces 2t + 1, the odd lane its even
-  // pieces 2t (the pair's pieces NP + 2t)
-  uint32_t got[NP / 2][4];
-#pragma unroll
-  for (int t = 0; t < NP / 2; ++t) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      got[t][e] = __shfl_xor_sync(0xffffffffu, odd ? wd[8 * t + e] : wd[8 * t + 4 + e], lane_mask);
-    }
-  }
-  if (!active) return;
-  uint4* dst = reinterpret_cast<uint4*>(pair_run);
-  if (!both) {
-#pragma unroll
-    for (int i = 0; i < NP; ++i) dst[i] = make_uint4(wd[4 * i], wd[4 * i + 1], wd[4 * i + 2], wd[4 * i + 3]);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    // the pair's piece 2i (even lane: its own below NP, else handed over)
-    // and 2i + 1 (odd lane: handed over below NP, else its own); every
-    // index a constant once unrolled, only the pick depends on the lane
-    uint32_t ve[4], vo[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      ve[e] = 2 * i < NP ? wd[4 * min(2 * i, NP - 1) + e] : got[max(0, (2 * i - NP) / 2)][e];
-      vo[e] = 2 * i + 1 < NP ? got[min(i, NP / 2 - 1)][e] : wd[4 * max(0, 2 * i + 1 - NP) + e];
-    }
-    dst[2 * i + odd] = odd ? make_uint4(vo[0], vo[1], vo[2], vo[3])
-                           : make_uint4(ve[0], ve[1], ve[2], ve[3]);
-  }
 }
 
 // Kernel 14: one thread block per pp neighbouring parents of a row and

@@ -48,6 +48,7 @@ import torch
 from blockbasedmotionestimation_tpu_torch.kernels import _build
 from blockbasedmotionestimation_tpu_torch.kernels.sad_search import zero_mean_sad
 from blockbasedmotionestimation_tpu_torch.ops.compact import CHUNK
+from blockbasedmotionestimation_tpu_torch.utils import profiling
 
 
 def cv_dtype(cur: int, cost: str) -> torch.dtype:
@@ -279,6 +280,21 @@ def volume_geometry(bs: int, r: int, batch: int, npy: int, npx: int,
     return volume_launch(bs, r, batch, npy, npx, pp, -(-side // groups))
 
 
+def paired_curs(bs: int, cost: str, emit: Iterable[int], parents_per_block: int) -> list[int]:
+    """The sizes of ``emit`` whose runs lane pairs store together
+    (cv_diff.cu paired_cur2): [2] where a lane's cur=2 run of a parent row,
+    ``bs // 2`` cells, is a whole number of 32-byte sectors (sad at bs 32,
+    ssd at bs 16 and 32), a warp holds two parents' rows (bs <= 32) and a
+    block takes more than one parent; else none.  The lanes of parents 2j
+    and 2j + 1 then swap half their runs, so that each 16-byte store fills
+    whole sectors; alone, a lane half-fills two."""
+    f2 = bs // 2
+    if (2 in emit and f2 <= 16 and parents_per_block > 1
+            and f2 * cv_dtype(2, cost).itemsize % 32 == 0):
+        return [2]
+    return []
+
+
 # bbme_pooled_cvs(im1, windows, outs, ncur, is16_mask, emit_mask, batch, h, w,
 #                 bs, side, store_r, ssd, dy_per_cta, parents_per_cta, threads,
 #                 smem_bytes, stream)
@@ -331,6 +347,7 @@ def _launch(wrapper, im1, windows, bs, r, cost, store_r, emit) -> dict[int, torc
     is16 = sum(1 << i for i, c in enumerate(curs) if cv_dtype(c, cost) == torch.uint16)
     emit_mask = sum(1 << i for i, c in enumerate(curs) if c in out)
     geo = volume_geometry(bs, r, b, h // bs, w // bs, writes_fine=bool(emit_mask & 3))
+    paired = paired_curs(bs, cost, emit, geo.parents_per_block)
     with torch.cuda.device(im1.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _kernel()(
@@ -341,6 +358,8 @@ def _launch(wrapper, im1, windows, bs, r, cost, store_r, emit) -> dict[int, torc
         )
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1
+    for c, t in out.items():
+        profiling.volume_store("pairs" if c in paired else "lanes", t.nbytes)
     return out
 
 

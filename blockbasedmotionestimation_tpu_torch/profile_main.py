@@ -7,6 +7,7 @@
     python -m blockbasedmotionestimation_tpu_torch.profile_main --cv-compact 64 --no-rival
     python -m blockbasedmotionestimation_tpu_torch.profile_main --cost zsad
     python -m blockbasedmotionestimation_tpu_torch.profile_main --volume-launches
+    python -m blockbasedmotionestimation_tpu_torch.profile_main --volume-stores
     python -m blockbasedmotionestimation_tpu_torch.profile_main --sass
 
 Runs ``estimate_flow_batched`` with ``MotionConfig(interp_factor=1)`` (or
@@ -32,6 +33,14 @@ prints, beside the card's name and power limit:
 level-0 B=8 shapes (B with the band, C on the rival window, 13) at other
 launch geometries than ``kernels/cv_diff.volume_geometry``'s: 1, 2, 4 or 8
 parents a block with every delta row, and 1 parent at 3 or 1 rows.
+
+``--volume-stores`` instead times B (``pooled_cvs``, one launch) at the
+level-0 shapes of 640x480 frames upscaled 4x (B=8, 2048x2560, bs 32,
+r 16) one emit set at a time: every size, {2}, {4}, {8}, {16, 32}, {2, 4},
+{2, 8}, {2, 16, 32}, and the band (store_r 4), each beside the bytes it
+writes and the sizes lane pairs store (``cv_diff.paired_curs``): the
+sets with cur 2 share its diff loop, so their differences are the other
+sizes' stores.
 
 ``--sass`` instead prints the instructions of kernel 7's innermost loop
 (bs 32, sad and ssd: the loop over block rows, from a backward branch's
@@ -161,6 +170,30 @@ def _volume_launches(cfg, dev, card: str) -> None:
               + "; ".join(times) + f" ({card})")
 
 
+def _volume_stores(dev, card: str) -> None:
+    """--volume-stores: B one emit set at a time at the level-0 shapes of
+    640x480 frames upscaled 4x."""
+    from blockbasedmotionestimation_tpu_torch.kernels import cv_diff
+
+    b, h, w, bs, r = 8, 2048, 2560, 32, 16
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.integers(0, 256, size=(b, h, w), dtype=np.uint8), device=dev)
+    wins = torch.as_tensor(rng.integers(0, 256, size=(b, (h // bs) * (w // bs), bs + 2 * r,
+                                                      bs + 2 * r), dtype=np.uint8), device=dev)
+    for emit, store_r in ((None, None), ([2], None), ([4], None), ([8], None), ([16, 32], None),
+                          ([2, 4], None), ([2, 8], None), ([2, 16, 32], None), (None, 4)):
+        out = cv_diff.pooled_cvs(frames, wins, bs, r, "sad", store_r=store_r, emit=emit)
+        pp = cv_diff.volume_geometry(bs, r, b, h // bs, w // bs,
+                                     bool({2, 4} & set(out))).parents_per_block
+        gb = sum(t.nbytes for t in out.values()) / 1e9
+        del out
+        ms = _cuda_ms(lambda: cv_diff.pooled_cvs(frames, wins, bs, r, "sad", store_r=store_r,
+                                                 emit=emit), reps=5)
+        print(f"[stores] emit {emit or 'all'}, store_r {store_r}: {ms:.4f} ms, {gb:.3f} GB "
+              f"written ({gb / 3.35:.4f} ms at 3.35 TB/s), {pp} parents a block, pairs store "
+              f"{cv_diff.paired_curs(bs, 'sad', emit or cv_diff._curs(bs), pp)} ({card})")
+
+
 def _sass_loops() -> None:
     """--sass: kernel 7's innermost loop (bs 32) by opcode, from cuobjdump;
     functions are matched on their names demangled by cu++filt.  Raises if
@@ -215,6 +248,7 @@ def main(argv=None) -> int:
     ap.add_argument("--no-rival", action="store_true")
     ap.add_argument("--cost", default="sad", choices=["sad", "ssd", "zsad"])
     ap.add_argument("--volume-launches", action="store_true")
+    ap.add_argument("--volume-stores", action="store_true")
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -235,6 +269,9 @@ def main(argv=None) -> int:
     im2 = torch.as_tensor(noise[:, SHIFT_Y:SHIFT_Y + H, SHIFT_X:SHIFT_X + W].copy(), device=dev)
     if args.volume_launches:
         _volume_launches(cfg, dev, card)
+        return 0
+    if args.volume_stores:
+        _volume_stores(dev, card)
         return 0
     if args.sass:
         _sass_loops()

@@ -73,6 +73,7 @@ class _Counts:
         self.volume_bytes_by_form: dict[str, int] = {}
         self.rounds_by_form: dict[str, int] = {}
         self.resample_by_route: dict[str, int] = {}
+        self.volume_store_bytes_by_path: dict[str, int] = {}
 
 
 _COUNTS = _Counts()
@@ -92,14 +93,17 @@ def counters() -> dict:
     site's syncs), ``volume_bytes`` and ``volume_bytes_by_form`` (form ->
     bytes of the cost volumes allocated), ``rounds_by_form`` (form ->
     rounds run), ``resample_by_route`` (route -> calls of the upscale and
-    of each pyrDown).  Counts only grow; a reader takes differences."""
+    of each pyrDown), ``volume_store_bytes_by_path`` (store path -> bytes
+    of the volumes the volume kernel wrote).  Counts only grow; a reader
+    takes differences."""
     c = _COUNTS
     return {"requests": c.requests, "fields": c.fields, "host_ns": c.host_ns,
             "syncs": c.syncs, "sync_ns": c.sync_ns, "syncs_by_site": dict(c.by_site),
             "table_hits": c.table_hits, "table_hits_by_site": dict(c.hits_by_site),
             "volume_bytes": c.volume_bytes, "volume_bytes_by_form": dict(c.volume_bytes_by_form),
             "rounds_by_form": dict(c.rounds_by_form),
-            "resample_by_route": dict(c.resample_by_route)}
+            "resample_by_route": dict(c.resample_by_route),
+            "volume_store_bytes_by_path": dict(c.volume_store_bytes_by_path)}
 
 
 def spans(on: bool) -> bool:
@@ -198,6 +202,16 @@ def resample_route(route: str) -> None:
     route it took: ``kernel`` (a CUDA tensor) or ``plain`` (a CPU tensor)."""
     by = _COUNTS.resample_by_route
     by[route] = by.get(route, 0) + 1
+
+
+def volume_store(path: str, nbytes: int) -> None:
+    """Count the ``nbytes`` of one volume a launch of the volume kernel
+    (``kernels.cv_diff``: B, C, 13) wrote, by its store path: ``pairs``
+    (lane pairs store their runs together, whole sectors a store:
+    ``cv_diff.paired_curs``) or ``lanes`` (each lane its own run).  From
+    shapes, no sync; the plain versions count nothing."""
+    by = _COUNTS.volume_store_bytes_by_path
+    by[path] = by.get(path, 0) + nbytes
 
 
 def host_read(tensor: torch.Tensor, site: str) -> torch.Tensor:

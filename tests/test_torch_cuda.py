@@ -16,6 +16,7 @@ from blockbasedmotionestimation_tpu_torch.kernels import cv_diff, gather, rounds
 from blockbasedmotionestimation_tpu_torch.models import engine
 from blockbasedmotionestimation_tpu_torch.ops.regularize import Strips, on_strips
 from blockbasedmotionestimation_tpu_torch.ops.spiral import spiral_extent
+from blockbasedmotionestimation_tpu_torch.utils import profiling
 
 
 @pytest.fixture
@@ -95,24 +96,52 @@ def test_cuda_gather_equals_plain(cuda, bs, ext):
         assert torch.equal(got, gather.gather_windows_plain(im2, by, bx, bs, ext)), (w, off)
 
 
+def _forced_volume_launches():
+    """(bs, r, parents a block) of the volume test's forced launches: 1, 2,
+    4 and 8 parents a block at r 3 and 16, where 256 threads and the shared
+    memory hold them (one delta row a block at least)."""
+    return [(bs, r, pp) for bs in (2, 4, 8, 16, 32, 64, 128) for r in (3, 16)
+            for pp in (1, 2, 4, 8) if pp * max(1, bs // 2) <= cv_diff.MAX_THREADS
+            and cv_diff.volume_smem(bs, r, 1, pp) <= cv_diff.SMEM_LIMIT]
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("r", [0, 1, 3, 12, 16])
-@pytest.mark.parametrize("bs", [2, 4, 8, 16, 32, 64, 128])
-def test_cuda_volume_kernel_equals_plain(cuda, bs, r):
+@pytest.mark.parametrize(
+    "bs,r,pp",
+    [(bs, r, None) for bs in (2, 4, 8, 16, 32, 64, 128) for r in (0, 1, 3, 12, 16)]
+    + _forced_volume_launches())
+def test_cuda_volume_kernel_equals_plain(cuda, monkeypatch, bs, r, pp):
     # B, C and 13 (one kernel, templated on bs) against pooled_cvs_plain:
     # sad and ssd, the band at store_r 0 and 4 and none, the emit sets of B
-    # (every size), C (deep_curs) and 13 (cur = bs); 8x10 parents a frame,
-    # so B's blocks of 4 parents leave a ragged last block in each row, and
-    # at B=3, r >= 12 C's delta rows split into groups with a short last one
-    # (bs 128: one parent a block, 4x5 parents a frame)
-    rng = np.random.default_rng(100 * bs + r)
-    npy, npx, wc = (4, 5, bs + 2 * r) if bs >= 128 else (8, 10, bs + 2 * r)
+    # (every size), C (deep_curs) and 13 (cur = bs).  At the launch policy
+    # (pp None): 8x10 parents a frame, so B's blocks of 4 parents leave a
+    # ragged last block in each row, and at B=3, r >= 12 C's delta rows split
+    # into groups with a short last one (bs 128: one parent a block, 4x5
+    # parents a frame).  Forced to pp parents a block (volume_launch, every
+    # delta row or the most that fit the shared memory): 3x7 parents a
+    # frame, an odd count, so every pp > 1 leaves a ragged last block, and
+    # rows of cur 8 at bs 32 that are not 16-byte aligned.  Each launch
+    # counts one launch and its volumes' bytes by store path
+    # (``volume_store_bytes_by_path``: cur 2 under ``pairs`` where
+    # ``paired_curs`` says so)
+    rng = np.random.default_rng(100 * bs + r + (pp or 0))
+    if pp is None:
+        npy, npx = (4, 5) if bs >= 128 else (8, 10)
+    else:
+        npy, npx = 3, 7
+        side = 2 * r + 1
+        dy = max(d for d in range(1, side + 1)
+                 if cv_diff.volume_smem(bs, r, d, pp) <= cv_diff.SMEM_LIMIT)
+        monkeypatch.setattr(cv_diff, "volume_geometry",
+                            lambda bs_, r_, b_, y_, x_, writes_fine: cv_diff.volume_launch(
+                                bs_, r_, b_, y_, x_, pp, dy))
+    wc = bs + 2 * r
     emits = {"B": None, "C": cv_diff.deep_curs(bs, min(16, bs // 2)), "13": [bs]}
     for b in (1, 3):
-        if 8 <= bs <= 64:
-            assert cv_diff.volume_geometry(bs, r, b, npy, npx, True).parents_per_block == 4
         geo = cv_diff.volume_geometry(bs, r, b, npy, npx, False)
-        if b == 3 and r >= 12:
+        if pp is None and 8 <= bs <= 64:
+            assert cv_diff.volume_geometry(bs, r, b, npy, npx, True).parents_per_block == 4
+        if pp is None and b == 3 and r >= 12:
             assert geo.groups * geo.dy_per_block > 2 * r + 1, geo
         im1 = torch.as_tensor(rng.integers(0, 256, size=(b, npy * bs, npx * bs), dtype=np.uint8),
                               device=cuda)
@@ -124,14 +153,54 @@ def test_cuda_volume_kernel_equals_plain(cuda, bs, r):
                     if store_r is not None and (what != "B" or store_r > r):
                         continue
                     before = cv_diff.pooled_cvs.launches
+                    c0 = profiling.counters()["volume_store_bytes_by_path"]
                     k = cv_diff.pooled_cvs(im1, win, bs, r, cost, store_r=store_r, emit=emit)
                     assert cv_diff.pooled_cvs.launches == before + 1
+                    c1 = profiling.counters()["volume_store_bytes_by_path"]
+                    pp_k = cv_diff.volume_geometry(bs, r, b, npy, npx,
+                                                   bool({2, 4} & set(k))).parents_per_block
+                    paired = cv_diff.paired_curs(bs, cost, list(k), pp_k)
+                    got = {path: c1.get(path, 0) - c0.get(path, 0) for path in ("pairs", "lanes")}
+                    assert got == {"pairs": sum(k[c].nbytes for c in paired),
+                                   "lanes": sum(k[c].nbytes for c in k if c not in paired)}
                     p = cv_diff.pooled_cvs_plain(im1, win, bs, r, cost, store_r=store_r, emit=emit)
                     assert sorted(k) == sorted(p)
                     for cur in k:
                         assert k[cur].dtype == p[cur].dtype and k[cur].shape == p[cur].shape
                         assert torch.equal(k[cur].to(torch.int32), p[cur].to(torch.int32)), (
                             b, cost, what, store_r, cur)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("override,frame,share", [
+    # search-centred: every volume is B's, dense; cur 2 is 128 of every 171
+    # bytes (cur 2-32: 1/2 + 1/8 + 1/32 + 1/128 + 1/256 of a plane's pixels)
+    (dict(window_center="search"), (480, 640), (128 / 171, 128 / 171)),
+    # default: B's cur-2 band (9 of 33 dx) and C's rival volumes (cur 16,
+    # 32) keep each lane's stores
+    (dict(), (480, 640), (0.35, 0.5)),
+    # fused4: C alone
+    (dict(cv_fused=4), (1080, 1920), (0.0, 0.0)),
+])
+def test_cuda_volume_store_paths_of_the_cells(cuda, override, frame, share):
+    # a warmed request of each benchmark cell's configuration on one pair of
+    # its frame size: every volume it stores is counted once by store path
+    # (``volume_store_bytes_by_path``), and lane pairs store the share of the
+    # bytes that ``paired_curs`` gives
+    cfg = MotionConfig(**override)
+    rng = np.random.default_rng(5)
+    im1 = rng.integers(0, 256, size=(1, *frame), dtype=np.uint8)
+    a = torch.as_tensor(im1, device=cuda)
+    b = torch.as_tensor(np.roll(im1, (3, -5), axis=(1, 2)), device=cuda)
+    engine.estimate_flow_driver_batched(a, b, cfg)
+    c0 = profiling.counters()
+    engine.estimate_flow_driver_batched(a, b, cfg)
+    c1 = profiling.counters()
+    got = {k: c1["volume_store_bytes_by_path"].get(k, 0) - c0["volume_store_bytes_by_path"].get(k, 0)
+           for k in ("pairs", "lanes")}
+    assert got["lanes"] > 0
+    assert got["pairs"] + got["lanes"] == c1["volume_bytes"] - c0["volume_bytes"]
+    assert share[0] - 1e-9 <= got["pairs"] / (got["pairs"] + got["lanes"]) <= share[1] + 1e-9, got
 
 
 @pytest.mark.requires_cuda
