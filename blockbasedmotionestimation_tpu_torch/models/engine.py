@@ -250,6 +250,24 @@ def estimate_flow(im1, im2, cfg: MotionConfig, device=None) -> tuple[torch.Tenso
     return flow[0], p
 
 
+def upscale(a: torch.Tensor, b: torch.Tensor, f: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The driver's first step: both (B, H, W) frames upsampled by ``f``."""
+    if f == 1:
+        return a, b
+    with profiling.span("upscale"):
+        return resample.resize_scale_u8(a, f), resample.resize_scale_u8(b, f)
+
+
+def subsample(flow: torch.Tensor, p: pad_ops.Padding, f: int) -> torch.Tensor:
+    """The driver's last step: every ``f``-th pixel of the unpadded part of
+    the (B, H', W', 2) padded flow, its MVs divided by ``f``."""
+    with profiling.span("subsample"):
+        sub = flow[:, p.pad_y : p.padded_h - p.pad_y : f, p.pad_x : p.padded_w - p.pad_x : f]
+        # a tensor divisor: CUDA turns division by a Python scalar into a
+        # multiply by its reciprocal, which rounds differently for odd f
+        return sub / torch.full_like(sub, float(f))
+
+
 @profiling.entry
 def estimate_flow_driver_batched(im1s, im2s, cfg: MotionConfig, device=None) -> torch.Tensor:
     """The reference driver on (B, H, W) pairs: upsample by interp_factor,
@@ -257,17 +275,9 @@ def estimate_flow_driver_batched(im1s, im2s, cfg: MotionConfig, device=None) -> 
     (B, H, W, 2) f32 flow at the original resolution."""
     a = _as_frames(im1s, device, 3)
     b = _as_frames(im2s, a.device, 3)
-    f = cfg.interp_factor
-    if f > 1:
-        with profiling.span("upscale"):
-            a = resample.resize_scale_u8(a, f)
-            b = resample.resize_scale_u8(b, f)
+    a, b = upscale(a, b, cfg.interp_factor)
     flow, p = estimate_flow_batched(a, b, cfg)
-    with profiling.span("subsample"):
-        sub = flow[:, p.pad_y : p.padded_h - p.pad_y : f, p.pad_x : p.padded_w - p.pad_x : f]
-        # a tensor divisor: CUDA turns division by a Python scalar into a
-        # multiply by its reciprocal, which rounds differently for odd f
-        return sub / torch.full_like(sub, float(f))
+    return subsample(flow, p, cfg.interp_factor)
 
 
 @profiling.entry

@@ -250,18 +250,33 @@ class _Tiles:
     ``axis`` (0: rows, the north / south neighbours; 1: columns, west /
     east) each tile's first part sent to the tile before it and its last
     part to the tile after it, the neighbours' received, zeros at the mesh
-    edge; and ``_edges(axis, n, device)`` -> ((n,) bool, (n,) bool): the
-    tiles at the frame's first / last rows (columns)."""
+    edge; ``_sent(axis, first, last)``: the bytes this process sends in
+    that swap; and ``_edges(axis, n, device)`` -> ((n,) bool, (n,) bool):
+    the tiles at the frame's first / last rows (columns).
+
+    Each swap along an axis of more than one tile is one exchange of its
+    kind (``utils.profiling.exchanged``, in the span ``mf.exchange``):
+    ``halo`` (``exchange_rows``, ``exchange_cols``), ``ghost``
+    (``cell_exchange``, ``cell_exchange_2d``), ``rival`` (the
+    edge-replicated forms, ``rival_extend``); each all-gather of a join one
+    of ``join`` (in the span ``mf.join``)."""
 
     ty: int
     tx: int
+
+    def _exchange(self, kind: str, axis: int, first: torch.Tensor, last: torch.Tensor):
+        """``_swap``, counted as one exchange of ``kind``."""
+        if (self.ty, self.tx)[axis] > 1:
+            profiling.exchanged(kind, self._sent(axis, first, last))
+        with profiling.span("exchange", kind=kind):
+            return self._swap(axis, first, last)
 
     def exchange_rows(self, x: torch.Tensor, halo: int) -> torch.Tensor:
         """x with ``halo`` rows of its north and south neighbours
         (zeros at the frame's edges)."""
         if halo == 0:
             return x
-        north, south = self._swap(0, x[:, :halo], x[:, -halo:])
+        north, south = self._exchange("halo", 0, x[:, :halo], x[:, -halo:])
         return torch.cat([north, x, south], dim=1)
 
     def exchange_cols(self, x: torch.Tensor, halo: int) -> torch.Tensor:
@@ -270,13 +285,13 @@ class _Tiles:
         the diagonal neighbours' corners."""
         if halo == 0:
             return x
-        west, east = self._swap(1, x[:, :, :halo], x[:, :, -halo:])
+        west, east = self._exchange("halo", 1, x[:, :, :halo], x[:, :, -halo:])
         return torch.cat([west, x, east], dim=2)
 
     def _exchange_edge(self, x: torch.Tensor, axis: int) -> torch.Tensor:
         d = axis + 1
         lo, hi = x.narrow(d, 0, 1), x.narrow(d, x.shape[d] - 1, 1)
-        before, after = self._swap(axis, lo, hi)
+        before, after = self._exchange("rival", axis, lo, hi)
         first, last = self._edges(axis, x.shape[0], x.device)
         shape = (-1,) + (1,) * (x.dim() - 1)
         before = torch.where(first.reshape(shape), lo, before)
@@ -297,7 +312,7 @@ class _Tiles:
         """The ghost rows before a colour step: each strip's first row (top)
         sent north and last row (bottom) sent south; returns (from north,
         from south), zeros at the frame's edges."""
-        north, south = self._swap(0, top[:, None], bottom[:, None])
+        north, south = self._exchange("ghost", 0, top[:, None], bottom[:, None])
         return north[:, 0], south[:, 0]
 
     def cell_exchange_2d(self, top: torch.Tensor, bottom: torch.Tensor, west: torch.Tensor,
@@ -313,7 +328,8 @@ class _Tiles:
         north, south = self.cell_exchange(top, bottom)
         west_mine = torch.cat([north[:, :1], west, south[:, :1]], dim=1)
         east_mine = torch.cat([north[:, -1:], east, south[:, -1:]], dim=1)
-        from_west, from_east = self._swap(1, west_mine[:, None], east_mine[:, None])
+        from_west, from_east = self._exchange("ghost", 1, west_mine[:, None],
+                                              east_mine[:, None])
         return north, south, from_west[:, 0], from_east[:, 0]
 
     def ghost_cells(self, grid: torch.Tensor):
@@ -347,11 +363,18 @@ class LocalTiles(_Tiles):
         return t.reshape(b * ty * tx, h // ty, w // tx, *x.shape[3:])
 
     def join(self, x: torch.Tensor) -> torch.Tensor:
-        """(B * ty * tx, h, w, ...) tiles -> (B, ty * h, tx * w, ...) frames."""
+        """(B * ty * tx, h, w, ...) tiles -> (B, ty * h, tx * w, ...) frames,
+        counted as the processes of a (ty, tx) mesh join them: each tile
+        sent to the others of its column line, then each row of whole width
+        to the others of its row line."""
         n, h, w = x.shape[:3]
         ty, tx = self.ty, self.tx
-        t = x.reshape(n // (ty * tx), ty, tx, h, w, *x.shape[3:]).transpose(2, 3)
-        return t.reshape(n // (ty * tx), ty * h, tx * w, *x.shape[3:])
+        with profiling.span("join"):
+            for tiles, sent in ((tx, x.nbytes), (ty, x.nbytes * tx)):
+                if tiles > 1:
+                    profiling.exchanged("join", sent * (tiles - 1))
+            t = x.reshape(n // (ty * tx), ty, tx, h, w, *x.shape[3:]).transpose(2, 3)
+            return t.reshape(n // (ty * tx), ty * h, tx * w, *x.shape[3:])
 
     def _index(self, axis: int, n: int, device) -> torch.Tensor:
         k = torch.arange(n, device=device)
@@ -366,6 +389,11 @@ class LocalTiles(_Tiles):
     def _edges(self, axis, n, device):
         k = self._index(axis, n, device)
         return k == 0, k == (self.ty, self.tx)[axis] - 1
+
+    def _sent(self, axis, first, last):
+        # every tile but the mesh edge's sends its first (last) part
+        k = (self.ty, self.tx)[axis]
+        return (first.nbytes + last.nbytes) * (k - 1) // k
 
     def _swap(self, axis, first, last):
         ty, tx = self.ty, self.tx
@@ -407,14 +435,16 @@ class DistTiles(_Tiles):
         return x[:, i * ht:(i + 1) * ht, j * wt:(j + 1) * wt].contiguous()
 
     def join(self, x: torch.Tensor) -> torch.Tensor:
-        for d in (2, 1):  # the column line first, then the rows of whole width
-            ln = self.lines[d - 1]
-            if ln["tiles"] == 1:
-                continue
-            parts = [torch.empty_like(x) for _ in range(ln["tiles"])]
-            torch.distributed.all_gather(parts, _checked(x.contiguous()), group=ln["group"])
-            x = torch.cat(parts, dim=d)
-        return x
+        with profiling.span("join"):
+            for d in (2, 1):  # the column line first, then the rows of whole width
+                ln = self.lines[d - 1]
+                if ln["tiles"] == 1:
+                    continue
+                profiling.exchanged("join", x.nbytes * (ln["tiles"] - 1))
+                parts = [torch.empty_like(x) for _ in range(ln["tiles"])]
+                torch.distributed.all_gather(parts, _checked(x.contiguous()), group=ln["group"])
+                x = torch.cat(parts, dim=d)
+            return x
 
     def row0(self, n: int, ht: int, device) -> torch.Tensor:
         return torch.full((n,), self.lines[0]["index"] * ht, dtype=torch.int32, device=device)
@@ -426,6 +456,11 @@ class DistTiles(_Tiles):
         ln = self.lines[axis]
         return (torch.full((n,), ln["prev"] is None, device=device),
                 torch.full((n,), ln["next"] is None, device=device))
+
+    def _sent(self, axis, first, last):
+        ln = self.lines[axis]
+        return ((first.nbytes if ln["prev"] is not None else 0)
+                + (last.nbytes if ln["next"] is not None else 0))
 
     def _swap(self, axis, first, last):
         dist = torch.distributed
@@ -527,6 +562,7 @@ def _levels(im1s: torch.Tensor, im2s: torch.Tensor, cfg: MotionConfig, tiles: _T
             cols_ok = (tiles.tx > 1 and _level_shardable(w, h, bs, tiles.tx)
                        and halo < w // tiles.tx)
             by = tiles if rows_ok and cols_ok else rows if rows_ok else None
+            profiling.tiled_level("whole" if by is None else "tiles" if by.tx > 1 else "strips")
             if by is not None:
                 grid = _tiled_level(by.split(im1), by.split(im2), by.split(pred), bs, ss, cfg,
                                     level, h, w, halo, by)
@@ -539,12 +575,17 @@ def _levels(im1s: torch.Tensor, im2s: torch.Tensor, cfg: MotionConfig, tiles: _T
 
 def _gather_batch(x: torch.Tensor, mesh: Mesh, batch_axis: str | None) -> torch.Tensor:
     """The (B, ...) result of every batch chunk, from the first process of
-    each chunk, on every process."""
-    dist = torch.distributed
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, _checked(x.contiguous()))
+    each chunk, on every process (one exchange of kind ``batch``); ``x``
+    itself, with no collective, where the batch is not split
+    (``batch_axis`` None: every process holds the whole batch)."""
     if batch_axis is None:
         return x
+    dist = torch.distributed
+    world = dist.get_world_size()
+    profiling.exchanged("batch", x.nbytes * (world - 1))
+    with profiling.span("exchange", kind="batch"):
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, _checked(x.contiguous()))
     k = mesh.axis_names.index(batch_axis)
     firsts = np.moveaxis(mesh.ranks, k, 0).reshape(mesh.ranks.shape[k], -1)[:, 0]
     return torch.cat([parts[r] for r in firsts.tolist()], dim=0)
@@ -625,6 +666,29 @@ def estimate_flow_batch(im1s, im2s, cfg: MotionConfig, mesh: Mesh,
     flow = engine.estimate_flow_driver_batched(a[bi * chunk:(bi + 1) * chunk],
                                                b[bi * chunk:(bi + 1) * chunk], cfg)
     return _gather_batch(flow, mesh, batch_axis)
+
+
+@profiling.entry
+def estimate_flow_driver_tiled(im1s, im2s, cfg: MotionConfig, mesh: Mesh, axis: str = "ty",
+                               axis_x: str | None = None, device=None) -> torch.Tensor:
+    """The reference driver on (B, H, W) u8 pairs through the tiled engine,
+    the counterpart of ``engine.estimate_flow_driver_batched``: upscale by
+    ``interp_factor``, pad with ``row_tiles`` = the mesh's row axis, rows
+    over ``axis`` and columns over ``axis_x`` (None: row tiling), every
+    process on the whole batch, then every f-th pixel of the unpadded field
+    divided by f.  The configuration
+    is run as given (no ``mv_cap`` is derived): a level whose halo does not
+    fit its tiles runs whole-frame.  Returns (B, H, W, 2) f32 flow at the
+    original resolution on every process."""
+    a = engine._as_frames(im1s, device, 3)
+    b = engine._as_frames(im2s, a.device, 3)
+    a, b = engine.upscale(a, b, cfg.interp_factor)
+    with profiling.span("pad"):
+        p = pad_ops.compute_padding(a.shape[1], a.shape[2], cfg, row_tiles=mesh.shape[axis])
+        a, b = pad_ops.pad_frame(a, p), pad_ops.pad_frame(b, p)
+    flow = _run(a, b, cfg, mesh, axis, axis_x, None, None,
+                "engine.estimate_flow_driver_batched")
+    return engine.subsample(flow, p, cfg.interp_factor)
 
 
 @profiling.entry

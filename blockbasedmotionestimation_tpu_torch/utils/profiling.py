@@ -16,7 +16,10 @@ the program's own spans and counters:
     no sync), and every round of the rounds loop by its wrapper's form
     (``round_done``), and every call of the upscale and of each pyrDown by
     the route its wrapper took (``resample_route``: ``kernel`` or
-    ``plain``).
+    ``plain``).  On tiles (``parallel.tiled``): every exchange between
+    tiles and the bytes this process sends in it, by kind
+    (``exchanged``), and every level by the form it ran in
+    (``tiled_level``).
     Counted on every device, CPU included;
   * ``table`` - constant host tables (indices, ranks, coefficients that
     depend on shapes and the configuration alone) kept on the device: the
@@ -74,6 +77,10 @@ class _Counts:
         self.rounds_by_form: dict[str, int] = {}
         self.resample_by_route: dict[str, int] = {}
         self.volume_store_bytes_by_path: dict[str, int] = {}
+        self.exchanges_by_kind: dict[str, int] = {}
+        self.exchange_bytes_by_kind: dict[str, int] = {}
+        self.exchange_bytes = 0
+        self.tiled_levels_by_form: dict[str, int] = {}
 
 
 _COUNTS = _Counts()
@@ -94,8 +101,11 @@ def counters() -> dict:
     bytes of the cost volumes allocated), ``rounds_by_form`` (form ->
     rounds run), ``resample_by_route`` (route -> calls of the upscale and
     of each pyrDown), ``volume_store_bytes_by_path`` (store path -> bytes
-    of the volumes the volume kernel wrote).  Counts only grow; a reader
-    takes differences."""
+    of the volumes the volume kernel wrote), ``exchanges_by_kind``,
+    ``exchange_bytes_by_kind`` and their sum ``exchange_bytes`` (kind ->
+    exchanges between tiles and the bytes this process sent in them),
+    ``tiled_levels_by_form`` (form -> levels of the tiled engine).  Counts
+    only grow; a reader takes differences."""
     c = _COUNTS
     return {"requests": c.requests, "fields": c.fields, "host_ns": c.host_ns,
             "syncs": c.syncs, "sync_ns": c.sync_ns, "syncs_by_site": dict(c.by_site),
@@ -103,7 +113,11 @@ def counters() -> dict:
             "volume_bytes": c.volume_bytes, "volume_bytes_by_form": dict(c.volume_bytes_by_form),
             "rounds_by_form": dict(c.rounds_by_form),
             "resample_by_route": dict(c.resample_by_route),
-            "volume_store_bytes_by_path": dict(c.volume_store_bytes_by_path)}
+            "volume_store_bytes_by_path": dict(c.volume_store_bytes_by_path),
+            "exchanges_by_kind": dict(c.exchanges_by_kind),
+            "exchange_bytes_by_kind": dict(c.exchange_bytes_by_kind),
+            "exchange_bytes": c.exchange_bytes,
+            "tiled_levels_by_form": dict(c.tiled_levels_by_form)}
 
 
 def spans(on: bool) -> bool:
@@ -212,6 +226,29 @@ def volume_store(path: str, nbytes: int) -> None:
     shapes, no sync; the plain versions count nothing."""
     by = _COUNTS.volume_store_bytes_by_path
     by[path] = by.get(path, 0) + nbytes
+
+
+def exchanged(kind: str, nbytes: int) -> None:
+    """Count one exchange between tiles (``parallel.tiled``: a swap with
+    the neighbours along one axis, or an all-gather) and the ``nbytes``
+    this process sends in it, by kind: ``halo`` (frame-2 rows and columns
+    for the windows), ``ghost`` (the grid's edge cells before a colour
+    step), ``rival`` (the search winners' ring), ``join`` (a level's tiles
+    gathered into frames) or ``batch`` (the batch chunks gathered).  From
+    shapes, no sync; the in-process transport counts what its tiles send
+    one another."""
+    c = _COUNTS
+    c.exchanges_by_kind[kind] = c.exchanges_by_kind.get(kind, 0) + 1
+    c.exchange_bytes_by_kind[kind] = c.exchange_bytes_by_kind.get(kind, 0) + nbytes
+    c.exchange_bytes += nbytes
+
+
+def tiled_level(form: str) -> None:
+    """Count one level of the tiled engine by the form it ran in:
+    ``tiles`` (2-D tiles), ``strips`` (row strips) or ``whole`` (the whole
+    frame on every tile)."""
+    by = _COUNTS.tiled_levels_by_form
+    by[form] = by.get(form, 0) + 1
 
 
 def host_read(tensor: torch.Tensor, site: str) -> torch.Tensor:

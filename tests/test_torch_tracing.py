@@ -218,6 +218,8 @@ ENTRIES = {
         a, b, cfg, tiled.Mesh((1, 1)), device="cpu"), 2),
     "tiled.estimate_flow_tiled_auto": (lambda cfg, a, b: tiled.estimate_flow_tiled_auto(
         a[0], b[0], cfg, tiled.Mesh((1, 2)), device="cpu"), 1),
+    "tiled.estimate_flow_driver_tiled": (lambda cfg, a, b: tiled.estimate_flow_driver_tiled(
+        a, b, cfg, tiled.Mesh((2, 2), ("ty", "tx")), axis_x="tx", device="cpu"), 2),
 }
 
 
@@ -329,6 +331,87 @@ def test_trace_turns_spans_on_and_restores_them(tmp_path, cold_tables):
         assert profiling.span("driver") is not profiling.span("level")
     finally:
         profiling.spans(prev)
+
+
+TILED = ("exchanges_by_kind", "exchange_bytes_by_kind", "tiled_levels_by_form")
+# two levels of 8 px blocks that tile 2 x 2 at 16x24 frames (64x96 upscaled)
+TWO_LEVELS = dict(block_sizes=(8, 8), search_sizes=(16, 16), rival_radius=(2, None))
+
+
+def _tiled_counts(c0: dict, c1: dict) -> dict:
+    out = {k: {x: v - c0[k].get(x, 0) for x, v in c1[k].items() if v != c0[k].get(x, 0)}
+           for k in TILED}
+    out["exchange_bytes"] = c1["exchange_bytes"] - c0["exchange_bytes"]
+    return out
+
+
+def test_tiles_count_each_exchange_and_level_in_its_span(tmp_path):
+    """A request of the tiled driver on a 2 x 2 mesh: every level counted
+    under ``tiles``; the exchanges by kind (two a level for the halo and
+    the winners' ring, rows then columns; two before each colour step; two
+    all-gathers a join), their bytes by kind and the bytes' sum; each
+    exchange one ``mf.exchange`` range and each join one ``mf.join``,
+    inside its level."""
+    cfg = MotionConfig(**TWO_LEVELS)
+    a, b = (torch.as_tensor(x) for x in _frames(1, 16, 24, seed=4))
+    mesh = tiled.Mesh((2, 2), ("ty", "tx"))
+    prev = profiling.spans(True)
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            c0 = profiling.counters()
+            tiled.estimate_flow_driver_tiled(a, b, cfg, mesh, axis_x="tx")
+            got = _tiled_counts(c0, profiling.counters())
+    finally:
+        profiling.spans(prev)
+    steps = cfg.sweeps_per_round * 4 * (cfg.block_sizes[0].bit_length() - 1)
+    assert got["tiled_levels_by_form"] == {"tiles": cfg.num_levels}
+    assert got["exchanges_by_kind"] == {"halo": 2 * cfg.num_levels, "rival": 2 * cfg.num_levels,
+                                        "ghost": 2 * steps * cfg.num_levels,
+                                        "join": 2 * cfg.num_levels}
+    assert set(got["exchange_bytes_by_kind"]) == set(got["exchanges_by_kind"])
+    assert got["exchange_bytes"] == sum(got["exchange_bytes_by_kind"].values()) > 0
+    path = tmp_path / "tiles.json"
+    prof.export_chrome_trace(str(path))
+    ev = [e for e in json.loads(path.read_text())["traceEvents"]
+          if e.get("ph") == "X" and str(e.get("name", "")).startswith("mf.")]
+    levels = [e for e in ev if e["name"] == "mf.level"]
+    exchanges = [e for e in ev if e["name"] == "mf.exchange"]
+    joins = [e for e in ev if e["name"] == "mf.join"]
+    assert len(exchanges) == sum(got["exchanges_by_kind"].values()) - len(joins) * 2
+    assert len(joins) == cfg.num_levels
+    assert all(any(_inside(e, lv) for lv in levels) for e in exchanges + joins)
+
+
+def test_the_batch_gather_counts_one_exchange_in_its_span(monkeypatch):
+    """Batch chunks gathered over a world of 4: one exchange of kind
+    ``batch``, the chunk sent to the three other processes."""
+    world = 4
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: world)
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda *a, **k: "gloo")
+
+    def all_gather(parts, x, *a, **k):
+        for p in parts:
+            p.copy_(x)
+    monkeypatch.setattr(torch.distributed, "all_gather", all_gather)
+    x = torch.ones((2, 4, 6, 2), dtype=torch.float32)
+    mesh = tiled.Mesh((4, 1), ("batch", "ty"), ranks=np.arange(4).reshape(4, 1))
+    c0 = profiling.counters()
+    out = tiled._gather_batch(x, mesh, "batch")
+    got = _tiled_counts(c0, profiling.counters())
+    assert out.shape == (8, 4, 6, 2)
+    assert got["exchanges_by_kind"] == {"batch": 1}
+    assert got["exchange_bytes_by_kind"] == {"batch": x.nbytes * (world - 1)}
+
+
+def test_an_untiled_request_counts_no_exchange_and_opens_no_tile_span(tmp_path):
+    cfg = MotionConfig(**TWO_LEVELS)
+    a, b = _frames(1, 16, 24, seed=4)
+    c0 = profiling.counters()
+    ev = _traced_events(cfg, a, b, tmp_path, on=True)
+    got = _tiled_counts(c0, profiling.counters())
+    assert got == {"exchanges_by_kind": {}, "exchange_bytes_by_kind": {},
+                   "tiled_levels_by_form": {}, "exchange_bytes": 0}
+    assert ev and not {"mf.exchange", "mf.join"} & {e["name"] for e in ev}
 
 
 WRAPPERS = [gather.gather_windows, cv_diff.pooled_cvs, cv_diff.deep_pooled_cvs,
